@@ -8,9 +8,11 @@ Frame-stack layout:
     [row Gray codes + inverses, if row_gray_bits > 0]
     last N:           phase-shift fringes k = 0..N-1.
 
+``coding="multifreq"`` is white, black and then ``phase_steps`` fringes for
+each pitch of ``cfg.mf_pitches`` (``slr_torch.codec.multifreq``).
+
 ``decode_stack`` is the unfused per-pixel decode; the fused kernel
 (``slr_torch.kernels.fused_scan``) is held to it by the tests.
-``coding="multifreq"`` is ROADMAP slice 2.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from slr_torch.codec.graycode import decode_gray, generate_gray_patterns
+from slr_torch.codec.multifreq import decode_multifreq, generate_multifreq_stack
 from slr_torch.codec.phaseshift import TWO_PI, decode_phase, generate_phase_patterns
 from slr_torch.codec.unwrap import unwrap_temporal
 from slr_torch.config import DecodeConfig, PatternConfig
@@ -32,16 +35,14 @@ class DecodeResult(NamedTuple):
     quality: torch.Tensor      # (H,W) phase modulation B (or contrast)
 
 
-def _require_gray_phase(cfg: PatternConfig):
-    if cfg.coding != "gray_phase":
-        raise NotImplementedError(
-            f"coding={cfg.coding!r} is not ported yet (ROADMAP slice 2)")
-
-
 def generate_pattern_stack(cfg: PatternConfig, device="cpu"):
     """(num_frames, proj_height, proj_width) float32 in [0,1]."""
-    _require_gray_phase(cfg)
     W, H = cfg.proj_width, cfg.proj_height
+    if cfg.coding == "multifreq":
+        stack = generate_multifreq_stack(W, H, cfg.mf_pitches,
+                                         steps=cfg.phase_steps, device=device)
+        assert stack.shape[0] == cfg.num_frames, (stack.shape, cfg.num_frames)
+        return stack
     frames = [torch.ones((1, H, W), device=device),
               torch.zeros((1, H, W), device=device)]
 
@@ -103,11 +104,16 @@ def decode_stack(frames, cfg: PatternConfig, dec: DecodeConfig,
     normalized to [0,1] by the ADC range (``bit_depth`` bits, default the
     container's full range) so thresholds keep one meaning.
     """
-    _require_gray_phase(cfg)
     if not frames.is_floating_point():
         m = ((1 << bit_depth) - 1 if bit_depth is not None
              else torch.iinfo(frames.dtype).max)
         frames = frames.to(torch.float32) / float(m)
+    if cfg.coding == "multifreq":
+        x_p, mask, quality = decode_multifreq(
+            frames, cfg.mf_pitches, steps=cfg.phase_steps,
+            black_threshold=dec.black_threshold,
+            modulation_threshold=dec.modulation_threshold)
+        return DecodeResult(x_p=x_p, y_p=None, mask=mask, quality=quality)
     s = _slices(cfg)
     white, black = frames[s["white"]], frames[s["black"]]
 

@@ -4,5 +4,7 @@ plain PyTorch version (port of ``slr.kernels``)."""
 from slr_torch.kernels.fused_scan import (
     FusedScanOut,
     fused_decode_triangulate,
+    fused_decode_triangulate_hdr,
+    fused_decode_triangulate_hdr_reference,
     fused_decode_triangulate_reference,
 )

@@ -6,4 +6,5 @@ from slr_torch.pipeline.reconstruct import (
     accumulate_by_projector,
     reconstruct_dense,
     reconstruct_scan,
+    reconstruct_scan_hdr,
 )

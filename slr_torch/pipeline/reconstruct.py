@@ -1,9 +1,11 @@
 """Single-scan reconstruction (port of ``slr/pipeline/reconstruct.py``).
 
-``reconstruct_scan`` is the general unfused path (any gray_phase layout);
-``reconstruct_dense`` is the production path: the fused kernel, colour
-attach and nothing else. ``DenseReconstructor`` holds the calibration as
-module buffers, so ``.to(device)`` moves it with the module.
+``reconstruct_scan`` is the general unfused path (any pattern layout);
+``reconstruct_dense`` is the production path: the fused kernel K1, colour
+attach and nothing else; ``reconstruct_scan_hdr`` fuses an exposure
+bracket, through K2 for gray_phase coding with phase steps.
+``DenseReconstructor`` holds the calibration as module buffers, so
+``.to(device)`` moves it with the module; a 4-D input is a bracket.
 """
 
 from __future__ import annotations
@@ -13,11 +15,13 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from slr_torch.codec.patterns import decode_stack
+from slr_torch.codec.exposure import decode_multi_exposure
+from slr_torch.codec.patterns import DecodeResult, decode_stack
 from slr_torch.config import DecodeConfig, PatternConfig, ReconstructConfig
 from slr_torch.geom.camera import Camera
 from slr_torch.geom.triangulate import triangulate_plane, triangulate_rays
-from slr_torch.kernels.fused_scan import fused_decode_triangulate
+from slr_torch.kernels.fused_scan import (
+    fused_decode_triangulate, fused_decode_triangulate_hdr)
 
 
 def _white_color(frames):
@@ -43,13 +47,8 @@ def _pixel_grid(H: int, W: int, device):
     return u, v
 
 
-def reconstruct_scan(
-    frames, cam: Camera, proj: Camera, cfg: PatternConfig,
-    dec: DecodeConfig = DecodeConfig(),
-    rec: ReconstructConfig = ReconstructConfig(),
-) -> ScanCloud:
-    """General decode -> triangulate (configs 1-2; any pattern layout)."""
-    res = decode_stack(frames, cfg, dec)
+def _triangulate_decoded(res: DecodeResult, cam: Camera, proj: Camera,
+                         rec: ReconstructConfig, colors) -> ScanCloud:
     u, v = _pixel_grid(*res.x_p.shape, res.x_p.device)
     if res.y_p is not None and rec.method in ("midpoint", "dlt"):
         pts, _ = triangulate_rays(cam, proj, u, v, res.x_p, res.y_p)
@@ -58,8 +57,45 @@ def reconstruct_scan(
         pts, depth = triangulate_plane(cam, proj, u, v, res.x_p)
     mask = res.mask & (depth > rec.min_depth) & (depth < rec.max_depth)
     pts = torch.where(mask[..., None], pts, 0.0)
-    return ScanCloud(points=pts, mask=mask, colors=_white_color(frames),
+    return ScanCloud(points=pts, mask=mask, colors=colors,
                      quality=res.quality, x_p=res.x_p)
+
+
+def reconstruct_scan(
+    frames, cam: Camera, proj: Camera, cfg: PatternConfig,
+    dec: DecodeConfig = DecodeConfig(),
+    rec: ReconstructConfig = ReconstructConfig(),
+) -> ScanCloud:
+    """General decode -> triangulate (configs 1-2; any pattern layout)."""
+    return _triangulate_decoded(decode_stack(frames, cfg, dec), cam, proj,
+                                rec, _white_color(frames))
+
+
+def reconstruct_scan_hdr(
+    stacks, cam: Camera, proj: Camera, cfg: PatternConfig,
+    dec: DecodeConfig = DecodeConfig(),
+    rec: ReconstructConfig = ReconstructConfig(),
+    saturation: float = 0.98,
+) -> ScanCloud:
+    """Exposure-bracketed reconstruction of (E, F, H, W) stacks.
+
+    gray_phase coding with inverse patterns and phase steps takes K2: one
+    launch reads the bracket, fuses it per pixel and triangulates. Every
+    other coding is decoded by ``decode_multi_exposure`` (per pixel the best
+    usable exposure) and triangulated unfused. Colours come from the
+    brightest unsaturated white frame of the bracket.
+    """
+    whites = torch.stack([_white_color(s) for s in stacks])      # (E, H, W)
+    colors = torch.where(whites < saturation, whites, 0.0).amax(dim=0)
+    if (cfg.coding == "gray_phase" and cfg.use_inverse
+            and cfg.phase_steps > 0):
+        out = fused_decode_triangulate_hdr(
+            stacks, cam, proj, cfg, dec, saturation=saturation,
+            z_bounds=(rec.min_depth, rec.max_depth))
+        return ScanCloud(points=out.points.movedim(0, -1), mask=out.mask > 0.5,
+                         colors=colors, quality=out.quality, x_p=out.x_p)
+    res = decode_multi_exposure(stacks, cfg, dec, saturation=saturation)
+    return _triangulate_decoded(res, cam, proj, rec, colors)
 
 
 def reconstruct_dense(
@@ -68,7 +104,9 @@ def reconstruct_dense(
     rec: ReconstructConfig = ReconstructConfig(),
     spatial_iters: int = 0,
 ) -> ScanCloud:
-    """Flagship fused path (config 3): one kernel launch per scan.
+    """Flagship fused path: one kernel launch per scan, any K1 branch
+    (float32 or integer frames; Gray + phase, Gray only or multifreq;
+    column plane, or midpoint when rows are coded).
 
     ``points`` is a (H, W, 3) view of the kernel's (3, H, W) output.
     """
@@ -108,7 +146,8 @@ def accumulate_by_projector(cloud: ScanCloud, proj_width: int):
 
 
 class DenseReconstructor(nn.Module):
-    """``reconstruct_dense`` with the calibration held as buffers."""
+    """``reconstruct_dense`` with the calibration held as buffers; an
+    (E, F, H, W) exposure bracket goes to ``reconstruct_scan_hdr``."""
 
     def __init__(self, cam: Camera, proj: Camera, cfg: PatternConfig,
                  dec: DecodeConfig = DecodeConfig(),
@@ -131,5 +170,8 @@ class DenseReconstructor(nn.Module):
         return self._camera("proj")
 
     def forward(self, frames) -> ScanCloud:
+        if frames.dim() == 4:
+            return reconstruct_scan_hdr(frames, self.cam, self.proj, self.cfg,
+                                        self.dec, self.rec)
         return reconstruct_dense(frames, self.cam, self.proj, self.cfg,
                                  self.dec, self.rec)

@@ -1,5 +1,5 @@
-"""slr_torch.synth — the config-3 subset of the synthetic virtual scanner
-(port of ``slr.synth``)."""
+"""slr_torch.synth — the subset of the synthetic virtual scanner that the
+ported scan paths use (port of ``slr.synth``)."""
 
 from slr_torch.synth.render import RenderedScan, default_rig, render_scan
-from slr_torch.synth.scene import bumps_depth
+from slr_torch.synth.scene import bumps_depth, checker_albedo

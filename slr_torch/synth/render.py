@@ -4,10 +4,10 @@ For each camera pixel: cast the camera ray to the scene depth, project the
 3D point into the projector, sample each projected pattern there, apply
 ambient light and optional sensor noise. Exact ground truth rides along.
 
-Only the subset that config 3 uses is ported: ``coding="gray_phase"``, an
-ideal projector (no cast shadows, no defocus, gamma 1), uniform albedo
-and the analytic phase fringes. The rest is ROADMAP slice 10. Noise
-comes from a ``torch.Generator``; its bits differ from ``jax.random``'s.
+Ported: both codings, an ideal projector (no cast shadows, no defocus,
+gamma 1), an optional albedo map and the analytic phase fringes. The rest
+is ROADMAP slice 10. Noise comes from a ``torch.Generator``; its bits
+differ from ``jax.random``'s.
 """
 
 from __future__ import annotations
@@ -85,6 +85,7 @@ def render_scan(
     proj: Camera,
     depth,                      # (H, W) camera-frame depth along z
     cfg: PatternConfig,
+    albedo: Optional[torch.Tensor] = None,   # (H, W) in [0,1]
     ambient: float = 0.05,
     noise_std: float = 0.0,
     generator: Optional[torch.Generator] = None,
@@ -96,9 +97,6 @@ def render_scan(
     if cast_shadows or defocus_sigma != 0.0 or proj_gamma != 1.0:
         raise NotImplementedError(
             "cast shadows, defocus and projector gamma are ROADMAP slice 10")
-    if cfg.coding != "gray_phase":
-        raise NotImplementedError(
-            f"rendering coding={cfg.coding!r} is ROADMAP slice 10")
     H, W = depth.shape
     dev = depth.device
     v = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
@@ -118,9 +116,16 @@ def render_scan(
     # coordinate (a continuous sinusoid; bilinear interpolation of the
     # pitch-p pattern image would warp the phase); the other frames are
     # sampled from the pattern images
-    ps, rps = cfg.phase_steps, cfg.row_phase_steps
+    # (coordinate, pitch, steps) of each fringe set, in stack order
+    if cfg.coding == "multifreq":
+        fringes = [(xp, p, cfg.phase_steps) for p in cfg.mf_pitches]
+    else:
+        fringes = [f for f in ((xp, cfg.fringe_pitch, cfg.phase_steps),
+                               (yp, cfg.row_fringe_pitch, cfg.row_phase_steps))
+                   if f[2]]
     patterns = generate_pattern_stack(cfg, device=dev)
-    segs = [_bilinear_sample(patterns[: patterns.shape[0] - ps - rps], xp, yp)]
+    n_sampled = patterns.shape[0] - sum(f[2] for f in fringes)
+    segs = [_bilinear_sample(patterns[:n_sampled], xp, yp)]
 
     def analytic_fringes(coord, pitch: float, steps: int):
         k = torch.arange(steps, dtype=torch.float32, device=dev)
@@ -128,13 +133,12 @@ def render_scan(
               - 2.0 * math.pi * k[:, None, None] / steps)
         return 0.5 + 0.5 * torch.cos(ph)
 
-    if ps:
-        segs.append(analytic_fringes(xp, cfg.fringe_pitch, ps))
-    if rps:
-        segs.append(analytic_fringes(yp, cfg.row_fringe_pitch, rps))
+    segs += [analytic_fringes(*f) for f in fringes]
     proj_light = torch.where(illuminated[None], torch.cat(segs, dim=0), 0.0)
 
-    frames = ambient + (1.0 - ambient) * proj_light  # uniform albedo 1
+    frames = ambient + (1.0 - ambient) * proj_light
+    if albedo is not None:  # JAX multiplies by ones when None: exact
+        frames = albedo[None] * frames
     if noise_std > 0.0:
         frames = frames + noise_std * torch.randn(
             frames.shape, generator=generator, device=dev)

@@ -1,7 +1,8 @@
 """Synthetic scenes: camera-frame depth maps (port of ``slr/synth/scene.py``).
 
-Only ``bumps_depth``, the config-3 scene, is ported so far; the rest of
-``slr.synth`` is ROADMAP slice 10.
+Only ``bumps_depth`` (the config-3 scene) and ``checker_albedo`` (the HDR
+bracket's texture) are ported so far; the rest of ``slr.synth`` is ROADMAP
+slice 10.
 """
 
 from __future__ import annotations
@@ -26,3 +27,12 @@ def bumps_depth(h: int, w: int, base: float = 500.0, amp: float = 30.0,
         + 0.5 * torch.exp(-(((u - 0.5) ** 2 + (v - 0.5) ** 2) / 0.02))
     )
     return z.to(torch.float32)
+
+
+def checker_albedo(h: int, w: int, cells: int = 8, lo: float = 0.4,
+                   hi: float = 1.0, device="cpu"):
+    """Checkerboard albedo (h, w) to exercise texture-dependent modulation."""
+    v = torch.arange(h, device=device)[:, None]
+    u = torch.arange(w, device=device)[None, :]
+    c = ((u * cells // w) + (v * cells // h)) % 2
+    return torch.where(c == 0, lo, hi).to(torch.float32)

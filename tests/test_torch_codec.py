@@ -17,6 +17,7 @@ from slr.config import PatternConfig as JPatternConfig
 from slr.synth import bumps_depth
 from slr.synth.render import default_rig, render_scan
 from slr_torch.codec import graycode as tg
+from slr_torch.codec import multifreq as tmf
 from slr_torch.codec import patterns as tp
 from slr_torch.codec import phaseshift as tph
 from slr_torch.codec import unwrap as tu
@@ -49,6 +50,8 @@ def frames_np():
          row_gray_bits=4, row_phase_steps=3),
     dict(proj_width=256, proj_height=192, gray_bits=6, phase_steps=0,
          use_inverse=False),
+    dict(proj_width=256, proj_height=192, coding="multifreq", phase_steps=4,
+         mf_levels=3, mf_ratio=6.0),
 ])
 def test_pattern_stack_matches_reference(kw):
     # JAX run eagerly: under jit XLA fuses the fringe cos differently
@@ -139,12 +142,56 @@ def test_decode_stack_row_codes_match_reference():
         assert (d > 1e-3).mean() <= 1e-4, d.max()
 
 
-def test_multifreq_is_not_ported_yet():
-    cfg = PatternConfig(coding="multifreq")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tp.generate_pattern_stack(cfg)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tp.decode_stack(torch.zeros(cfg.num_frames, 4, 4), cfg, DecodeConfig())
+MF = dict(proj_width=256, proj_height=192, coding="multifreq", phase_steps=4,
+          mf_levels=3, mf_ratio=6.0)
+
+
+@pytest.fixture(scope="module")
+def multifreq_np():
+    """Noiseless JAX multifreq render + seeded numpy noise, clipped."""
+    cam, proj = default_rig(cam_w=CAM_W, cam_h=CAM_H, proj_w=256, proj_h=192,
+                            baseline=150.0, toe_in_deg=14.0)
+    scan = render_scan(cam, proj, bumps_depth(CAM_H, CAM_W, base=480.0, amp=25.0),
+                       JPatternConfig(**MF))
+    frames = np.array(scan.frames)
+    noise = np.random.default_rng(4).standard_normal(frames.shape)
+    return np.clip(frames + 0.005 * noise.astype(np.float32), 0, 1).astype(np.float32)
+
+
+def test_multifreq_stack_matches_reference():
+    from slr.codec import multifreq as jmf
+
+    assert tmf.default_pitches(1024) == jmf.default_pitches(1024)
+    assert tmf.default_pitches(256, 3, 6.0) == jmf.default_pitches(256, 3, 6.0)
+    pitches = jmf.default_pitches(256, 3, 6.0)
+    a = np.asarray(jmf.generate_multifreq_stack(256, 192, pitches, steps=4))
+    b = tmf.generate_multifreq_stack(256, 192, pitches, steps=4).numpy()
+    assert a.shape == b.shape == (14, 192, 256)
+    assert np.abs(a - b).max() <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_decode_multifreq_matches_reference(multifreq_np, dtype):
+    """decode_multifreq itself, and decode_stack's multifreq branch."""
+    from slr.codec import multifreq as jmf
+
+    f = multifreq_np
+    if dtype == "uint8":
+        f = np.asarray(quantize_frames(torch.from_numpy(f)))
+    cfg = PatternConfig(**MF)
+    rj = jc.decode_stack(jnp.asarray(f), JPatternConfig(**MF), JDecodeConfig())
+    rt = tp.decode_stack(torch.from_numpy(f), cfg, DecodeConfig())
+    assert rt.y_p is None
+    xj, mj, qj = jmf.decode_multifreq(jnp.asarray(multifreq_np), cfg.mf_pitches, 4)
+    xt, mt, qt = tmf.decode_multifreq(torch.from_numpy(multifreq_np), cfg.mf_pitches, 4)
+    for a, b in (((rj.x_p, rj.mask, rj.quality), (rt.x_p, rt.mask, rt.quality)),
+                 ((xj, mj, qj), (xt, mt, qt))):
+        mj_, mt_ = np.asarray(a[1]), b[1].numpy()
+        assert (mj_ != mt_).mean() <= 1e-3 and mt_.mean() > 0.4
+        both = mj_ & mt_
+        d = np.abs(np.asarray(a[0]) - b[0].numpy())[both]
+        assert (d > 1e-3).mean() <= 1e-4, d.max()
+        np.testing.assert_allclose(b[2].numpy(), np.asarray(a[2]), atol=1e-5)
 
 
 def test_generate_phase_patterns_match_reference():

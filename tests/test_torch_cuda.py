@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels (K1, every branch, and K2) against their plain
+PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it also runs on a machine without it:
@@ -12,10 +13,11 @@ import pytest
 import torch
 
 from slr_torch.config import DecodeConfig, PatternConfig
+from slr_torch.geom.camera import make_camera
 from slr_torch.kernels import fused_scan as fs
 from slr_torch.pipeline.reconstruct import DenseReconstructor, accumulate_by_projector
-from slr_torch.synth.render import default_rig, render_scan
-from slr_torch.synth.scene import bumps_depth
+from slr_torch.synth.render import default_rig, quantize_frames, render_scan
+from slr_torch.synth.scene import bumps_depth, checker_albedo
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
@@ -91,3 +93,116 @@ def test_kernel_rejects_bad_input(cuda):
         fs.launch_fused_scan(scan.frames.transpose(1, 2), params)
     with pytest.raises(ValueError, match="do not match"):
         fs.launch_fused_scan(scan.frames[:, :40].contiguous(), params)
+
+
+PROJ = dict(proj_width=256, proj_height=192)
+BRANCHES = {
+    "uint8": dict(gray_bits=6, phase_steps=4),
+    "uint16_bit_depth_12": dict(gray_bits=6, phase_steps=4),
+    "gray_only": dict(gray_bits=7, phase_steps=0),
+    "midpoint": dict(gray_bits=6, row_gray_bits=6, phase_steps=4),
+    "midpoint_row_phase": dict(gray_bits=6, row_gray_bits=6, phase_steps=4,
+                               row_phase_steps=4),
+    "multifreq": dict(coding="multifreq", phase_steps=4, mf_levels=3,
+                      mf_ratio=6.0),
+    "decode_only": dict(gray_bits=6, row_gray_bits=5, phase_steps=4,
+                        row_phase_steps=4),
+}
+
+
+def _agrees(k, p, rows):
+    """The tolerances of test_kernel_matches_plain_version, with y_p held
+    like x_p where rows are coded."""
+    mk, mp = k.mask > 0.5, p.mask > 0.5
+    assert float((mk ^ mp).float().mean()) <= 1e-3
+    both = mk & mp
+    assert float(both.float().mean()) > 0.3
+    off = (k.x_p - p.x_p).abs() > 1e-3
+    if rows:
+        off = off | ((k.y_p - p.y_p).abs() > 1e-3)
+    else:
+        assert float(k.y_p.abs().max()) == 0.0
+    assert float((both & off).sum()) <= 1e-4 * float(both.sum())
+    agree = both & ~off
+    assert float((k.points - p.points).abs().amax(0)[agree].max()) <= 1e-2
+    assert float((k.quality - p.quality).abs().max()) <= 1e-5
+    assert not bool(torch.isnan(k.points).any())
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_kernel_branch_matches_plain_version(cuda, branch):
+    cfg = PatternConfig(**PROJ, **BRANCHES[branch])
+    midpoint = branch.startswith("midpoint")
+    cam, proj = default_rig(cam_w=320, cam_h=256, proj_w=256, proj_h=192,
+                            baseline=150.0, toe_in_deg=14.0, device=cuda,
+                            proj_dist=([-0.08, 0.02, 0.001, -0.001, 0.0]
+                                       if midpoint else None))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    frames = render_scan(cam, proj, bumps_depth(256, 320, base=480.0, amp=25.0,
+                                                device=cuda),
+                         cfg, noise_std=0.0 if midpoint else 0.005,
+                         generator=gen).frames
+    kw = {}
+    if branch in ("uint8", "decode_only"):
+        frames = quantize_frames(frames)
+    elif branch == "uint16_bit_depth_12":
+        frames = torch.clamp(torch.round(frames * 4095), 0, 4095).to(torch.uint16)
+        kw = dict(bit_depth=12)
+    if branch == "decode_only":  # a posed camera, no projector model
+        cam = make_camera(cam.fx, cam.fy, cam.cx, cam.cy, R=proj.R, t=proj.t,
+                          device=cuda)
+        proj, kw = None, dict(decode_only=True)
+    dec = DecodeConfig()
+    before = fs.fused_decode_triangulate.launches
+    k = fs.fused_decode_triangulate(frames, cam, proj, cfg, dec, **kw)
+    assert fs.fused_decode_triangulate.launches == before + 1
+    p = fs.fused_decode_triangulate_reference(frames, cam, proj, cfg, dec, **kw)
+    torch.cuda.synchronize()
+    _agrees(k, p, rows=cfg.row_gray_bits > 0)
+    if branch == "decode_only":
+        assert float(k.points.abs().max()) == 0.0
+
+
+def _bracket(device, gains=(1.0, 3.2, 10.0)):
+    cam, proj = default_rig(cam_w=320, cam_h=256, proj_w=256, proj_h=192,
+                            device=device)
+    cfg = PatternConfig(**PROJ, gray_bits=5, phase_steps=4)
+    scan = render_scan(cam, proj, bumps_depth(256, 320, base=480.0, amp=25.0,
+                                              device=device), cfg,
+                       albedo=checker_albedo(256, 320, cells=6, lo=0.035,
+                                             hi=0.75, device=device))
+    gen = torch.Generator(device=device).manual_seed(5)
+    bracket = torch.stack([quantize_frames(torch.clamp(
+        scan.frames * g + 0.003 * torch.randn(scan.frames.shape, generator=gen,
+                                              device=device), 0.0, 1.0))
+        for g in gains])
+    return cam, proj, cfg, scan, bracket
+
+
+@pytest.mark.parametrize("fuse", ["sum", "select"])
+def test_hdr_kernel_matches_plain_version(cuda, fuse):
+    cam, proj, cfg, _, bracket = _bracket(cuda)
+    dec = DecodeConfig()
+    before = fs.fused_decode_triangulate_hdr.launches
+    k = fs.fused_decode_triangulate_hdr(bracket, cam, proj, cfg, dec, fuse=fuse)
+    assert fs.fused_decode_triangulate_hdr.launches == before + 1
+    p = fs.fused_decode_triangulate_hdr_reference(bracket, cam, proj, cfg, dec,
+                                                  fuse=fuse)
+    torch.cuda.synchronize()
+    _agrees(k, p, rows=False)
+
+
+def test_dense_reconstructor_launches_once_on_uint8_and_bracket(cuda):
+    cam, proj, cfg, scan, bracket = _bracket(torch.device("cpu"))
+    model = DenseReconstructor(cam, proj, cfg).to(cuda)
+    # the unit-gain exposure alone (no saturated cells), then the bracket
+    for frames, k1, k2 in ((bracket[0], 1, 0), (bracket, 0, 1)):
+        fs.fused_decode_triangulate.launches = 0
+        fs.fused_decode_triangulate_hdr.launches = 0
+        cloud = model(frames.to(cuda))
+        torch.cuda.synchronize()
+        assert (fs.fused_decode_triangulate.launches,
+                fs.fused_decode_triangulate_hdr.launches) == (k1, k2)
+        valid = cloud.mask.cpu() & scan.mask_true
+        err = torch.linalg.norm(cloud.points.cpu() - scan.points_true, dim=-1)[valid]
+        assert float(err.square().mean().sqrt()) < 0.5

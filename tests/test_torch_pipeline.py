@@ -1,8 +1,10 @@
 """slr_torch pipeline and synth against the JAX reference (CPU).
 
-The whole slice: ``render_scan`` on ``default_rig`` + ``bumps_depth``,
-``reconstruct_dense`` (through the fused kernel's plain version on the
-CPU), ``reconstruct_scan``, ``accumulate_by_projector`` and ``entry``.
+The whole slice: ``render_scan`` on ``default_rig`` + ``bumps_depth`` (and
+``checker_albedo``, multifreq patterns), ``reconstruct_dense`` (through the
+fused kernel's plain version on the CPU, float32 and integer stacks),
+``reconstruct_scan``, ``accumulate_by_projector`` and ``entry``; the
+exposure-bracket path is tests/test_torch_hdr.py.
 Scan tolerances are those of tests/test_torch_fused_scan.py, for the same
 reasons (rare code-edge flips from ulp-level differences).
 """
@@ -24,7 +26,7 @@ from slr_torch.entry import entry
 from slr_torch.geom.camera import camera_from_numpy
 from slr_torch.pipeline import reconstruct as trec
 from slr_torch.synth import render as trender
-from slr_torch.synth.scene import bumps_depth
+from slr_torch.synth.scene import bumps_depth, checker_albedo
 
 torch.set_num_threads(2)
 
@@ -165,3 +167,57 @@ def test_entry_matches_reference_entry():
     assert (mj != mt).mean() <= 1e-3
     both = mj & mt
     assert np.abs(np.asarray(ptsj) - pts.numpy())[both].max() <= 1e-2
+
+
+def test_checker_albedo_matches_reference():
+    from slr.synth import checker_albedo as jchecker
+
+    for h, w, kw in ((256, 320, {}), (215, 300, dict(cells=6, lo=0.035, hi=0.75)),
+                     (1024, 1280, dict(cells=8, lo=0.035, hi=0.75))):
+        a = checker_albedo(h, w, **kw)
+        assert a.dtype == torch.float32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(jchecker(h, w, **kw)))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(CFG, row_gray_bits=5, row_phase_steps=4),
+    dict(proj_width=256, proj_height=192, coding="multifreq", phase_steps=4,
+         mf_levels=3, mf_ratio=6.0),
+])
+def test_render_albedo_and_codings_match_reference(kw):
+    from slr.synth import checker_albedo as jchecker
+
+    camj, projj = jrender.default_rig(**RIG)
+    sj = jrender.render_scan(camj, projj, jbumps(CAM_H, CAM_W, base=480.0, amp=25.0),
+                             JPatternConfig(**kw),
+                             albedo=jchecker(CAM_H, CAM_W, cells=6, lo=0.035, hi=0.75))
+    cam, proj = trender.default_rig(**RIG)
+    st = trender.render_scan(cam, proj, bumps_depth(CAM_H, CAM_W, base=480.0, amp=25.0),
+                             PatternConfig(**kw),
+                             albedo=checker_albedo(CAM_H, CAM_W, cells=6, lo=0.035, hi=0.75))
+    assert st.frames.shape == sj.frames.shape == (PatternConfig(**kw).num_frames,
+                                                  CAM_H, CAM_W)
+    assert np.abs(st.frames.numpy() - np.asarray(sj.frames)).max() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "uint16"])
+def test_reconstruct_dense_integer_stack_matches_reference(scene, dtype):
+    """reconstruct_dense hands an integer stack to the kernel unchanged (the
+    container's full range: uint16 here holds 16-bit data)."""
+    camj, projj, cam, proj, frames = scene
+    q = np.asarray(trender.quantize_frames(torch.from_numpy(frames),
+                                           getattr(torch, dtype)))
+    cj = jrec.reconstruct_dense(jnp.asarray(q), camj, projj, JPatternConfig(**CFG))
+    ct = trec.reconstruct_dense(torch.from_numpy(q), cam, proj, PatternConfig(**CFG))
+    mj, mt = np.asarray(cj.mask), ct.mask.numpy()
+    assert (mj != mt).mean() <= 1e-3
+    both = mj & mt
+    assert both.mean() > 0.3
+    dx = np.abs(np.asarray(cj.x_p) - ct.x_p.numpy())
+    assert (dx[both] > 1e-3).mean() <= 1e-4
+    assert np.abs(np.asarray(cj.points) - ct.points.numpy())[both & (dx <= 1e-3)].max() <= 1e-2
+    assert np.abs(np.asarray(cj.quality) - ct.quality.numpy()).max() <= 1e-5
+    # XLA turns the jitted division by the ADC maximum into a product with
+    # its reciprocal: 1 ulp
+    np.testing.assert_allclose(ct.colors.numpy(), np.asarray(cj.colors), rtol=0,
+                               atol=6e-8)
