@@ -2,27 +2,31 @@
 
     python3 chip_smoke.py
 
-From the repository root: builds the port's CUDA kernels (K1 and K2 of
-``slr_torch/kernels/csrc/fused_scan.cu``) with nvcc, holds every branch to
-its plain PyTorch version on the card, and drives each scan path through
-the entry point a user calls (``DenseReconstructor``, ``slr_torch.entry``)
-on the config-3 rig (1280x1024 camera, 1024x768 projector): float32,
-uint8 and uint16 ingest, Gray only, row+column midpoint with and without
-row phase, multifreq, ``decode_only`` on a posed camera, and the HDR
-exposure bracket (K2, both fusions). Each path's cloud is checked against
-the synthetic ground truth and its launches counted; then the kernels,
-their plain versions and the scan are timed with CUDA events. Each phase
-prints one JSON line; the last line is ``{"ok": true, "device": {...}}``.
-Any failed check ends the run with a traceback and a non-zero exit, as
-does a machine without a CUDA device. Imports nothing of JAX.
-"""
+From the repository root: builds the port's CUDA kernels with nvcc, one
+process per source, all at once (K1 and K2 of
+``slr_torch/kernels/csrc/fused_scan.cu``; K3, K4 and K5 of
+``slr_torch/kernels/csrc/unwrap.cu``), holds every kernel to its plain
+PyTorch version on the card, and drives each scan path through the entry
+point a user calls (``DenseReconstructor``, ``slr_torch.entry``) on the
+config-3 rig (1280x1024 camera, 1024x768 projector): float32, uint8 and
+uint16 ingest, Gray only, row+column midpoint with and without row phase,
+multifreq, ``decode_only`` on a posed camera, the HDR exposure bracket (K2,
+both fusions), and the spatial repair (``spatial_iters=4``: voting, K4 at
+this size and K3 on a smaller camera; wavefront, K5). Each path's cloud is
+checked against the synthetic ground truth and its launches counted; then
+the kernels, their plain versions and the scan are timed with CUDA events.
+Each phase prints one JSON line; the last line is ``{"ok": true, "device":
+{...}}``. Any failed check ends the run with a traceback and a non-zero
+exit, as does a machine without a CUDA device. Imports nothing of JAX."""
 
 import json
 import math
 import statistics
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 # config-3 scene
@@ -43,6 +47,10 @@ TIMED_RUNS = 20
 HBM_PEAK_TBS = 3.35        # H100 SXM data sheet
 HDR_GAINS = (1.0, 3.2, 10.0)
 PROJ_DIST = [-0.08, 0.02, 0.001, -0.001, 0.0]
+LIBRARIES = ("fused_scan", "unwrap")   # csrc/<name>.cu, one nvcc each
+WAVEFRONT_TOL = 1e-3       # rad, K5 against its plain version on reached pixels
+BLOB_TOL = 1e-3            # rad, a repaired map against the clean phase
+SPATIAL_ITERS = 4
 
 
 def emit(name, **fields):
@@ -155,30 +163,45 @@ def main():
     emit("device", nvidia_smi=card, torch=torch.__version__,
          cuda=torch.version.cuda)
 
+    from slr_torch.codec import unwrap as pu
     from slr_torch.codec.patterns import decode_stack
     from slr_torch.config import DecodeConfig, PatternConfig
     from slr_torch.entry import entry
     from slr_torch.geom.camera import make_camera
     from slr_torch.kernels import fused_scan as fs
+    from slr_torch.kernels import unwrap_scan as us
+    from slr_torch.kernels import wavefront as wf
     from slr_torch.kernels.build import build_library
     from slr_torch.pipeline.reconstruct import (
-        DenseReconstructor, accumulate_by_projector)
+        SPATIAL_MODES, DenseReconstructor, accumulate_by_projector, spatial_repair)
     from slr_torch.synth.render import default_rig, quantize_frames, render_scan
     from slr_torch.synth.scene import bumps_depth, checker_albedo
 
     kernel = fs.fused_decode_triangulate
     kernel_hdr = fs.fused_decode_triangulate_hdr
+    # every kernel wrapper's launch count, by kernel
+    wrappers = {"k1": kernel, "k2": kernel_hdr, "k3": us.quality_unwrap,
+                "k4": us.quality_unwrap_tiled, "k5": wf.wavefront_pass}
     dev = torch.device("cuda")
     dec = DecodeConfig()
-    errs = {"k1": [], "k2": []}   # points_max_abs_err of every comparison
+    # points_max_abs_err (K1, K2), |dPhi| (K3-K5) of every comparison
+    errs = {"k1": [], "k2": [], "k3": [], "k4": [], "k5": []}
 
-    def counted(fn):
-        """Run ``fn`` with both launch counts set to 0 just before; returns
-        (result, K1 launches, K2 launches) read just after."""
-        kernel.launches = kernel_hdr.launches = 0
+    def counts_of(fn):
+        """Run ``fn`` with every launch count set to 0 just before; returns
+        (result, {kernel: launches}) read just after."""
+        for w in wrappers.values():
+            w.launches = 0
         out = fn()
         torch.cuda.synchronize()
-        return out, kernel.launches, kernel_hdr.launches
+        return out, {k: w.launches for k, w in wrappers.items()}
+
+    def counted(fn):
+        """``counts_of`` for a scan path without the spatial repair: checks
+        that K3-K5 did not launch; returns (result, K1, K2 launches)."""
+        out, n = counts_of(fn)
+        check(n["k3"] == n["k4"] == n["k5"] == 0, f"spatial kernels launched: {n}")
+        return out, n["k1"], n["k2"]
 
     def versus_plain(frames, cam, proj, cfg, where, **kw):
         """K1 on the card against its plain version on the same inputs."""
@@ -207,12 +230,16 @@ def main():
              kernel_vs_plain=a, **fields)
         return n1
 
-    # phase 2: build the kernels from the checkout's sources (set-up time)
+    # phase 2: build the kernels from the checkout's sources (set-up time),
+    # one nvcc per source, all at once
     t0 = time.perf_counter()
-    lib_path, log = build_library("fused_scan")
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        built = dict(zip(LIBRARIES, pool.map(build_library, LIBRARIES)))
     fs._library()
-    emit("build", setup_s=time.perf_counter() - t0, library=lib_path.name,
-         ptxas=ptxas_summary(log))
+    us.library()
+    emit("build", setup_s=time.perf_counter() - t0,
+         library={k: p.name for k, (p, _) in built.items()},
+         ptxas={k: ptxas_summary(log) for k, (_, log) in built.items()})
 
     # phase 3: render the config-3 scene on the card
     t0 = time.perf_counter()
@@ -383,7 +410,153 @@ def main():
          bracket=list(bracket.shape), dtype=str(bracket.dtype),
          fuse=hdr, bytes=hdr_bytes)
 
-    # phase 15: times, in turns (plain, kernel, scan, scan, kernel, plain)
+    # phase 15: the voting kernels K3 and K4 against the plain sweep, bit for
+    # bit: the reference's 400-error scene at 1280x1024 (as
+    # benchmarks/tpu_matrix.py:241-249), and a ragged 300x215 map with holes
+    # in its mask and errors on its borders
+    def phase_scene(H, W, seed, n_bad, partial=False, blob=None):
+        """(clean Phi, Phi with errors 3 orders off, quality, mask, bad)
+        on the card, from numpy's generator."""
+        rng = np.random.default_rng(seed)
+        Phi = np.linspace(0, 60, W)[None, :] + 0.1 * rng.normal(size=(H, W))
+        bad = np.zeros((H, W), bool)
+        bad[rng.integers(1, H - 1, n_bad), rng.integers(1, W - 1, n_bad)] = True
+        mask = np.ones((H, W), bool)
+        if partial:
+            mask = rng.random((H, W)) > 0.1
+            bad[0, ::7] = bad[H - 1, ::5] = bad[::6, 0] = bad[::4, W - 1] = True
+        if blob is not None:
+            bad[blob] = True
+        q = np.where(bad, 0.05, 1.0).astype(np.float32)
+        Phi_n = np.where(bad, Phi + 2 * np.pi * 3, Phi).astype(np.float32)
+        return [torch.from_numpy(a).to(dev) for a in
+                (Phi.astype(np.float32), Phi_n, q, mask, bad)]
+
+    voting = {}
+    for name, scene in (("1280x1024", phase_scene(CAM_H, CAM_W, 0, 400)),
+                        ("300x215", phase_scene(215, 300, 1, 300, partial=True))):
+        Phi_c, Phi_n, q, mask, bad = scene
+        for iters in (6, 8):
+            plain = pu.spatial_quality_unwrap(Phi_n, q, mask, iters)
+            k3 = us.launch_vote_resident(Phi_n, mask, iters)
+            k4 = us.quality_unwrap_tiled(Phi_n, q, mask, iters)
+            torch.cuda.synchronize()
+            check(torch.equal(k3, plain), f"K3 {name} iters {iters}: not bit-equal")
+            check(torch.equal(k4, plain), f"K4 {name} iters {iters}: not bit-equal")
+            check(torch.equal(k3, k4), f"K3 vs K4 {name} iters {iters}")
+            errs["k3"].append(float((k3 - plain).abs().max()))
+            errs["k4"].append(float((k4 - plain).abs().max()))
+            fixed_err = float((k4 - Phi_c)[bad].abs().max())
+            if not name.startswith("300"):
+                check(fixed_err < BLOB_TOL, f"{name}: seeded errors left, {fixed_err}")
+            voting[f"{name}_iters{iters}"] = dict(
+                bit_equal=True, seeded_max_abs_err=fixed_err,
+                repaired=int(((k4 - Phi_n).abs() > 1.0).sum()), seeded=int(bad.sum()))
+    emit("k3_k4_voting", **voting)
+
+    # phase 16: K5 against its plain pass: the light repair (8 launches),
+    # 4 levels x 2 rounds (32), the phase-only unwrap (32); the scene above,
+    # and with a 6x8 blob added
+    Phi_c, Phi_n, q, mask, bad = phase_scene(CAM_H, CAM_W, 0, 400)
+    blob_scene = phase_scene(CAM_H, CAM_W, 0, 400,
+                             blob=(slice(500, 506), slice(600, 608)))
+    wave = {}
+
+    def versus_plain_wavefront(name, want, phi, q, mask, Phi_init=None, trust=None,
+                               clean=None, **kw):
+        (out, reached), n = counts_of(lambda: wf.wavefront_unwrap(
+            phi, q, mask, Phi_init=Phi_init, trust=trust, **kw))
+        check(n["k5"] == want and n["k1"] == n["k3"] == n["k4"] == 0,
+              f"{name}: launches {n}")
+        ref, reached_ref = pu.quality_guided_unwrap(phi, q, mask, Phi_init=Phi_init,
+                                                    trust=trust, **kw)
+        check(torch.equal(reached, reached_ref), f"{name}: reached maps differ")
+        err = float((out - ref)[reached].abs().max())
+        check(err <= WAVEFRONT_TOL, f"{name}: |dPhi| {err} rad")
+        errs["k5"].append(err)
+        wave[name] = dict(launches=n["k5"], max_abs_err=err,
+                          bit_equal=bool(torch.equal(out, ref)),
+                          reached=float(reached.float().mean()))
+        if clean is not None:
+            fixed = float((out - clean).abs().max())
+            check(fixed < BLOB_TOL, f"{name}: errors left, {fixed}")
+            wave[name]["vs_clean_max_abs_err"] = fixed
+
+    for sname, (c, P, qq, mm, _) in (("", (Phi_c, Phi_n, q, mask, bad)),
+                                     ("_blob", blob_scene)):
+        phi_w, trust = pu.repair_trust(P, qq, mm)
+        versus_plain_wavefront("repair" + sname, 8, phi_w, qq, mm, P, trust,
+                               clean=c, levels=2, rounds_per_level=1)
+        versus_plain_wavefront("repair_4x2" + sname, 32, phi_w, qq, mm, P, trust,
+                               clean=c, levels=4, rounds_per_level=2)
+    versus_plain_wavefront("phase_only", 32, torch.remainder(Phi_n, 2 * math.pi),
+                           q, mask, levels=4, rounds_per_level=2)
+    emit("k5_wavefront", **wave)
+
+    # phase 17: the spatial repair on the main path: DenseReconstructor with
+    # spatial_iters=4 on the config-3 scan, both modes (K1 + K4, or K1 + K5
+    # x 8), then the voting mode on a 320x256 camera (noise 0.01), whose map
+    # takes K3; the mask stays the unrepaired one; the repaired pixels are
+    # those of the plain route (the same function on the host)
+    small_cam, small_proj = default_rig(cam_w=320, cam_h=256, proj_w=256, proj_h=192,
+                                        device=dev)
+    small_cfg = PatternConfig(proj_width=256, proj_height=192, gray_bits=6,
+                              phase_steps=4)
+    small_scan = render_scan(small_cam, small_proj, bumps_depth(
+        256, 320, base=480.0, amp=25.0, device=dev), small_cfg, noise_std=0.01,
+        generator=torch.Generator(device="cuda").manual_seed(9))
+    spatial, spatial_launches = {}, {"k3": 0, "k4": 0, "k5": 0}
+    spatial_runs = [(mode, cam, proj, cfg, frames, scan,
+                     (0, 1, 0) if mode == "voting" else (0, 0, 8))
+                    for mode in SPATIAL_MODES]
+    spatial_runs.append(("voting_320x256", small_cam, small_proj, small_cfg,
+                         small_scan.frames, small_scan, (1, 0, 0)))
+    for mode, c_cam, c_proj, c_cfg, c_frames, c_scan, want in spatial_runs:
+        base, n = counts_of(lambda: DenseReconstructor(c_cam, c_proj, c_cfg).to(dev)(c_frames))
+        check(n["k1"] == 1 and n["k3"] + n["k4"] + n["k5"] == 0, f"{mode} base: {n}")
+        model = DenseReconstructor(c_cam, c_proj, c_cfg, DecodeConfig(
+            spatial_unwrap_mode=mode.split("_")[0]), spatial_iters=SPATIAL_ITERS).to(dev)
+        out, n = counts_of(lambda: model(c_frames))
+        check((n["k1"], n["k2"], n["k3"], n["k4"], n["k5"]) == (1, 0, *want),
+              f"{mode}: launches {n}")
+        for k in spatial_launches:
+            spatial_launches[k] += n[k]
+        launches += n["k1"]
+        H, W = c_frames.shape[-2:]
+        check(tuple(out.points.shape) == (H, W, 3)
+              and bool(torch.isfinite(out.points).all()), f"{mode} points")
+        check(torch.equal(out.mask, base.mask), f"{mode}: the mask changed")
+        rms_s, n_s = rms_vs_truth(out.points, out.mask, c_scan)
+        rms_b, _ = rms_vs_truth(base.points, base.mask, c_scan)
+        gate = RMS_GATE_MM if c_cfg is cfg else 0.5
+        check(rms_s <= gate, f"{mode}: RMS {rms_s} mm > {gate}")
+        pitch = c_cfg.fringe_pitch
+        repaired = (out.x_p - base.x_p).abs() > pitch / 2
+        _, plain_repaired = spatial_repair(base.x_p.cpu(), base.quality.cpu(),
+                                           base.mask.cpu(), pitch, SPATIAL_ITERS,
+                                           mode.split("_")[0])
+        check(torch.equal(repaired.cpu(), plain_repaired),
+              f"{mode}: repaired set differs from the plain route's")
+        keep = ~repaired
+        check(torch.equal(out.x_p[keep], base.x_p[keep])
+              and torch.equal(out.points[keep], base.points[keep]),
+              f"{mode}: unrepaired pixels moved")
+        # each repaired pixel's error against the ground truth, before and after
+        seen = repaired & c_scan.mask_true
+        err = [torch.linalg.norm(x.points - c_scan.points_true, dim=-1)[seen]
+               for x in (base, out)]
+        spatial[mode] = dict(launches=n, rms_mm=rms_s, rms_unrepaired_mm=rms_b,
+                             rms_gate_mm=gate, valid_points=n_s,
+                             repaired_px=int(repaired.sum()),
+                             repaired_closer=int((err[1] < err[0]).sum()),
+                             repaired_farther=int((err[1] > err[0]).sum()),
+                             repaired_err_mm_before_after=[
+                                 float(e.max()) if e.numel() else 0.0 for e in err],
+                             frames=list(c_frames.shape))
+    check(spatial["voting_320x256"]["repaired_px"] > 0, "no repair on the noisy scan")
+    emit("reconstruct_dense_spatial", spatial_iters=SPATIAL_ITERS, **spatial)
+
+    # phase 18: times, in turns (plain, kernel, scan, scan, kernel, plain)
     # for K1 on float32 and on uint8 and for K2 (sum)
     params = fs.scan_params(cam_d, proj_d, cfg, dec, (1.0, 1e4), 8, CAM_H, CAM_W)
     params8 = fs.scan_params(cam_d, proj_d, cfg, dec, (1.0, 1e4), 8, CAM_H,
@@ -405,24 +578,69 @@ def main():
         "kernel_hdr": lambda: fs.launch_fused_scan_hdr(bracket, params_h),
         "scan_hdr": lambda: model(bracket),
     }
+    turns = [tuple(n + sfx for n in ("plain", "kernel", "scan", "scan", "kernel", "plain"))
+             for sfx in ("", "_uint8", "_hdr")]
+    # the spatial repair on the config-3 decode's own map: K3 and K4 at 4
+    # and 8 sweeps, one K5 pass along rows and along columns (the repair's
+    # last level: every masked pixel eligible, the trusted ones done), the
+    # 8-pass repair, and the forward in each mode
+    base = model(frames)
+    pitch = cfg.fringe_pitch
+    Phi3, q3, m3 = base.x_p * (2 * math.pi / pitch), base.quality, base.mask
+    phi3, trust3 = pu.repair_trust(Phi3, q3, m3)
+    models = {mode: DenseReconstructor(cam, proj, cfg, DecodeConfig(
+        spatial_unwrap_mode=mode), spatial_iters=SPATIAL_ITERS).to(dev)
+        for mode in SPATIAL_MODES}
+    for it in (SPATIAL_ITERS, 8):
+        runs.update({
+            f"plain_vote{it}": lambda it=it: pu.spatial_quality_unwrap(Phi3, q3, m3, it),
+            f"k3_{it}": lambda it=it: us.launch_vote_resident(Phi3, m3, it),
+            f"k4_{it}": lambda it=it: us.launch_vote_tiled(Phi3, m3, it)})
+        turns.append((f"plain_vote{it}", f"k3_{it}", f"k4_{it}", f"k4_{it}",
+                      f"k3_{it}", f"plain_vote{it}"))
+    for axis, line in ((1, "rows"), (0, "cols")):
+        runs.update({
+            f"plain_pass_{line}": lambda axis=axis: pu.directional_pass(
+                phi3, m3, Phi3, trust3, axis, False),
+            f"k5_{line}": lambda axis=axis: wf.launch_wavefront_pass(
+                phi3, m3, Phi3, trust3, axis, False)})
+        turns.append((f"plain_pass_{line}", f"k5_{line}", f"k5_{line}",
+                      f"plain_pass_{line}"))
+    runs.update({
+        "plain_repair": lambda: pu.quality_guided_repair(Phi3, q3, m3, levels=2,
+                                                         rounds_per_level=1),
+        "repair": lambda: wf.wavefront_repair(Phi3, q3, m3),
+        "scan_voting": lambda: models["voting"](frames),
+        "scan_wavefront": lambda: models["wavefront"](frames)})
+    turns += [("plain_repair", "repair", "repair", "plain_repair"),
+              ("scan_voting", "scan_wavefront", "scan_wavefront", "scan_voting")]
     times = {k: [] for k in runs}
-    for sfx in ("", "_uint8", "_hdr"):
-        for name in ("plain", "kernel", "scan", "scan", "kernel", "plain"):
-            times[name + sfx] += cuda_ms(runs[name + sfx])
+    for turn in turns:
+        for name in turn:
+            times[name] += cuda_ms(runs[name])
     ms = {k: statistics.median(v) for k, v in times.items()}
     spread = {f"{k}_ms_spread": [min(v), max(v)] for k, v in times.items()}
-    moved = {"": (4 * cfg.num_frames + 7 * 4) * CAM_H * CAM_W,
-             "_uint8": (cfg.num_frames + 7 * 4) * CAM_H * CAM_W,
-             "_hdr": hdr_bytes}
-    gbs = {f"kernel{s}_gb_s": b / (ms["kernel" + s] * 1e-3) / 1e9
-           for s, b in moved.items()}
+    px = CAM_H * CAM_W
+    tiles = -(-CAM_W // us.TILE_W) * -(-CAM_H // 64)
+    moved = {"kernel": (4 * cfg.num_frames + 7 * 4) * px,
+             "kernel_uint8": (cfg.num_frames + 7 * 4) * px,
+             "kernel_hdr": hdr_bytes,
+             # K3: phi and mask in, out (and scratch) written once; the
+             # sweeps between run in L2
+             **{f"k3_{it}": (4 + 1 + 4 + 4) * px for it in (SPATIAL_ITERS, 8)},
+             # K4: phi and mask of every tile with its halo in, the map out
+             **{f"k4_{it}": tiles * (64 + 2 * it) ** 2 * 5 + 4 * px
+                for it in (SPATIAL_ITERS, 8)},
+             # K5: phi, Phi (4 B), elig, done (1 B) in; Phi, done out
+             "k5_rows": 15 * px, "k5_cols": 15 * px}
+    gbs = {f"{k}_gb_s": b / (ms[k] * 1e-3) / 1e9 for k, b in moved.items()}
     host = {f"{k}_host_ms": host_ms(fn) for k, fn in (
         ("scan_params", lambda: fs.scan_params(cam_d, proj_d, cfg, dec,
                                                (1.0, 1e4), 8, CAM_H, CAM_W)),
         ("launch", runs["kernel"]), ("scan", runs["scan"]))}
     emit("timing", card=card, runs_each=len(times["kernel"]),
          **{f"{k}_ms": v for k, v in ms.items()}, **host, **spread,
-         **{f"kernel{s}_bytes": b for s, b in moved.items()}, **gbs,
+         **{f"{k}_bytes": b for k, b in moved.items()}, **gbs,
          hbm_peak_gb_s=HBM_PEAK_TBS * 1e3,
          **{k.replace("gb_s", "hbm_share"): v / (HBM_PEAK_TBS * 1e3)
             for k, v in gbs.items()},
@@ -452,6 +670,41 @@ def main():
         "max_abs_err": max(errs["k2"]),
         "ms": ms["kernel_hdr"],
         "plain_ms": ms["plain_hdr"],
+    }, {
+        "name": "quality_unwrap",
+        "route": "cuda",
+        "source": "slr_torch/kernels/csrc/unwrap.cu",
+        "replaces": "slr/kernels/unwrap_scan.py:34",
+        "launches": spatial_launches["k3"],
+        "max_abs_err": max(errs["k3"]),
+        "ms": ms[f"k3_{SPATIAL_ITERS}"],
+        "plain_ms": ms[f"plain_vote{SPATIAL_ITERS}"],
+        "ms_iters8": ms["k3_8"],
+        "plain_ms_iters8": ms["plain_vote8"],
+    }, {
+        "name": "quality_unwrap_tiled",
+        "route": "cuda",
+        "source": "slr_torch/kernels/csrc/unwrap.cu",
+        "replaces": "slr/kernels/unwrap_scan.py:46",
+        "launches": spatial_launches["k4"],
+        "max_abs_err": max(errs["k4"]),
+        "ms": ms[f"k4_{SPATIAL_ITERS}"],
+        "plain_ms": ms[f"plain_vote{SPATIAL_ITERS}"],
+        "ms_iters8": ms["k4_8"],
+        "plain_ms_iters8": ms["plain_vote8"],
+    }, {
+        "name": "wavefront_pass",
+        "route": "cuda",
+        "source": "slr_torch/kernels/csrc/unwrap.cu",
+        "replaces": "slr/kernels/wavefront.py:53",
+        "launches": spatial_launches["k5"],
+        "max_abs_err": max(errs["k5"]),
+        "ms": ms["k5_rows"],
+        "plain_ms": ms["plain_pass_rows"],
+        "ms_cols": ms["k5_cols"],
+        "plain_ms_cols": ms["plain_pass_cols"],
+        "ms_repair_8_passes": ms["repair"],
+        "plain_ms_repair_8_passes": ms["plain_repair"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,9 @@ module layout and function names, so each module's counterpart sits at the
 same path, and keeps the JAX package's layouts at its public functions.
 It imports torch and numpy only: never ``jax``, never ``slr``.
 
-The hot path (``pipeline.reconstruct.reconstruct_dense``) runs one kernel
-written by hand for Hopper, ``kernels/csrc/fused_scan.cu``; every other
+The hot path (``pipeline.reconstruct.reconstruct_dense``) runs kernels
+written by hand for Hopper: the fused scan ``kernels/csrc/fused_scan.cu``
+and, with the spatial repair on, ``kernels/csrc/unwrap.cu``; every other
 step is plain torch.
 """
 

@@ -8,3 +8,5 @@ from slr_torch.kernels.fused_scan import (
     fused_decode_triangulate_hdr_reference,
     fused_decode_triangulate_reference,
 )
+from slr_torch.kernels.unwrap_scan import quality_unwrap, quality_unwrap_tiled
+from slr_torch.kernels.wavefront import wavefront_repair, wavefront_unwrap

@@ -1,0 +1,154 @@
+"""Strict-consensus phase repair on the card: kernels K3 and K4.
+
+Port of ``slr/kernels/unwrap_scan.py``. Both kernels run ``iters`` sweeps of
+``slr_torch.codec.unwrap.propagation_step`` and return what
+``spatial_quality_unwrap`` returns, bit for bit:
+
+- K3, ``launch_vote_resident`` (``quality_unwrap_pallas``): one persistent
+  cooperative launch runs every sweep over the whole map, with a grid-wide
+  barrier between sweeps; the map stays in L2.
+- K4, ``launch_vote_tiled`` (``quality_unwrap_tiled``): temporal blocking.
+  Each block loads a tile with a halo of h cells into shared memory, runs h
+  sweeps there and writes the tile's interior; h is at most ``MAX_HALO``, so
+  more sweeps take one launch per chunk of h.
+
+``quality_unwrap`` keeps the reference's dispatch, so a shape takes the same
+kernel as there: K4 when the padded map 3 * round_up(H, 8) *
+round_up(W, 128) * 4 B exceeds 12 MiB, else K3. Each wrapper takes the
+plain version for a CPU tensor and launches for a CUDA tensor, or raises.
+``quality`` is unused by the vote; the kernels do not read it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from slr_torch.codec.unwrap import spatial_quality_unwrap
+from slr_torch.kernels.build import load_library
+
+RESIDENT_BUDGET = 12 * 1024 * 1024   # the reference's VMEM budget (bytes)
+MAX_HALO = 8                         # SLR_MAX_HALO in csrc/unwrap.cu
+TILE_W = 64                          # SLR_TILE_W
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def takes_tiled(H: int, W: int) -> bool:
+    """The reference's rule: K4 for maps whose padded Phi, q and mask
+    exceed the 12 MiB budget."""
+    return 3 * _round_up(H, 8) * _round_up(W, 128) * 4 > RESIDENT_BUDGET
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """``csrc/unwrap.cu`` (K3, K4 and K5), built and typed on first use."""
+    lib = load_library("unwrap")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.slr_vote_resident.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.slr_vote_tiled.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+    lib.slr_wavefront_pass.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    for fn in (lib.slr_vote_resident, lib.slr_vote_tiled, lib.slr_wavefront_pass):
+        fn.restype = ctypes.c_int
+    lib.slr_cuda_error_string.argtypes = [i32]
+    lib.slr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, name: str, err: int):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + lib.slr_cuda_error_string(err).decode())
+
+
+def check_maps(what: str, *maps):
+    """Every map a contiguous (H, W) CUDA tensor of one shape and device;
+    floats are float32, masks bool."""
+    shape, dev = maps[0].shape, maps[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    for m in maps:
+        if m.dim() != 2 or m.shape != shape or m.device != dev:
+            raise ValueError(f"{what}: maps must be (H, W) on one device, got "
+                             f"{[tuple(x.shape) for x in maps]}")
+        if m.dtype not in (torch.float32, torch.bool) or not m.is_contiguous():
+            raise ValueError(f"{what}: maps must be contiguous float32 or bool")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch_vote_resident(Phi, mask, iters: int):
+    """K3: ``iters`` sweeps in one cooperative launch (``iters`` >= 1).
+    Raises if the card refuses the cooperative launch."""
+    check_maps("K3", Phi, mask)
+    H, W = Phi.shape
+    out, scratch = torch.empty_like(Phi), torch.empty_like(Phi)
+    lib = library()
+    check_launch(lib, "K3 vote_resident", lib.slr_vote_resident(
+        Phi.data_ptr(), mask.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        H, W, iters, Phi.device.index, _stream(Phi)))
+    quality_unwrap.launches += 1
+    return out
+
+
+def launch_vote_tiled(Phi, mask, sweeps: int, tile_h: int = 64):
+    """K4, one launch: ``sweeps`` (1..MAX_HALO) sweeps over tiles of
+    ``tile_h`` x TILE_W cells, each with a halo of ``sweeps``."""
+    check_maps("K4", Phi, mask)
+    if not 1 <= sweeps <= MAX_HALO or tile_h < 1:
+        raise ValueError(f"K4 takes 1..{MAX_HALO} sweeps a launch and "
+                         f"tile_h >= 1, got {sweeps}, {tile_h}")
+    H, W = Phi.shape
+    out = torch.empty_like(Phi)
+    lib = library()
+    check_launch(lib, "K4 vote_tiled", lib.slr_vote_tiled(
+        Phi.data_ptr(), mask.data_ptr(), out.data_ptr(), H, W, sweeps, tile_h,
+        Phi.device.index, _stream(Phi)))
+    quality_unwrap_tiled.launches += 1
+    return out
+
+
+def _prepare(Phi, mask):
+    return Phi.to(torch.float32).contiguous(), mask.to(torch.bool).contiguous()
+
+
+def quality_unwrap_tiled(Phi, quality, mask, iters: int = 8, tile_h: int = 64,
+                         halo: int | None = None):
+    """``spatial_quality_unwrap`` through K4 (a CPU tensor: the plain
+    version). ``halo``: sweeps per launch and the tiles' halo, at most
+    ``MAX_HALO`` (default: min(iters, MAX_HALO)); ``ceil(iters / halo)``
+    launches, each exact, so the result does not depend on it."""
+    if Phi.device.type == "cpu":
+        return spatial_quality_unwrap(Phi, quality, mask, iters)
+    Phi, mask = _prepare(Phi, mask)
+    if iters == 0:
+        return Phi.clone()
+    halo = min(iters, MAX_HALO) if halo is None else halo
+    for done in range(0, iters, halo):
+        Phi = launch_vote_tiled(Phi, mask, min(halo, iters - done), tile_h)
+    return Phi
+
+
+def quality_unwrap(Phi, quality, mask, iters: int = 8):
+    """``spatial_quality_unwrap`` on the card: K3 for maps within the
+    reference's budget, K4 above it (a CPU tensor: the plain version).
+    ``.launches`` counts K3's launches, ``quality_unwrap_tiled.launches``
+    K4's."""
+    if Phi.device.type == "cpu":
+        return spatial_quality_unwrap(Phi, quality, mask, iters)
+    if takes_tiled(*Phi.shape):
+        return quality_unwrap_tiled(Phi, quality, mask, iters=iters)
+    Phi, mask = _prepare(Phi, mask)
+    if iters == 0:
+        return Phi.clone()
+    return launch_vote_resident(Phi, mask, iters)
+
+
+quality_unwrap.launches = 0
+quality_unwrap_tiled.launches = 0

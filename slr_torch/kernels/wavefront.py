@@ -1,0 +1,77 @@
+"""Quality-guided wavefront repair on the card: kernel K5.
+
+Port of ``slr/kernels/wavefront.py``. K5, ``launch_wavefront_pass``
+(``_pass_rows``), is one directional growth pass: a block per scan line
+loads the line's (tag, ps, pv) monoid elements into shared memory, runs a
+Hillis-Steele scan there, in the association of the plain version
+``slr_torch.codec.unwrap.directional_pass``, and writes the wavefront
+update. The axis and the direction are arguments of the kernel: no
+transposes or flips around it.
+
+``wavefront_unwrap`` and ``wavefront_repair`` are the reference's entry points
+(levels x rounds x four directions) with K5 as their pass; they share the
+loop of the plain route, ``slr_torch.codec.unwrap.wavefront``. A CPU
+tensor takes the plain pass; a CUDA tensor launches K5, or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from slr_torch.codec.unwrap import directional_pass, repair_trust, wavefront
+from slr_torch.kernels.unwrap_scan import check_launch, check_maps, library
+
+MAX_LINE = 9685   # 24 B of shared memory per element: 227 KB a block
+
+
+def launch_wavefront_pass(phi, elig, Phi, done, axis: int, reverse: bool):
+    """K5: one pass along ``axis`` (1: rows, 0: columns), upstream at lower
+    indices or, ``reverse``, higher ones. phi, Phi float32; elig, done bool.
+    Returns new (Phi, done)."""
+    check_maps("K5", phi, elig, Phi, done)
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    H, W = phi.shape
+    if (W if axis == 1 else H) > MAX_LINE:
+        raise ValueError(f"K5 scans lines of at most {MAX_LINE} pixels")
+    Phi_out, done_out = torch.empty_like(Phi), torch.empty_like(done)
+    lib = library()
+    check_launch(lib, "K5 wavefront_pass", lib.slr_wavefront_pass(
+        phi.data_ptr(), elig.data_ptr(), Phi.data_ptr(), done.data_ptr(),
+        Phi_out.data_ptr(), done_out.data_ptr(), H, W, axis, int(reverse),
+        phi.device.index, torch.cuda.current_stream(phi.device).cuda_stream))
+    wavefront_pass.launches += 1
+    return Phi_out, done_out
+
+
+def wavefront_pass(phi, elig, Phi, done, axis: int, reverse: bool):
+    """One directional pass: the plain version for a CPU tensor, K5 for a
+    CUDA tensor (``.launches`` counts them)."""
+    if phi.device.type == "cpu":
+        return directional_pass(phi, elig, Phi, done, axis, reverse)
+    return launch_wavefront_pass(phi, elig, Phi, done, axis, reverse)
+
+
+def wavefront_unwrap(phi, quality, mask, Phi_init=None, trust=None,
+                     levels: int = 4, rounds_per_level: int = 2):
+    """``quality_guided_unwrap`` (phase-only and repair modes) with K5 as
+    its pass: levels * rounds_per_level * 4 launches. Returns (Phi,
+    reached)."""
+    phi = phi.to(torch.float32).contiguous()
+    if Phi_init is not None:
+        Phi_init = Phi_init.to(torch.float32).contiguous()
+    return wavefront(phi, quality, mask.contiguous(), Phi_init, trust, levels,
+                     rounds_per_level, wavefront_pass)
+
+
+def wavefront_repair(Phi, quality, mask, trust_quantile: float = 0.5,
+                     levels: int = 2, rounds_per_level: int = 1):
+    """``quality_guided_repair`` with K5. The reference's repair-mode
+    defaults: trusted sources are dense, so two thresholds and one round
+    (8 passes) reach order-error blobs."""
+    phi, trust = repair_trust(Phi, quality, mask, trust_quantile)
+    return wavefront_unwrap(phi, quality, mask, Phi_init=Phi, trust=trust,
+                            levels=levels, rounds_per_level=rounds_per_level)[0]
+
+
+wavefront_pass.launches = 0

@@ -1,11 +1,12 @@
 """Single-scan reconstruction (port of ``slr/pipeline/reconstruct.py``).
 
 ``reconstruct_scan`` is the general unfused path (any pattern layout);
-``reconstruct_dense`` is the production path: the fused kernel K1, colour
-attach and nothing else; ``reconstruct_scan_hdr`` fuses an exposure
-bracket, through K2 for gray_phase coding with phase steps.
-``DenseReconstructor`` holds the calibration as module buffers, so
-``.to(device)`` moves it with the module; a 4-D input is a bracket.
+``reconstruct_dense`` is the production path: the fused kernel K1, the
+optional spatial repair (voting, K3 or K4; or the wavefront, K5) and the
+colour attach; ``reconstruct_scan_hdr`` fuses an exposure bracket, through
+K2 for gray_phase coding with phase steps. ``DenseReconstructor`` holds the
+calibration as module buffers, so ``.to(device)`` moves it with the module;
+a 4-D input is a bracket.
 """
 
 from __future__ import annotations
@@ -17,11 +18,16 @@ from torch import nn
 
 from slr_torch.codec.exposure import decode_multi_exposure
 from slr_torch.codec.patterns import DecodeResult, decode_stack
+from slr_torch.codec.unwrap import TWO_PI
 from slr_torch.config import DecodeConfig, PatternConfig, ReconstructConfig
 from slr_torch.geom.camera import Camera
 from slr_torch.geom.triangulate import triangulate_plane, triangulate_rays
 from slr_torch.kernels.fused_scan import (
     fused_decode_triangulate, fused_decode_triangulate_hdr)
+from slr_torch.kernels.unwrap_scan import quality_unwrap
+from slr_torch.kernels.wavefront import wavefront_repair
+
+SPATIAL_MODES = ("voting", "wavefront")
 
 
 def _white_color(frames):
@@ -98,26 +104,65 @@ def reconstruct_scan_hdr(
     return _triangulate_decoded(res, cam, proj, rec, colors)
 
 
+def spatial_repair(x_p, quality, mask, pitch: float, spatial_iters: int,
+                   spatial_mode: str = "voting"):
+    """The spatial repair of a decoded projector column ``x_p`` (fringe
+    period ``pitch``): "voting" runs ``spatial_iters`` strict-consensus
+    sweeps (K3 or K4); "wavefront" the quality-ordered repair (K5) with
+    ``max(1, spatial_iters // 4)`` rounds per level. Returns (repaired x_p,
+    changed): a repair moves x_p by whole periods, so ``changed`` is
+    ``mask & (|dx_p| > pitch / 2)``, never a pixel outside ``mask`` nor the
+    float rounding of the x_p -> phase -> x_p round trip."""
+    if spatial_mode not in SPATIAL_MODES:
+        raise ValueError(f"spatial_mode must be one of {SPATIAL_MODES}, "
+                         f"got {spatial_mode!r}")
+    Phi = x_p * (TWO_PI / pitch)
+    if spatial_mode == "wavefront":
+        Phi = wavefront_repair(Phi, quality, mask,
+                               rounds_per_level=max(1, spatial_iters // 4))
+    else:
+        Phi = quality_unwrap(Phi, quality, mask, iters=spatial_iters)
+    x_p2 = Phi * (pitch / TWO_PI)
+    return x_p2, mask & ((x_p2 - x_p).abs() > pitch / 2)
+
+
 def reconstruct_dense(
     frames, cam: Camera, proj: Camera, cfg: PatternConfig,
     dec: DecodeConfig = DecodeConfig(),
     rec: ReconstructConfig = ReconstructConfig(),
     spatial_iters: int = 0,
+    spatial_mode: str = "voting",
 ) -> ScanCloud:
-    """Flagship fused path: one kernel launch per scan, any K1 branch
+    """Flagship fused path: one K1 launch per scan, any K1 branch
     (float32 or integer frames; Gray + phase, Gray only or multifreq;
     column plane, or midpoint when rows are coded).
 
-    ``points`` is a (H, W, 3) view of the kernel's (3, H, W) output.
+    ``spatial_iters`` > 0 repairs fringe-order errors between decode and
+    re-triangulation (``spatial_repair``, at the finest fringe period): the
+    repaired pixels are re-triangulated on their projector-column plane and
+    take the new points where their depth stays in bounds. The mask never
+    grows, and every unrepaired pixel keeps K1's x_p and points.
+
+    With ``spatial_iters`` 0, ``points`` is a (H, W, 3) view of the
+    kernel's (3, H, W) output.
     """
-    if spatial_iters:
-        raise NotImplementedError(
-            "the spatial quality repair (spatial_iters > 0) is ROADMAP slice 3")
     out = fused_decode_triangulate(
         frames, cam, proj, cfg, dec, z_bounds=(rec.min_depth, rec.max_depth))
-    return ScanCloud(points=out.points.movedim(0, -1), mask=out.mask > 0.5,
-                     colors=_white_color(frames), quality=out.quality,
-                     x_p=out.x_p)
+    mask = out.mask > 0.5
+    x_p = out.x_p
+    pts = out.points.movedim(0, -1)
+    if spatial_iters:
+        pitch = (cfg.mf_pitches[-1] if cfg.coding == "multifreq"
+                 else cfg.fringe_pitch)
+        x_p2, changed = spatial_repair(x_p, out.quality, mask, pitch,
+                                       spatial_iters, spatial_mode)
+        u, v = _pixel_grid(*x_p.shape, x_p.device)
+        pts2, depth2 = triangulate_plane(cam, proj, u, v, x_p2)
+        ok2 = (depth2 > rec.min_depth) & (depth2 < rec.max_depth)
+        pts = torch.where((changed & ok2)[..., None], pts2, pts)
+        x_p = torch.where(changed, x_p2, x_p)
+    return ScanCloud(points=pts, mask=mask, colors=_white_color(frames),
+                     quality=out.quality, x_p=x_p)
 
 
 def accumulate_by_projector(cloud: ScanCloud, proj_width: int):
@@ -147,13 +192,17 @@ def accumulate_by_projector(cloud: ScanCloud, proj_width: int):
 
 class DenseReconstructor(nn.Module):
     """``reconstruct_dense`` with the calibration held as buffers; an
-    (E, F, H, W) exposure bracket goes to ``reconstruct_scan_hdr``."""
+    (E, F, H, W) exposure bracket goes to ``reconstruct_scan_hdr``.
+    ``spatial_iters`` > 0 adds the spatial repair to single stacks, in the
+    mode ``dec.spatial_unwrap_mode``."""
 
     def __init__(self, cam: Camera, proj: Camera, cfg: PatternConfig,
                  dec: DecodeConfig = DecodeConfig(),
-                 rec: ReconstructConfig = ReconstructConfig()):
+                 rec: ReconstructConfig = ReconstructConfig(),
+                 spatial_iters: int = 0):
         super().__init__()
         self.cfg, self.dec, self.rec = cfg, dec, rec
+        self.spatial_iters = spatial_iters
         for prefix, c in (("cam", cam), ("proj", proj)):
             for name, x in zip(Camera._fields, c):
                 self.register_buffer(f"{prefix}_{name}", x)
@@ -174,4 +223,5 @@ class DenseReconstructor(nn.Module):
             return reconstruct_scan_hdr(frames, self.cam, self.proj, self.cfg,
                                         self.dec, self.rec)
         return reconstruct_dense(frames, self.cam, self.proj, self.cfg,
-                                 self.dec, self.rec)
+                                 self.dec, self.rec, self.spatial_iters,
+                                 self.dec.spatial_unwrap_mode)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, every branch, and K2) against their plain
-PyTorch versions, on the card.
+"""The port's CUDA kernels (K1, every branch, K2, and the spatial repair's
+K3, K4 and K5) against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it also runs on a machine without it:
@@ -9,13 +9,20 @@ one. The file imports no JAX, so it also runs on a machine without it:
 (``--noconftest`` because ``tests/conftest.py`` imports JAX.)
 """
 
+import math
+
+import numpy as np
 import pytest
 import torch
 
+from slr_torch.codec import unwrap as pu
 from slr_torch.config import DecodeConfig, PatternConfig
 from slr_torch.geom.camera import make_camera
 from slr_torch.kernels import fused_scan as fs
-from slr_torch.pipeline.reconstruct import DenseReconstructor, accumulate_by_projector
+from slr_torch.kernels import unwrap_scan as us
+from slr_torch.kernels import wavefront as wf
+from slr_torch.pipeline.reconstruct import (
+    DenseReconstructor, accumulate_by_projector, spatial_repair)
 from slr_torch.synth.render import default_rig, quantize_frames, render_scan
 from slr_torch.synth.scene import bumps_depth, checker_albedo
 
@@ -206,3 +213,144 @@ def test_dense_reconstructor_launches_once_on_uint8_and_bracket(cuda):
         valid = cloud.mask.cpu() & scan.mask_true
         err = torch.linalg.norm(cloud.points.cpu() - scan.points_true, dim=-1)[valid]
         assert float(err.square().mean().sqrt()) < 0.5
+
+
+def _phase_map(device, H, W, seed, partial=False, blob=False):
+    """A ramp with noise and isolated pixels 3 fringe orders off (and a
+    6x8 blob); ``partial``: a mask with holes and bad pixels on the
+    borders. Returns (clean Phi, Phi with errors, quality, mask, bad)."""
+    rng = np.random.default_rng(seed)
+    Phi = (np.linspace(0, 40, W)[None, :]
+           + 0.1 * rng.normal(size=(H, W))).astype(np.float32)
+    bad = np.zeros((H, W), bool)
+    n_bad = max(1, H * W // 200)
+    bad[rng.integers(1, H - 1, n_bad), rng.integers(1, W - 1, n_bad)] = True
+    mask = np.ones((H, W), bool)
+    if partial:
+        mask = rng.random((H, W)) > 0.1
+        bad[0, ::7] = bad[H - 1, ::5] = bad[::6, 0] = bad[::4, W - 1] = True
+    if blob:
+        bad[H // 3:H // 3 + 6, W // 4:W // 4 + 8] = True
+    q = np.where(bad, 0.05, 1.0).astype(np.float32)
+    Phi_n = np.where(bad, Phi + np.float32(6 * math.pi), Phi).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (Phi, Phi_n, q, mask, bad)]
+
+
+@pytest.mark.parametrize("H,W,iters,partial", [
+    (64, 96, 6, False), (215, 300, 8, True), (130, 200, 12, True), (3, 50, 3, False)])
+def test_vote_kernels_match_plain_version(cuda, H, W, iters, partial):
+    """K3 and K4 equal the plain sweep bit for bit, on the card and against
+    the CPU; K4 with more sweeps than its halo takes one launch per chunk."""
+    _, Phi_n, q, mask, _ = _phase_map(cuda, H, W, 0, partial)
+    plain = pu.spatial_quality_unwrap(Phi_n, q, mask, iters)
+    assert torch.equal(plain.cpu(), pu.spatial_quality_unwrap(
+        Phi_n.cpu(), q.cpu(), mask.cpu(), iters))
+    before = (us.quality_unwrap.launches, us.quality_unwrap_tiled.launches)
+    k3 = us.launch_vote_resident(Phi_n, mask, iters)
+    assert us.quality_unwrap.launches == before[0] + 1
+    for tile_h, halo in ((64, None), (16, 5), (128, 8)):
+        n = us.quality_unwrap_tiled.launches
+        k4 = us.quality_unwrap_tiled(Phi_n, q, mask, iters, tile_h=tile_h, halo=halo)
+        chunk = halo or min(iters, us.MAX_HALO)
+        assert us.quality_unwrap_tiled.launches - n == -(-iters // chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(k4, plain), (tile_h, halo)
+    assert torch.equal(k3, plain)
+    assert not torch.equal(plain, Phi_n)
+
+
+def test_quality_unwrap_dispatch(cuda):
+    """The reference's rule: a 1280x1024 map takes K4, a smaller one K3."""
+    for (H, W), kernel in (((1024, 1280), "tiled"), ((215, 300), "resident")):
+        _, Phi_n, q, mask, _ = _phase_map(cuda, H, W, 1)
+        us.quality_unwrap.launches = us.quality_unwrap_tiled.launches = 0
+        out = us.quality_unwrap(Phi_n, q, mask, iters=4)
+        torch.cuda.synchronize()
+        assert (us.quality_unwrap.launches, us.quality_unwrap_tiled.launches) == (
+            (0, 1) if kernel == "tiled" else (1, 0))
+        assert torch.equal(out, pu.spatial_quality_unwrap(Phi_n, q, mask, 4))
+
+
+@pytest.mark.parametrize("H,W", [(37, 53), (256, 320), (215, 300)])
+def test_wavefront_pass_matches_plain_version(cuda, H, W):
+    rng = np.random.default_rng(H)
+    Phi = np.cumsum(rng.normal(0.6, 0.8, size=(H, W)), axis=1).astype(np.float32)
+    phi = np.mod(Phi, 2 * np.pi).astype(np.float32)
+    done = rng.random((H, W)) < 0.02
+    elig = rng.random((H, W)) < 0.85
+    args = [torch.from_numpy(a).to(cuda) for a in
+            (phi, elig, np.where(done, Phi, phi).astype(np.float32), done)]
+    for axis in (1, 0):
+        for reverse in (False, True):
+            before = wf.wavefront_pass.launches
+            Pk, dk = wf.wavefront_pass(*args, axis, reverse)
+            assert wf.wavefront_pass.launches == before + 1
+            Pp, dp = pu.directional_pass(*args, axis, reverse)
+            torch.cuda.synchronize()
+            assert dk.dtype == torch.bool and torch.equal(dk, dp)
+            assert float((Pk - Pp).abs().max()) <= 1e-3
+            assert int(dk.sum()) > int(args[3].sum())
+
+
+@pytest.mark.parametrize("H,W", [(96, 160), (215, 300)])
+def test_wavefront_unwrap_and_repair_match_plain_version(cuda, H, W):
+    """Repair (light defaults: 8 launches; 4 levels x 2 rounds: 32) and
+    phase-only unwrap through K5 against the plain loop; the blob is
+    repaired."""
+    Phi, Phi_n, q, mask, _ = _phase_map(cuda, H, W, 3, blob=True)
+    for levels, rounds in ((2, 1), (4, 2)):
+        wf.wavefront_pass.launches = 0
+        out = wf.wavefront_repair(Phi_n, q, mask, levels=levels, rounds_per_level=rounds)
+        assert wf.wavefront_pass.launches == 4 * levels * rounds
+        ref = pu.quality_guided_repair(Phi_n, q, mask, levels=levels, rounds_per_level=rounds)
+        torch.cuda.synchronize()
+        assert float((out - ref).abs().max()) <= 1e-3
+        assert float((out - Phi).abs().max()) < 1e-3
+    phi = torch.remainder(Phi_n, 2 * math.pi)
+    out, reached = wf.wavefront_unwrap(phi, q, mask)
+    ref, reached_ref = pu.quality_guided_unwrap(phi, q, mask)
+    assert torch.equal(reached, reached_ref) and float(reached.float().mean()) > 0.99
+    assert float((out - ref)[reached].abs().max()) <= 1e-3
+
+
+def test_spatial_kernels_reject_bad_input(cuda):
+    _, Phi_n, _, mask, _ = _phase_map(cuda, 32, 48, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        us.launch_vote_resident(Phi_n.t(), mask.t(), 2)
+    with pytest.raises(ValueError, match="sweeps"):
+        us.launch_vote_tiled(Phi_n, mask, us.MAX_HALO + 1)
+    with pytest.raises(ValueError, match="one device"):
+        wf.launch_wavefront_pass(Phi_n, mask[:16], Phi_n, mask, 1, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        us.launch_vote_tiled(Phi_n.cpu(), mask.cpu(), 2)
+
+
+@pytest.mark.parametrize("mode", ["voting", "wavefront"])
+def test_dense_reconstructor_spatial_launches(cuda, mode):
+    """K1 once, then K3 once (a 320x256 map is within the resident budget)
+    or K5 eight times; the mask is the unrepaired one; the repaired set is
+    the plain route's (the same function on the host)."""
+    cam, proj = default_rig(cam_w=320, cam_h=256, proj_w=256, proj_h=192)
+    cfg = PatternConfig(proj_width=256, proj_height=192, gray_bits=6, phase_steps=4)
+    gen = torch.Generator().manual_seed(9)
+    scan = render_scan(cam, proj, bumps_depth(256, 320, base=480.0, amp=25.0), cfg,
+                       noise_std=0.01, generator=gen)
+    dec = DecodeConfig(spatial_unwrap_mode=mode)
+    model = DenseReconstructor(cam, proj, cfg, dec, spatial_iters=4).to(cuda)
+    base = DenseReconstructor(cam, proj, cfg).to(cuda)(scan.frames.to(cuda))
+    counts = (fs.fused_decode_triangulate, us.quality_unwrap, us.quality_unwrap_tiled,
+              wf.wavefront_pass)
+    for fn in counts:
+        fn.launches = 0
+    cloud = model(scan.frames.to(cuda))
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counts] == (
+        [1, 1, 0, 0] if mode == "voting" else [1, 0, 0, 8])
+    assert torch.equal(cloud.mask, base.mask)
+    fixed = (cloud.x_p - base.x_p).abs() > cfg.fringe_pitch / 2
+    _, plain_fixed = spatial_repair(base.x_p.cpu(), base.quality.cpu(), base.mask.cpu(),
+                                    cfg.fringe_pitch, 4, mode)
+    assert torch.equal(fixed.cpu(), plain_fixed) and int(fixed.sum()) > 0
+    valid = cloud.mask.cpu() & scan.mask_true
+    err = torch.linalg.norm(cloud.points.cpu() - scan.points_true, dim=-1)[valid]
+    assert float(err.square().mean().sqrt()) < 0.5

@@ -111,7 +111,8 @@ def test_port_imports_neither_jax_nor_slr():
     code = (
         "import sys\n"
         "import slr_torch, slr_torch.pipeline.reconstruct, "
-        "slr_torch.synth.render, slr_torch.entry, slr_torch.kernels.build\n"
+        "slr_torch.synth.render, slr_torch.entry, slr_torch.kernels.build, "
+        "slr_torch.kernels.unwrap_scan, slr_torch.kernels.wavefront\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'slr' or m.startswith('slr.'))\n"
         "print(bad)\n"

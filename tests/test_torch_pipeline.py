@@ -2,9 +2,10 @@
 
 The whole slice: ``render_scan`` on ``default_rig`` + ``bumps_depth`` (and
 ``checker_albedo``, multifreq patterns), ``reconstruct_dense`` (through the
-fused kernel's plain version on the CPU, float32 and integer stacks),
-``reconstruct_scan``, ``accumulate_by_projector`` and ``entry``; the
-exposure-bracket path is tests/test_torch_hdr.py.
+kernels' plain versions on the CPU, float32 and integer stacks, with and
+without the spatial repair), ``reconstruct_scan``,
+``accumulate_by_projector`` and ``entry``; the exposure-bracket path is
+tests/test_torch_hdr.py.
 Scan tolerances are those of tests/test_torch_fused_scan.py, for the same
 reasons (rare code-edge flips from ulp-level differences).
 """
@@ -21,7 +22,7 @@ from slr.config import PatternConfig as JPatternConfig
 from slr.pipeline import reconstruct as jrec
 from slr.synth import bumps_depth as jbumps
 from slr.synth import render as jrender
-from slr_torch.config import PatternConfig
+from slr_torch.config import DecodeConfig, PatternConfig
 from slr_torch.entry import entry
 from slr_torch.geom.camera import camera_from_numpy
 from slr_torch.pipeline import reconstruct as trec
@@ -81,8 +82,14 @@ def test_dense_reconstructor_module(scene):
     a = model(ft)
     b = trec.reconstruct_dense(ft, cam, proj, PatternConfig(**CFG))
     assert all(torch.equal(x, y) for x, y in zip(a, b))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        trec.reconstruct_dense(ft, cam, proj, PatternConfig(**CFG), spatial_iters=4)
+    # the spatial repair: spatial_iters from the module, the mode from dec
+    for mode in ("voting", "wavefront"):
+        dec = DecodeConfig(spatial_unwrap_mode=mode)
+        a = trec.DenseReconstructor(cam, proj, PatternConfig(**CFG), dec,
+                                    spatial_iters=4)(ft)
+        b = trec.reconstruct_dense(ft, cam, proj, PatternConfig(**CFG), dec,
+                                   spatial_iters=4, spatial_mode=mode)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_reconstruct_scan_matches_reference(scene):
@@ -221,3 +228,92 @@ def test_reconstruct_dense_integer_stack_matches_reference(scene, dtype):
     # its reciprocal: 1 ulp
     np.testing.assert_allclose(ct.colors.numpy(), np.asarray(cj.colors), rtol=0,
                                atol=6e-8)
+
+
+# --- the spatial repair (reconstruct_dense(spatial_iters > 0)) ---------------
+
+# the default rig geometry at 320x256, noise 0.01: order errors to repair
+FAULT_RIG = dict(cam_w=CAM_W, cam_h=CAM_H, proj_w=256, proj_h=192)
+
+
+def _noisy_scene(cfg_kw, key):
+    """JAX's render with its own noise (the same frames go to both
+    packages), on the default rig geometry."""
+    camj, projj = jrender.default_rig(**FAULT_RIG)
+    scan = jrender.render_scan(camj, projj, jbumps(CAM_H, CAM_W, base=480.0, amp=25.0),
+                               JPatternConfig(**cfg_kw), noise_std=0.01,
+                               key=jax.random.PRNGKey(key))
+    cam = camera_from_numpy(jax.tree.map(np.asarray, camj))
+    proj = camera_from_numpy(jax.tree.map(np.asarray, projj))
+    return camj, projj, cam, proj, np.array(scan.frames), np.asarray(scan.mask_true)
+
+
+@pytest.fixture(scope="module")
+def noisy_scene():
+    return _noisy_scene(CFG, 9)
+
+
+def _spatial_agrees(scene, cfg_kw, mode, pitch):
+    """Port and JAX with spatial_iters=4: on JAX's unrepaired mask, points
+    and x_p agree; the repaired pixels (|dx_p| > pitch/2) are one set; the
+    port's mask is its own unrepaired mask. Returns (JAX's base and
+    repaired clouds, the port's base and repaired clouds)."""
+    camj, projj, cam, proj, frames, _ = scene
+    fj, ft = jnp.asarray(frames), torch.from_numpy(frames)
+    cfgj, cfg = JPatternConfig(**cfg_kw), PatternConfig(**cfg_kw)
+    bj = jrec.reconstruct_dense(fj, camj, projj, cfgj)
+    cj = jrec.reconstruct_dense(fj, camj, projj, cfgj, spatial_iters=4, spatial_mode=mode)
+    bt = trec.reconstruct_dense(ft, cam, proj, cfg)
+    ct = trec.reconstruct_dense(ft, cam, proj, cfg, spatial_iters=4, spatial_mode=mode)
+    m0 = np.asarray(bj.mask)
+    dx = np.abs(np.asarray(cj.x_p) - ct.x_p.numpy())[m0]
+    assert (dx > 1e-3).mean() <= 1e-4
+    agree = m0 & (np.abs(np.asarray(cj.x_p) - ct.x_p.numpy()) <= 1e-3)
+    assert np.abs(np.asarray(cj.points) - ct.points.numpy())[agree].max() <= 1e-2
+    fixed_j = np.abs(np.asarray(cj.x_p) - np.asarray(bj.x_p)) > pitch / 2
+    fixed_t = (ct.x_p - bt.x_p).abs().numpy() > pitch / 2
+    np.testing.assert_array_equal(fixed_t, fixed_j)
+    assert fixed_t.sum() > 0
+    assert torch.equal(ct.mask, bt.mask)
+    # unrepaired pixels keep the decode's x_p and points bit for bit
+    assert torch.equal(ct.x_p[~torch.from_numpy(fixed_t)], bt.x_p[~torch.from_numpy(fixed_t)])
+    keep = ~torch.from_numpy(fixed_t)
+    assert torch.equal(ct.points[keep], bt.points[keep])
+    return bj, cj, bt, ct
+
+
+@pytest.mark.parametrize("mode", ["voting", "wavefront"])
+def test_reconstruct_dense_spatial_matches_reference(noisy_scene, mode):
+    _spatial_agrees(noisy_scene, CFG, mode, PatternConfig(**CFG).fringe_pitch)
+
+
+def test_reconstruct_dense_spatial_multifreq_matches_reference():
+    """Multifreq: the repair works at the finest pitch, mf_pitches[-1].
+    The decode makes no order errors on this scene, so 40 pixels get the
+    middle level's four phase frames rolled by one (a quarter-period phase
+    error there, one or two finest periods after the hierarchy)."""
+    kw = dict(proj_width=256, proj_height=192, coding="multifreq", phase_steps=4,
+              mf_levels=3, mf_ratio=6.0)
+    scene = _noisy_scene(kw, 4)
+    frames = scene[4]
+    rng = np.random.default_rng(5)
+    r, c = rng.integers(40, CAM_H - 40, 40), rng.integers(40, CAM_W - 40, 40)
+    frames[6:10, r, c] = np.roll(frames[6:10, r, c], 1, axis=0)
+    pitch = PatternConfig(**kw).mf_pitches[-1]
+    assert pitch != PatternConfig(**kw).fringe_pitch
+    _spatial_agrees(scene, kw, "voting", pitch)
+
+
+def test_reference_spatial_mask_growth_is_not_ported(noisy_scene):
+    """The reference marks a pixel changed when |x_p2 - x_p| > 1e-6, which
+    the float32 x_p -> phase -> x_p round trip (~1e-5 px) exceeds, and
+    outside the mask too, so its repaired mask grows by background pixels
+    (slr/pipeline/reconstruct.py:170-177). The port changes only masked
+    pixels moved by more than half a period: its mask never grows."""
+    mask_true = noisy_scene[-1]
+    for mode in ("voting", "wavefront"):
+        bj, cj, bt, ct = _spatial_agrees(noisy_scene, CFG, mode,
+                                         PatternConfig(**CFG).fringe_pitch)
+        grown = np.asarray(cj.mask & ~bj.mask)
+        assert grown.sum() > 5000 and (grown & ~mask_true).mean() > 0.9 * grown.mean()
+        assert torch.equal(ct.mask, bt.mask)

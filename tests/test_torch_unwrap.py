@@ -1,0 +1,247 @@
+"""slr_torch's spatial phase repair against the JAX reference (CPU).
+
+The voting sweep (``propagation_step``, ``spatial_quality_unwrap``) and the
+wavefront (``quality_guided_unwrap``, ``quality_guided_repair``) of
+``slr_torch.codec.unwrap``, which are also the plain versions of the CUDA
+kernels K3/K4 and K5, against ``slr.codec.unwrap`` and against the Pallas
+kernels run as the JAX tests run them on the CPU (interpret mode). On a CPU
+tensor the port's kernel wrappers take those plain versions.
+
+Tolerances: the voting path within 1e-5 of JAX (XLA may contract
+Phi + 2pi k into one FMA and divide by 2pi as a product with its
+reciprocal; the port rounds twice and divides); the wavefront within
+1e-4 rad (the reference scans a 4-field monoid, the port the 3-field one
+of the TPU kernel) with equal reached maps. The port's own routes agree
+bit for bit.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slr.codec import unwrap as ju
+from slr.kernels.unwrap_scan import quality_unwrap_pallas, quality_unwrap_tiled
+from slr.kernels.wavefront import wavefront_repair_pallas
+from slr_torch.codec import unwrap as tu
+from slr_torch.kernels import unwrap_scan as tus
+from slr_torch.kernels import wavefront as twf
+from slr_torch.pipeline.reconstruct import spatial_repair
+
+torch.set_num_threads(2)
+
+
+def _voting_map(partial: bool):
+    """The reference's voting test map (tests/test_kernels.py:151-165):
+    64x96, a gentle ramp with noise, 30 isolated pixels off by 3 fringe
+    orders. ``partial``: a mask with holes, the bad pixels also on the
+    borders and next to masked pixels."""
+    rng = np.random.default_rng(0)
+    H, W = 64, 96
+    Phi = np.linspace(0, 30, W)[None, :] + 0.1 * rng.normal(size=(H, W))
+    bad = np.zeros((H, W), bool)
+    bad[rng.integers(1, H - 1, 30), rng.integers(1, W - 1, 30)] = True
+    mask = np.ones((H, W), bool)
+    if partial:
+        mask = rng.random((H, W)) > 0.12
+        mask[:, 80:] = False
+        bad[0, 5:60:9] = bad[H - 1, 3:70:11] = True
+        bad[7:50:8, 0] = bad[4:60:7, 79] = True
+    q = np.where(bad, 0.05, 1.0).astype(np.float32)
+    Phi_n = np.where(bad, Phi + 2 * np.pi * 3, Phi).astype(np.float32)
+    return Phi.astype(np.float32), Phi_n, q, mask, bad
+
+
+def _blob_map():
+    """The reference's wavefront test map (tests/test_kernels.py:356-368):
+    96x160, 60 isolated bad pixels and a 6x8 order-error blob."""
+    rng = np.random.default_rng(3)
+    H, W = 96, 160
+    Phi = np.linspace(0, 40, W)[None, :] + 0.1 * rng.normal(size=(H, W))
+    bad = np.zeros((H, W), bool)
+    bad[rng.integers(1, H - 1, 60), rng.integers(1, W - 1, 60)] = True
+    bad[30:36, 40:48] = True
+    q = np.where(bad, 0.05, 1.0).astype(np.float32)
+    Phi_n = np.where(bad, Phi + 2 * np.pi * 3, Phi).astype(np.float32)
+    return Phi, Phi_n, q, np.ones((H, W), bool)
+
+
+def _both(*arrays):
+    return [jnp.asarray(a) for a in arrays], [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("dy,dx", [(1, 0), (-1, 0), (0, 1), (0, -1)])
+def test_shift_zero_matches_reference(dy, dx):
+    a = np.random.default_rng(1).normal(size=(7, 9)).astype(np.float32)
+    np.testing.assert_array_equal(tu._shift_zero(torch.from_numpy(a), dy, dx).numpy(),
+                                  np.asarray(ju._shift_zero(jnp.asarray(a), dy, dx)))
+
+
+@pytest.mark.parametrize("partial", [False, True], ids=["full", "partial"])
+def test_propagation_step_matches_reference(partial):
+    _, Phi_n, q, mask, _ = _voting_map(partial)
+    (pj, qj, mj), (pt, qt, mt) = _both(Phi_n, q, mask)
+    oj, _ = ju.propagation_step(pj, qj, mj)
+    ot, q_out = tu.propagation_step(pt, qt, mt)
+    assert q_out is qt and ot.dtype == torch.float32
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=0, atol=1e-5)
+    assert (ot.numpy() != Phi_n).sum() == (np.asarray(oj) != Phi_n).sum() > 0
+
+
+@pytest.mark.parametrize("partial", [False, True], ids=["full", "partial"])
+def test_spatial_quality_unwrap_matches_reference(partial):
+    Phi, Phi_n, q, mask, bad = _voting_map(partial)
+    (pj, qj, mj), (pt, qt, mt) = _both(Phi_n, q, mask)
+    ref = np.asarray(ju.spatial_quality_unwrap(pj, qj, mj, iters=6))
+    out = tu.spatial_quality_unwrap(pt, qt, mt, iters=6).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+    # unmasked pixels never move; the interior isolated errors are repaired
+    np.testing.assert_array_equal(out[~mask], Phi_n[~mask])
+    if not partial:
+        assert np.abs(out - Phi)[bad].max() < 1e-3
+
+
+@pytest.mark.parametrize("partial", [False, True], ids=["full", "partial"])
+def test_voting_matches_pallas_kernels(partial):
+    """The JAX kernels K3 and K4 (interpret mode) against the port's
+    wrappers, which take the plain version on the CPU: all one result."""
+    _, Phi_n, q, mask, _ = _voting_map(partial)
+    (pj, qj, mj), (pt, qt, mt) = _both(Phi_n, q, mask)
+    k3 = np.asarray(quality_unwrap_pallas(pj, qj, mj, iters=6))
+    k4 = np.asarray(quality_unwrap_tiled(pj, qj, mj, iters=6, tile_h=16))
+    plain = tu.spatial_quality_unwrap(pt, qt, mt, iters=6)
+    before = (tus.quality_unwrap.launches, tus.quality_unwrap_tiled.launches)
+    for out in (tus.quality_unwrap(pt, qt, mt, iters=6),
+                tus.quality_unwrap_tiled(pt, qt, mt, iters=6, halo=4)):
+        assert torch.equal(out, plain)
+    assert (tus.quality_unwrap.launches, tus.quality_unwrap_tiled.launches) == before
+    for ref in (k3, k4):
+        np.testing.assert_allclose(plain.numpy(), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (215, 300), (1024, 1280), (1024, 1024),
+                                   (1032, 1024)])
+def test_kernel_dispatch_rule_matches_reference(shape):
+    """K4 exactly where the reference leaves its whole-map kernel."""
+    H, W = shape
+    Hp, Wp = -(-H // 8) * 8, -(-W // 128) * 128
+    assert tus.takes_tiled(H, W) == (3 * Hp * Wp * 4 > 12 * 1024 * 1024)
+    assert tus.takes_tiled(1024, 1280) and not tus.takes_tiled(215, 300)
+
+
+def _pass_inputs(seed):
+    """A wrapped map with scattered done and eligible pixels and a few
+    absolute values for the done ones."""
+    rng = np.random.default_rng(seed)
+    H, W = 37, 53
+    Phi = np.cumsum(rng.normal(0.6, 0.8, size=(H, W)), axis=1).astype(np.float32)
+    phi = np.mod(Phi, 2 * np.pi).astype(np.float32)
+    done = rng.random((H, W)) < 0.05
+    elig = rng.random((H, W)) < 0.8
+    Phi_cur = np.where(done, Phi, phi).astype(np.float32)
+    return phi, elig, Phi_cur, done
+
+
+@pytest.mark.parametrize("axis,reverse", [(1, False), (1, True), (0, False), (0, True)])
+def test_directional_pass_matches_reference(axis, reverse):
+    """The plain Hillis-Steele pass (3-field monoid) against the reference's
+    associative scan of the 4-field monoid."""
+    phi, elig, Phi, done = _pass_inputs(axis * 2 + reverse)
+    (phj, ej, Pj, dj), (pht, et, Pt, dt) = _both(phi, elig, Phi, done)
+    oj, rj = ju._directional_pass(Pj, dj, phj, ej, axis, reverse)
+    ot, rt = tu.directional_pass(pht, et, Pt, dt, axis, reverse)
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(rj))
+    assert rt.numpy().sum() > done.sum()
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=0, atol=1e-4)
+    # the kernel wrapper takes this plain version on the CPU
+    before = twf.wavefront_pass.launches
+    ow, rw = twf.wavefront_pass(pht, et, Pt, dt, axis, reverse)
+    assert torch.equal(ow, ot) and torch.equal(rw, rt)
+    assert twf.wavefront_pass.launches == before
+
+
+def test_quality_guided_unwrap_matches_reference():
+    """Phase-only mode: one seed, four levels, two rounds."""
+    _, Phi_n, q, mask = _blob_map()
+    phi = np.mod(Phi_n, 2 * np.pi).astype(np.float32)
+    (phj, qj, mj), (pht, qt, mt) = _both(phi, q, mask)
+    oj, rj = ju.quality_guided_unwrap(phj, qj, mj, levels=4, rounds_per_level=2)
+    ot, rt = tu.quality_guided_unwrap(pht, qt, mt, levels=4, rounds_per_level=2)
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(rj))
+    assert rt.numpy().mean() > 0.99
+    assert np.abs(ot.numpy() - np.asarray(oj))[rt.numpy()].max() < 1e-4
+    wo, wr = twf.wavefront_unwrap(pht, qt, mt, levels=4, rounds_per_level=2)
+    assert torch.equal(wo, ot) and torch.equal(wr, rt)
+
+
+@pytest.mark.parametrize("levels,rounds", [(4, 2), (2, 1)])
+def test_quality_guided_repair_matches_reference(levels, rounds):
+    Phi, Phi_n, q, mask = _blob_map()
+    (pj, qj, mj), (pt, qt, mt) = _both(Phi_n, q, mask)
+    ref = np.asarray(ju.quality_guided_repair(pj, qj, mj, levels=levels,
+                                              rounds_per_level=rounds))
+    out = tu.quality_guided_repair(pt, qt, mt, levels=levels, rounds_per_level=rounds)
+    assert np.abs(out.numpy() - ref).max() < 1e-4
+    # the same repair through the unwrap's repair mode: equal reached maps
+    phi, trust = tu.repair_trust(pt, qt, mt)
+    _, reached_j = ju.quality_guided_unwrap(jnp.asarray(phi.numpy()), qj, mj, Phi_init=pj,
+                                            trust=jnp.asarray(trust.numpy()),
+                                            levels=levels, rounds_per_level=rounds)
+    _, reached = tu.quality_guided_unwrap(phi, qt, mt, Phi_init=pt, trust=trust,
+                                          levels=levels, rounds_per_level=rounds)
+    np.testing.assert_array_equal(reached.numpy(), np.asarray(reached_j))
+    # the blob and every isolated error repaired
+    assert np.abs(out.numpy() - Phi).max() < 1e-3
+
+
+def test_wavefront_repair_matches_pallas_kernel():
+    """The reference's K5 repair (interpret mode) with its light repair
+    defaults (2 levels, 1 round: 8 passes) against the port's."""
+    Phi, Phi_n, q, mask = _blob_map()
+    (pj, qj, mj), (pt, qt, mt) = _both(Phi_n, q, mask)
+    ref = np.asarray(wavefront_repair_pallas(pj, qj, mj))
+    out = twf.wavefront_repair(pt, qt, mt)
+    assert np.abs(out.numpy() - ref).max() < 1e-4
+    assert np.abs(out.numpy() - Phi).max() < 1e-3
+    assert torch.equal(out, tu.quality_guided_repair(pt, qt, mt, levels=2,
+                                                     rounds_per_level=1))
+
+
+def test_thresholds_and_seed_match_reference():
+    """Quantile thresholds (linear, NaN outside the mask) and the seed
+    (the first highest-quality masked pixel) as jnp computes them."""
+    rng = np.random.default_rng(4)
+    q = rng.choice(np.float32([0.2, 0.5, 0.9, 0.9]), size=(11, 13)).astype(np.float32)
+    q[3, 4:] = 0.95
+    mask = rng.random((11, 13)) > 0.2
+    mask[3, 4] = False   # the first maximum is masked: the seed is the next
+    mask[3, 5] = True
+    for levels in (2, 3, 4):
+        ref = np.asarray(jnp.nanquantile(jnp.where(mask, q, jnp.nan),
+                                         jnp.linspace(1.0 - 1.0 / levels, 0.0, levels)))
+        out = torch.nanquantile(torch.where(torch.from_numpy(mask), torch.from_numpy(q),
+                                            torch.nan),
+                                torch.linspace(1.0 - 1.0 / levels, 0.0, levels))
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6)
+    phi = np.zeros((11, 13), np.float32)
+    _, reached = tu.quality_guided_unwrap(torch.from_numpy(phi), torch.from_numpy(q),
+                                          torch.from_numpy(mask), levels=1,
+                                          rounds_per_level=0)
+    assert reached.nonzero().tolist() == [[3, 5]]
+
+
+def test_spatial_repair_never_leaves_the_mask():
+    """The port's ``changed`` rule: only masked pixels moved by more than
+    half a period; the x_p -> phase -> x_p round trip moves none."""
+    Phi, Phi_n, q, mask, bad = _voting_map(True)
+    pitch = 8.0
+    x_p = torch.from_numpy(Phi_n * np.float32(pitch / (2 * np.pi)) + 400.0)
+    for mode in ("voting", "wavefront"):
+        x_p2, changed = spatial_repair(x_p, torch.from_numpy(q), torch.from_numpy(mask),
+                                       pitch, 4, mode)
+        assert not changed[~torch.from_numpy(mask)].any()
+        assert changed.any() and changed.numpy()[mask].sum() <= bad[mask].sum()
+        # the round trip alone moves x_p by float rounding only
+        assert float((x_p2 - x_p)[~changed].abs().max()) < 1e-3
+    with pytest.raises(ValueError, match="spatial_mode"):
+        spatial_repair(x_p, torch.from_numpy(q), torch.from_numpy(mask), pitch, 4, "flood")
