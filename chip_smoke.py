@@ -5,16 +5,20 @@
 From the repository root: builds the port's CUDA kernels with nvcc, one
 process per source, all at once (K1 and K2 of
 ``slr_torch/kernels/csrc/fused_scan.cu``; K3, K4 and K5 of
-``slr_torch/kernels/csrc/unwrap.cu``), holds every kernel to its plain
+``slr_torch/kernels/csrc/unwrap.cu``; K8 of
+``slr_torch/kernels/csrc/band_nn.cu``), holds every kernel to its plain
 PyTorch version on the card, and drives each scan path through the entry
 point a user calls (``DenseReconstructor``, ``slr_torch.entry``) on the
 config-3 rig (1280x1024 camera, 1024x768 projector): float32, uint8 and
 uint16 ingest, Gray only, row+column midpoint with and without row phase,
 multifreq, ``decode_only`` on a posed camera, the HDR exposure bracket (K2,
 both fusions), and the spatial repair (``spatial_iters=4``: voting, K4 at
-this size and K3 on a smaller camera; wavefront, K5). Each path's cloud is
-checked against the synthetic ground truth and its launches counted; then
-the kernels, their plain versions and the scan are timed with CUDA events.
+this size and K3 on a smaller camera; wavefront, K5). Then registration
+(config 4): the sorted-band search K8 at 256k points, point-to-plane ICP on
+its band route (``icp_point_to_plane``) at 256k and between two dense scans,
+and ``register_scans`` on a 4-scan orbit. Each path's output is checked
+against the synthetic ground truth and its launches counted; then the
+kernels, their plain versions and the paths are timed with CUDA events.
 Each phase prints one JSON line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check ends the run with a traceback and a non-zero
 exit, as does a machine without a CUDA device. Imports nothing of JAX."""
@@ -47,10 +51,27 @@ TIMED_RUNS = 20
 HBM_PEAK_TBS = 3.35        # H100 SXM data sheet
 HDR_GAINS = (1.0, 3.2, 10.0)
 PROJ_DIST = [-0.08, 0.02, 0.001, -0.001, 0.0]
-LIBRARIES = ("fused_scan", "unwrap")   # csrc/<name>.cu, one nvcc each
+LIBRARIES = ("fused_scan", "unwrap", "band_nn")   # csrc/<name>.cu, one nvcc each
 WAVEFRONT_TOL = 1e-3       # rad, K5 against its plain version on reached pixels
 BLOB_TOL = 1e-3            # rad, a repaired map against the clean phase
 SPATIAL_ITERS = 4
+# registration (config 4): the reference's dense band case
+# (benchmarks/tpu_matrix.py:836-845, 876-897) and its config-4 orbit (:985-995)
+N_BIG = 262144             # points per cloud
+R_CORR = 8.0               # mm, the band case's correspondence radius
+ICP_BAND_ITERS = 15
+ICP_R_GATE, ICP_T_GATE = 1e-4, 1e-2   # max |R - R_true|, max |t - t_true| (mm)
+K8_D2_RTOL = 1e-5          # K8 against its plain version (both compute sum((q - t)^2))
+NEAR_TIE_MM2 = 1e-3        # two targets this close in d2 count as a tie
+N_BRUTE = 4096             # queries per variant held to a float64 brute force
+K8_BATCH = 10              # K8 launches per timed run, back to back
+ORBIT_SCANS = 4
+ROT_GATE_DEG, T_GATE_MM = 0.5, 2.0    # tests/test_pipeline.py:124-125
+# a pair costs K8 8 fp32 instructions (3 sub, 3 mul, 2 add; no FMA); the
+# card issues 33.5e12 a second, half its 67 TFLOP/s (an FMA counts 2)
+FP32_ISSUE_PER_S = 33.5e12
+REGISTER_STAGES = ("_subsample", "icp_point_to_plane", "fpfh_features",
+                   "ransac_align", "icp_projective", "pose_graph_optimize")
 
 
 def emit(name, **fields):
@@ -154,6 +175,326 @@ def ptxas_summary(log):
     return out
 
 
+def band_surface(n, device, seed=13):
+    """The reference's scan-sized surface (benchmarks/tpu_matrix.py:836-845,
+    876-882), from numpy seeded ``seed``: n targets on a bumpy sheet at
+    z ~ 500 mm over [-250, 250]^2 mm, queries at the targets plus N(0, 1 mm)
+    noise, and the sheet's unit normals. Returns (targets, queries,
+    normals), (n, 3) each, on ``device``."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-250, 250, (n, 2))
+    x, y = xy[:, 0], xy[:, 1]
+    z = 500 + 20 * np.sin(x / 25.0) * np.cos(y / 30.0) + 8 * np.sin(y / 12.0)
+    tgt = np.column_stack([xy, z]).astype(np.float32)
+    qry = tgt + rng.normal(0, 1.0, (n, 3)).astype(np.float32)
+    gx = 20 * np.cos(x / 25.0) / 25.0 * np.cos(y / 30.0)
+    gy = -20 * np.sin(x / 25.0) * np.sin(y / 30.0) / 30.0 + 8 * np.cos(y / 12.0) / 12.0
+    nrm = np.column_stack([-gx, -gy, np.ones_like(gx)])
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in (tgt, qry, nrm)]
+
+
+def pose_error(R, t, R_true, t_true):
+    """(rotation error in degrees, translation error in mm), in float64;
+    the angle from |R - R_true|_F = 2 sqrt(2) sin(angle / 2), which stays
+    exact for small angles where acos of the trace does not."""
+    dR = torch.linalg.norm(R.double() - R_true.double())
+    ang = 2.0 * math.asin(min(float(dR) / (2.0 * math.sqrt(2.0)), 1.0))
+    return math.degrees(ang), float(torch.linalg.norm(t.double() - t_true.double()))
+
+
+def band_check(kb, nearest_neighbors, build_band_target, tgt, nrm, valid, qry, dup=None):
+    """K8 on the sorted queries ``qry`` against the targets: bit-equal to its
+    plain version; against the exact tiled search on every query (no miss
+    within r, and where the two pick different targets, K8's is the nearer
+    in float64); against a float64 brute force on ``N_BRUTE`` queries (the
+    same target but for ties within ``NEAR_TIE_MM2``). The last
+    ``len(dup)`` targets are copies of targets ``dup``: of a target and its
+    copies, the one at the lowest sorted position wins. Returns (stats, band
+    target, sorted queries, query mask)."""
+    dev = qry.device
+    if valid is None:
+        valid = torch.ones(tgt.shape[0], dtype=torch.bool, device=dev)
+    bt = build_band_target(tgt, nrm, valid)
+    qc = qry[torch.sort(qry @ bt.axis, stable=True).indices].T.contiguous()
+    Q = qc.shape[1]
+    qv = torch.ones(Q, dtype=torch.bool, device=dev)
+    d2, pts, nn_n, idx = kb.launch_band_nn(qc, qv, bt, R_CORR)
+    p = kb.band_nn_sorted_reference(qc, qv, bt, R_CORR)
+    torch.cuda.synchronize()
+    hit = idx >= 0
+    check(torch.equal(idx, p[3]), "K8: idx differs from the plain version")
+    check(torch.equal(torch.isinf(d2), ~hit) and torch.equal(torch.isinf(p[0]), ~hit),
+          "K8: hits and finite d2 disagree")
+    d2_rel = float(((d2 - p[0]).abs() / p[0].clamp(min=1e-12))[hit].max())
+    check(d2_rel <= K8_D2_RTOL, f"K8: d2 {d2_rel} relative from the plain version")
+    check(torch.equal(pts, p[1]) and torch.equal(nn_n, p[2]),
+          "K8: point or normal differs from the plain version")
+    check(torch.equal(pts[hit], tgt[idx[hit]]) and torch.equal(nn_n[hit], nrm[idx[hit]])
+          and bool(valid[idx[hit]].all()), "K8: the winner is not a valid target's")
+    r2 = R_CORR * R_CORR
+    q = qc.T
+
+    def d64(i, rows=slice(None)):
+        return ((q[rows].double() - tgt[i.clamp(min=0)].double()) ** 2).sum(dim=1)
+
+    # every query, against the exact tiled search (expanded form, whose
+    # rounding at |q| ~ 500 mm is some 0.02-0.06 mm^2)
+    ie, _ = nearest_neighbors(q, tgt, valid)
+    de, dk = d64(ie), d64(idx)
+    within = de <= r2 - NEAR_TIE_MM2
+    misses = int((within & ~hit).sum())
+    check(misses == 0, f"K8: {misses} misses within r")
+    check(bool((dk[hit] <= r2 + NEAR_TIE_MM2).all()), "K8: a hit beyond r")
+    differ = hit & (idx != ie)
+    check(bool((dk[differ] <= de[differ] * (1 + 1e-6)).all()),
+          "K8 farther than the exact search where they differ")
+    # a float64 brute force on N_BRUTE queries spread over the sorted order
+    sel = torch.linspace(0, Q - 1, min(N_BRUTE, Q), device=dev).long()
+    best, second, arg = [], [], []
+    for rows in sel.split(256):
+        d = ((q[rows, None, :].double() - tgt[None].double()) ** 2).sum(dim=-1)
+        d = torch.where(valid[None], d, float("inf"))
+        m, a = torch.min(d, dim=1)      # the first minimum: lowest index
+        d.scatter_(1, a[:, None], float("inf"))
+        best.append(m)
+        arg.append(a)
+        second.append(d.min(dim=1).values)
+    best, second, arg = torch.cat(best), torch.cat(second), torch.cat(arg)
+    clear = (second - best > NEAR_TIE_MM2) & (best <= r2 - NEAR_TIE_MM2)
+    check(bool(hit[sel][best <= r2 - NEAR_TIE_MM2].all()), "K8: a brute-force miss")
+    check(torch.equal(idx[sel][clear], arg[clear]), "K8: idx differs from brute force")
+    check(bool((d64(idx[sel], sel)[hit[sel]] <= best[hit[sel]] * (1 + 1e-6)).all()),
+          "K8: not the nearest by brute force")
+    copies_won = 0
+    if dup is not None:
+        n_orig = tgt.shape[0] - dup.shape[0]
+        pos = torch.empty_like(bt.index)            # sorted position of each target
+        real = bt.index >= 0
+        pos[bt.index[real]] = torch.arange(bt.index.shape[0], device=dev)[real]
+        group = torch.cat([torch.arange(n_orig, device=dev), dup])
+        first = pos[:n_orig].scatter_reduce(0, dup, pos[n_orig:], "amin")
+        w = idx[hit]
+        check(torch.equal(pos[w], first[group[w]]),
+              "K8: a duplicate at a higher sorted position won")
+        copies_won = int((w >= n_orig).sum())
+    jstart, jend = kb.tile_bands(bt.axis @ qc, qv, bt, R_CORR)
+    widths = (jend - jstart).clamp(min=0)
+    return dict(queries=Q, targets=int(tgt.shape[0]), valid_targets=int(valid.sum()),
+                hits=int(hit.sum()), misses_within_r=misses,
+                d2_max_rel_err_vs_plain=d2_rel,
+                d2_max_abs_err_vs_plain=float((d2 - p[0])[hit].abs().max()),
+                idx_equal_plain=True,
+                differ_from_exact=int(differ.sum()),
+                exact_wrong_beyond_tie=int((differ & (de - dk > NEAR_TIE_MM2)).sum()),
+                copies_won=copies_won,
+                brute_force_queries=int(sel.numel()),
+                brute_force_near_ties=int((~clear & (best <= r2)).sum()),
+                band_tiles_mean=float(widths.float().mean()), band_tiles_max=int(widths.max()),
+                target_tiles=int(bt.tlo.shape[0]),
+                pairs=int(widths.sum()) * kb.tile_size(bt) * kb.QT), bt, qc, qv
+
+
+def stage_times(module, names, fn):
+    """Run ``fn`` once with each function ``module.<name>`` wrapped so that
+    its wall time, from an idle card to its result on the card, adds to
+    its total. Returns (result, {name: total ms}); restores the functions."""
+    totals = dict.fromkeys(names, 0.0)
+    originals = {n: getattr(module, n) for n in names}
+
+    def timed(name, f):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*args, **kwargs)
+            torch.cuda.synchronize()
+            totals[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    try:
+        for n, f in originals.items():
+            setattr(module, n, timed(n, f))
+        out = fn()
+    finally:
+        for n, f in originals.items():
+            setattr(module, n, f)
+    return out, totals
+
+
+def registration_phases(dev, cam, proj, cfg, counts_of, card):
+    """Phases 19-23, config 4: K8 against its plain version, the exact
+    search and a brute force at the reference's 256k size; the 15-iteration
+    band ICP (15 K8 launches); ICP between two dense config-3 scans of the
+    rocks scene (through K1, then K8); ``register_scans`` on a 4-scan orbit;
+    then their times. Returns K8's entry of the ``kernels`` line."""
+    from slr_torch.config import RegistrationConfig
+    from slr_torch.geom.se3 import so3_exp
+    from slr_torch.kernels import band_nn as kb
+    from slr_torch.pipeline import registerfuse as rf
+    from slr_torch.pipeline.reconstruct import DenseReconstructor
+    from slr_torch.registration.band import build_band_target
+    from slr_torch.registration.icp import _resolve_nn_method, icp_point_to_plane
+    from slr_torch.registration.nn import nearest_neighbors
+    from slr_torch.synth.render import move_rig, quantize_frames, render_scan
+    from slr_torch.synth.scene import rocks_scene
+
+    def quiet(n, *allowed):
+        return all(v == 0 for k, v in n.items() if k not in allowed)
+
+    # phase 19: K8 at 256k: the reference's case; a ragged query count with
+    # 10 % of the targets masked; 1/8 of the targets duplicated
+    tgt, qry, nrm = band_surface(N_BIG, dev)
+    rng = np.random.default_rng(14)
+    dup = torch.from_numpy(rng.integers(0, N_BIG, N_BIG // 8)).to(dev)
+    masked = torch.from_numpy(rng.random(N_BIG) > 0.1).to(dev)
+    variants = {"256k": (tgt, nrm, None, qry, None),
+                "ragged_masked": (tgt, nrm, masked, qry[:N_BIG - 37], None),
+                "duplicates": (torch.cat([tgt, tgt[dup]]), torch.cat([nrm, nrm[dup]]),
+                               None, qry, dup)}
+    k8 = {}
+    for name, (t, n, v, q, d) in variants.items():
+        k8[name], bt_v, qc_v, qv_v = band_check(kb, nearest_neighbors, build_band_target,
+                                                t, n, v, q, d)
+        if name == "256k":
+            bt, qc, qv = bt_v, qc_v, qv_v
+    emit("k8_band_nn", r_mm=R_CORR, tile=kb.QT, **k8)
+
+    # phase 20: the reference's ICP case on the band route: "auto" resolves
+    # to band on the card, one K8 launch per iteration
+    R_true = so3_exp(torch.tensor([0.004, -0.006, 0.005], device=dev))
+    t_true = torch.tensor([1.5, -1.0, 2.0], device=dev)
+    tgt_icp = tgt @ R_true.T + t_true
+    n_icp = nrm @ R_true.T
+    check(_resolve_nn_method("auto", N_BIG, N_BIG) == "band", "auto is not band at 256k")
+
+    def band_icp():
+        return icp_point_to_plane(tgt, tgt_icp, n_icp, iters=ICP_BAND_ITERS,
+                                  max_corr_dist=R_CORR)
+
+    res, n = counts_of(band_icp)
+    check(n["k8"] == ICP_BAND_ITERS and quiet(n, "k8"), f"icp_band_256k: launches {n}")
+    launches = n["k8"]
+    r_err = float((res.R - R_true).abs().max())
+    t_err = float((res.t - t_true).abs().max())
+    check(r_err <= ICP_R_GATE and t_err <= ICP_T_GATE,
+          f"icp_band_256k: R_err {r_err}, t_err {t_err} mm")
+    emit("icp_band_256k", iters=ICP_BAND_ITERS, launches=n["k8"], R_err=r_err,
+         t_err_mm=t_err, R_gate=ICP_R_GATE, t_gate_mm=ICP_T_GATE,
+         rms_mm=float(res.rms), inlier_frac=float(res.inlier_frac))
+
+    # the config-4 orbit: ORBIT_SCANS uint8 scans of the rocks scene from a
+    # moving config-3 rig, decoded by K1 with the rig's own calibration, so
+    # registration has to recover each rig pose
+    cam_d, proj_d = cam.to(dev), proj.to(dev)
+    poses, stacks = [], []
+    for s in range(ORBIT_SCANS):
+        R_m = so3_exp(torch.tensor([0.0, 0.025 * s, 0.008 * s], device=dev))
+        t_m = torch.tensor([7.0 * s, -3.0 * s, 0.0], device=dev)
+        cam_s, proj_s = move_rig(cam_d, proj_d, R_m, t_m)
+        sc = render_scan(cam_s, proj_s, rocks_scene(cam_s, CAM_H, CAM_W), cfg,
+                         noise_std=0.003,
+                         generator=torch.Generator(device=dev).manual_seed(40 + s))
+        stacks.append(quantize_frames(sc.frames))
+        poses.append((R_m, t_m))
+    model = DenseReconstructor(cam, proj, cfg).to(dev)
+
+    def decode():
+        return [model(f) for f in stacks]
+
+    clouds, n = counts_of(decode)
+    check(n["k1"] == ORBIT_SCANS and quiet(n, "k1"), f"orbit decode: launches {n}")
+    check(all(c.mask.float().mean() > 0.3 for c in clouds), "orbit coverage")
+
+    # phase 21: ICP between two dense scans: 262144 samples of each, so
+    # "auto" takes the band route, K8 once per iteration
+    rc = RegistrationConfig()
+    src, _ = rf._subsample(clouds[1], N_BIG, seed=1)
+    tgt_d, tgt_n = rf._subsample(clouds[0], N_BIG, seed=0)
+
+    def dense_icp():
+        return icp_point_to_plane(src, tgt_d, tgt_n, iters=rc.icp_iters,
+                                  max_corr_dist=rc.icp_max_corr_dist)
+
+    res, n = counts_of(dense_icp)
+    check(n["k8"] == rc.icp_iters and quiet(n, "k8"), f"icp_dense_scans: launches {n}")
+    launches += n["k8"]
+    rot, tr = pose_error(res.R, res.t, *poses[1])
+    check(rot < ROT_GATE_DEG and tr < T_GATE_MM,
+          f"icp_dense_scans: {rot} deg, {tr} mm")
+    emit("icp_dense_scans", samples=N_BIG, iters=rc.icp_iters,
+         max_corr_dist_mm=rc.icp_max_corr_dist, launches=n["k8"], rot_err_deg=rot,
+         t_err_mm=tr, rot_gate_deg=ROT_GATE_DEG, t_gate_mm=T_GATE_MM,
+         rms_mm=float(res.rms), inlier_frac=float(res.inlier_frac),
+         valid_px=[int(c.mask.sum()) for c in clouds[:2]])
+
+    # phase 22: register_scans on the orbit with the defaults (4096
+    # samples: the exact route, no K8), features, the projective polish and
+    # loop closures; then once more with each stage timed
+    def register(cl):
+        return rf.register_scans(cl, rc, use_features=True, cam=cam_d, loop_closures=True)
+
+    reg, n = counts_of(lambda: register(clouds))
+    check(quiet(n), f"config4_register: launches {n}")
+    errs = [pose_error(reg.R[s], reg.t[s], *poses[s]) for s in range(ORBIT_SCANS)]
+    max_rot, max_t = max(e[0] for e in errs), max(e[1] for e in errs)
+    check(max_rot < ROT_GATE_DEG and max_t < T_GATE_MM,
+          f"config4_register: {max_rot} deg, {max_t} mm")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    _, stages = stage_times(rf, REGISTER_STAGES, lambda: register(clouds))
+    emit("config4_register", scans=ORBIT_SCANS, samples=rc.icp_sample_points,
+         rot_err_deg=[e[0] for e in errs], t_err_mm=[e[1] for e in errs],
+         max_rot_err_deg=max_rot, max_t_err_mm=max_t, rot_gate_deg=ROT_GATE_DEG,
+         t_gate_mm=T_GATE_MM, icp_rms_mm=reg.icp_rms.tolist(), pg_rms=float(reg.pg_rms),
+         stage_ms={"decode": decode_ms, **{k.strip("_"): v for k, v in stages.items()}},
+         stage_timing="host wall, a card sync around every call")
+
+    # phase 23: times, in turns: K8 (K8_BATCH launches a timed run), its
+    # plain version and the exact search at 256k (CUDA events); the band
+    # ICP; ICP between the dense scans; and config 4 end to end (decode +
+    # register_scans, host-bound)
+    def k8_batch():
+        for _ in range(K8_BATCH):
+            kb.launch_band_nn(qc, qv, bt, R_CORR)
+
+    runs = {"plain_k8": (lambda: kb.band_nn_sorted_reference(qc, qv, bt, R_CORR), 5, 1),
+            "k8": (k8_batch, TIMED_RUNS, 3),
+            "exact_nn": (lambda: nearest_neighbors(qc.T, tgt), 3, 1),
+            "icp_band_256k": (band_icp, 5, 1),
+            "icp_dense_scans": (dense_icp, 5, 1),
+            "config4_e2e": (lambda: register(decode()), 3, 1)}
+    turns = [("plain_k8", "k8", "exact_nn", "exact_nn", "k8", "plain_k8"),
+             ("icp_band_256k", "icp_dense_scans", "icp_dense_scans", "icp_band_256k"),
+             ("config4_e2e", "config4_e2e")]
+    times = {k: [] for k in runs}
+    for turn in turns:
+        for name in turn:
+            fn, n_runs, warmup = runs[name]
+            times[name] += cuda_ms(fn, n_runs, warmup)
+    times["k8"] = [t / K8_BATCH for t in times["k8"]]
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    pairs = k8["256k"]["pairs"]
+    emit("timing_registration", card=card, **{f"{k}_ms": v for k, v in ms.items()},
+         **{f"{k}_ms_spread": [min(v), max(v)] for k, v in times.items()},
+         runs_each={k: len(v) for k, v in times.items()}, k8_pairs=pairs,
+         k8_pairs_per_s=pairs / (ms["k8"] * 1e-3),
+         k8_fp32_issue_share=pairs * 8 / FP32_ISSUE_PER_S / (ms["k8"] * 1e-3),
+         exact_pairs_per_s=N_BIG * N_BIG / (ms["exact_nn"] * 1e-3),
+         after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
+    return {"name": "band_nn_sorted", "route": "cuda",
+            "source": "slr_torch/kernels/csrc/band_nn.cu",
+            "replaces": "slr/registration/band.py:121",
+            "launches": launches,
+            "max_abs_err": max(v["d2_max_abs_err_vs_plain"] for v in k8.values()),
+            "max_abs_err_of": "d2 (mm^2) against the plain version; points, normals "
+                              "and idx equal",
+            "ms": ms["k8"], "plain_ms": ms["plain_k8"], "exact_nn_ms": ms["exact_nn"]}
+
+
 def main():
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -168,6 +509,7 @@ def main():
     from slr_torch.config import DecodeConfig, PatternConfig
     from slr_torch.entry import entry
     from slr_torch.geom.camera import make_camera
+    from slr_torch.kernels import band_nn as kb
     from slr_torch.kernels import fused_scan as fs
     from slr_torch.kernels import unwrap_scan as us
     from slr_torch.kernels import wavefront as wf
@@ -181,7 +523,8 @@ def main():
     kernel_hdr = fs.fused_decode_triangulate_hdr
     # every kernel wrapper's launch count, by kernel
     wrappers = {"k1": kernel, "k2": kernel_hdr, "k3": us.quality_unwrap,
-                "k4": us.quality_unwrap_tiled, "k5": wf.wavefront_pass}
+                "k4": us.quality_unwrap_tiled, "k5": wf.wavefront_pass,
+                "k8": kb.band_nn_sorted}
     dev = torch.device("cuda")
     dec = DecodeConfig()
     # points_max_abs_err (K1, K2), |dPhi| (K3-K5) of every comparison
@@ -237,6 +580,7 @@ def main():
         built = dict(zip(LIBRARIES, pool.map(build_library, LIBRARIES)))
     fs._library()
     us.library()
+    kb.library()
     emit("build", setup_s=time.perf_counter() - t0,
          library={k: p.name for k, (p, _) in built.items()},
          ptxas={k: ptxas_summary(log) for k, (_, log) in built.items()})
@@ -646,6 +990,9 @@ def main():
             for k, v in gbs.items()},
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
 
+    # phases 19-23: registration (config 4), K8
+    k8_entry = registration_phases(dev, cam, proj, cfg, counts_of, card)
+
     print(json.dumps({"kernels": [{
         "name": "fused_decode_triangulate",
         "route": "cuda",
@@ -705,7 +1052,7 @@ def main():
         "plain_ms_cols": ms["plain_pass_cols"],
         "ms_repair_8_passes": ms["repair"],
         "plain_ms_repair_8_passes": ms["plain_repair"],
-    }]}), flush=True)
+    }, k8_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

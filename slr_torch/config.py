@@ -1,4 +1,5 @@
-"""Typed configuration for the port: the scan slice of ``slr.config``.
+"""Typed configuration for the port: the scan and registration slices of
+``slr.config``.
 
 Restated field for field rather than imported, because importing
 anything under ``slr`` imports JAX, which the GPU machine does not have.
@@ -103,3 +104,21 @@ class ReconstructConfig:
     sor_k: int = 0
     sor_std_ratio: float = 2.0
     sor_voxel: float = 3.0
+
+
+@dataclass(frozen=True)
+class RegistrationConfig:
+    """Feature+RANSAC coarse alignment and ICP refinement."""
+
+    ransac_iters: int = 256
+    # matched keypoints are distinct subsample draws, so a perfect alignment
+    # still leaves pairs ~one point-spacing apart: the RANSAC inlier radius
+    # is a few spacings (ICP owns fine accuracy)
+    ransac_inlier_dist: float = 5.0
+    icp_iters: int = 20
+    icp_max_corr_dist: float = 10.0
+    icp_sample_points: int = 4096
+    voxel_size: float = 2.0
+    # pose graph
+    pg_iters: int = 20
+    pg_damping: float = 1e-6

@@ -1,4 +1,5 @@
-"""slr_torch.pipeline — single-scan reconstruction (port of ``slr.pipeline``)."""
+"""slr_torch.pipeline — single-scan reconstruction and multi-scan registration
+(port of ``slr.pipeline``)."""
 
 from slr_torch.pipeline.reconstruct import (
     DenseReconstructor,
@@ -7,4 +8,6 @@ from slr_torch.pipeline.reconstruct import (
     reconstruct_dense,
     reconstruct_scan,
     reconstruct_scan_hdr,
+    scan_cloud_from_numpy,
 )
+from slr_torch.pipeline.registerfuse import RegisteredScans, register_scans

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -45,6 +46,18 @@ class ScanCloud(NamedTuple):
     colors: torch.Tensor     # (H, W) intensity from the white frame
     quality: torch.Tensor    # (H, W)
     x_p: torch.Tensor        # (H, W)
+
+
+def scan_cloud_from_numpy(points, mask, colors, quality, x_p, device="cpu") -> ScanCloud:
+    """A cloud given as numpy arrays (the JAX ``ScanCloud`` after
+    ``jax.tree.map(np.asarray, cloud)``) -> the port's ``ScanCloud``. This is
+    how scans cross from the reference to the port."""
+    def f32(a):
+        return torch.as_tensor(np.array(a, np.float32), device=device)
+
+    return ScanCloud(points=f32(points),
+                     mask=torch.as_tensor(np.array(mask, bool), device=device),
+                     colors=f32(colors), quality=f32(quality), x_p=f32(x_p))
 
 
 def _pixel_grid(H: int, W: int, device):

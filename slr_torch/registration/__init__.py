@@ -1,0 +1,18 @@
+"""slr_torch.registration — multi-scan alignment (port of ``slr.registration``).
+
+Coarse: FPFH descriptors and batched RANSAC. Fine: point-to-plane ICP,
+whose correspondence search is the tiled exact search or, for dense clouds,
+the sorted-band search (kernel K8); and projective-association ICP on
+organized grids. Pose graph: Gauss-Newton over SE(3). The voxel hash and
+the outlier filters are ROADMAP slice 5.
+"""
+
+from slr_torch.registration.band import (
+    BandTarget, band_nearest_neighbors, band_nn_sorted, build_band_target,
+    suggest_b_max)
+from slr_torch.registration.features import fpfh_features, ransac_align
+from slr_torch.registration.icp import ICPResult, icp_point_to_plane
+from slr_torch.registration.nn import nearest_neighbors
+from slr_torch.registration.normals import grid_normals
+from slr_torch.registration.posegraph import PoseGraphResult, pose_graph_optimize
+from slr_torch.registration.projective import icp_projective

@@ -54,6 +54,23 @@ def default_rig(cam_w: int = 1280, cam_h: int = 1024, proj_w: int = 1024,
     return cam, proj
 
 
+def move_rig(cam: Camera, proj: Camera, R_m, t_m):
+    """Move the whole scanner rig by the pose (R_m, t_m) (rig -> world).
+
+    Returns (cam', proj') that see the world scene from the moved rig:
+    world -> cam' = (world -> cam) o T_rig^-1. Reconstruction with the
+    original calibration then gives points in the rig frame, and
+    registration must recover T_rig: exact multi-scan ground truth."""
+    R_m = torch.as_tensor(R_m, dtype=torch.float32).to(cam.R.device)
+    t_m = torch.as_tensor(t_m, dtype=torch.float32).to(cam.R.device)
+
+    def mv(c: Camera) -> Camera:
+        R_new = c.R @ R_m.T
+        return c._replace(R=R_new, t=c.t - R_new @ t_m)
+
+    return mv(cam), mv(proj)
+
+
 def _bilinear_sample(img, x, y):
     """Sample (..., H, W) images at float coords (h, w), clamped to borders."""
     H, W = img.shape[-2:]

@@ -1,7 +1,9 @@
 """Synthetic scenes: camera-frame depth maps (port of ``slr/synth/scene.py``).
 
-Only ``bumps_depth`` (the config-3 scene) and ``checker_albedo`` (the HDR
-bracket's texture) are ported so far; the rest of ``slr.synth`` is ROADMAP
+Ported so far: ``bumps_depth`` (the config-3 scene), ``checker_albedo``
+(the HDR bracket's texture), and the closed-form world scenes that render
+from any rig pose, ``plane_depth``, ``sphere_depth`` and ``rocks_scene``
+(the config-4 registration scene). The rest of ``slr.synth`` is ROADMAP
 slice 10.
 """
 
@@ -9,7 +11,70 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from slr_torch.geom.camera import Camera, pixel_to_ray
+
+
+def _pixel_rays(cam: Camera, h: int, w: int):
+    """(origin (3,), unit world-frame directions (h, w, 3)) of every pixel."""
+    dev = cam.R.device
+    v = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    u = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    return pixel_to_ray(cam, u, v)
+
+
+def _cam_depth(cam: Camera, pts):
+    """World points -> depth along the camera z axis."""
+    return torch.einsum("j,...j->...", cam.R[2], pts) + cam.t[2]
+
+
+def plane_depth(cam: Camera, h: int, w: int, point, normal):
+    """Depth map (h, w) of the plane through ``point`` with ``normal``
+    (world frame), as seen by ``cam`` (any extrinsics)."""
+    o, d = _pixel_rays(cam, h, w)
+    point = torch.as_tensor(point, dtype=torch.float32).to(o.device)
+    normal = torch.as_tensor(normal, dtype=torch.float32).to(o.device)
+    denom = torch.einsum("...i,i->...", d, normal)
+    denom = torch.where(denom.abs() < 1e-9, 1e-9, denom)
+    lam = torch.einsum("...i,i->...", point - o, normal) / denom
+    return _cam_depth(cam, o + lam[..., None] * d)
+
+
+def sphere_depth(cam: Camera, h: int, w: int, center, radius, background=None):
+    """Depth of a sphere seen by ``cam`` (any extrinsics); pixels missing
+    it take ``background`` (a constant camera-frame depth)."""
+    o, d = _pixel_rays(cam, h, w)
+    c = torch.as_tensor(center, dtype=torch.float32).to(o.device)
+    oc = o - c
+    b = torch.einsum("...i,i->...", d, oc)
+    cc = torch.einsum("...i,...i->...", oc, oc) - radius * radius
+    disc = b * b - cc
+    hit = disc > 0
+    lam = -b - torch.sqrt(torch.where(hit, disc, 0.0))
+    z = _cam_depth(cam, o + lam[..., None] * d)
+    if background is None:
+        background = float(center[2]) + 4.0 * radius
+    return torch.where(hit & (lam > 0), z, float(background))
+
+
+def rocks_scene(cam: Camera, h: int, w: int, n: int = 18, seed: int = 0,
+                plane_point=(0, 0, 580.0), plane_normal=(0.12, 0.08, -1.0)):
+    """World-anchored "rock field": n unequal spheres over a tilted plane,
+    from numpy's generator seeded ``seed`` (the reference's draw). The
+    spread of radii makes local curvature, and so FPFH, discriminative."""
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(-120, 120, n)
+    ys = rng.uniform(-80, 80, n)
+    rs = rng.uniform(14.0, 42.0, n)
+    # each rock half-embedded in the plane region around z ~ 545
+    zs = 565.0 - 0.35 * rs + rng.uniform(-12, 12, n)
+    depth = plane_depth(cam, h, w, plane_point, plane_normal)
+    for x, y, z, r in zip(xs, ys, zs, rs):
+        depth = torch.minimum(depth, sphere_depth(
+            cam, h, w, (float(x), float(y), float(z)), float(r), background=1e6))
+    return depth
 
 
 def _linspace01(n: int, device):

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1, every branch, K2, and the spatial repair's
-K3, K4 and K5) against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (K1, every branch, K2, the spatial repair's K3, K4
+and K5, and the band search K8) against their plain PyTorch versions, on
+the card.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it also runs on a machine without it:
@@ -18,11 +19,14 @@ import torch
 from slr_torch.codec import unwrap as pu
 from slr_torch.config import DecodeConfig, PatternConfig
 from slr_torch.geom.camera import make_camera
+from slr_torch.kernels import band_nn as kb
 from slr_torch.kernels import fused_scan as fs
 from slr_torch.kernels import unwrap_scan as us
 from slr_torch.kernels import wavefront as wf
 from slr_torch.pipeline.reconstruct import (
     DenseReconstructor, accumulate_by_projector, spatial_repair)
+from slr_torch.registration import band as rb
+from slr_torch.registration.icp import icp_point_to_plane
 from slr_torch.synth.render import default_rig, quantize_frames, render_scan
 from slr_torch.synth.scene import bumps_depth, checker_albedo
 
@@ -354,3 +358,137 @@ def test_dense_reconstructor_spatial_launches(cuda, mode):
     valid = cloud.mask.cpu() & scan.mask_true
     err = torch.linalg.norm(cloud.points.cpu() - scan.points_true, dim=-1)[valid]
     assert float(err.square().mean().sqrt()) < 0.5
+
+
+def _band_cloud(device, n_t, n_q, seed, dup=0):
+    """A bumpy scan-sized surface (|q| ~ 500 mm) and noisy queries near it;
+    ``dup`` targets repeated at once after the originals."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-120, 120, (n_t, 2))
+    z = 500 + 20 * np.sin(xy[:, 0] / 25.0) * np.cos(xy[:, 1] / 30.0)
+    tgt = np.column_stack([xy, z]).astype(np.float32)
+    if dup:
+        tgt = np.concatenate([tgt, tgt[rng.integers(0, n_t, dup)]])
+    qry = (tgt[rng.integers(0, len(tgt), n_q)] + rng.normal(0, 1.5, (n_q, 3))
+           ).astype(np.float32)
+    nrm = rng.normal(size=tgt.shape).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (tgt, qry, nrm)]
+
+
+def _sorted_queries(bt, qry):
+    order = torch.sort(qry @ bt.axis, stable=True).indices
+    return qry[order].T.contiguous()
+
+
+def _brute_force(qc, tgt, valid):
+    """Float64 distances of every (query, valid target) pair."""
+    d = torch.cdist(qc.T.double(), tgt.double(),
+                    compute_mode="donot_use_mm_for_euclid_dist") ** 2
+    return torch.where(valid[None, :], d, float("inf"))
+
+
+@pytest.mark.parametrize("case", ["ragged", "masked", "duplicates", "empty_band",
+                                  "wider_than_cap"])
+def test_band_kernel_matches_plain_version_and_brute_force(cuda, case):
+    """K8 equals its plain version (the same d2 bits, points, normals,
+    indices) and the brute force within r: a ragged query count (no
+    multiple of the tile), 10 % of targets masked, duplicated targets (the
+    lowest sorted position, i.e. original index, wins), a query tile with
+    an empty band, and bands wider than the reference's cap."""
+    r = 6.0
+    tgt, qry, nrm = _band_cloud(cuda, 20000, 3001, 4, dup=3000 if case == "duplicates" else 0)
+    valid = torch.ones(len(tgt), dtype=torch.bool, device=cuda)
+    if case == "masked":
+        valid = torch.from_numpy(np.random.default_rng(1).random(len(tgt)) > 0.1).to(cuda)
+    bt = rb.build_band_target(tgt, nrm, valid)
+    qc = _sorted_queries(bt, qry)
+    qv = torch.ones(qc.shape[1], dtype=torch.bool, device=cuda)
+    if case == "empty_band":    # a tile of far queries, and an invalid tile
+        far = (bt.axis[:, None] * -1e4).expand(3, kb.QT)
+        qc = torch.cat([far, qc, -far], dim=1).contiguous()
+        qv = torch.ones(qc.shape[1], dtype=torch.bool, device=cuda)
+        qv[-kb.QT:] = False
+    jstart, jend = kb.tile_bands(bt.axis @ qc, qv, bt, r)
+    widths = jend - jstart
+    if case == "empty_band":
+        assert int(widths[0]) <= 0 and int(widths[-1]) <= 0
+    if case == "wider_than_cap":   # the reference's cap, measured at one end
+        cap = rb.suggest_b_max(qc[:, :1].T.expand(200, 3), tgt, r)
+        assert int(widths.max()) > cap
+    before = rb.band_nn_sorted.launches
+    k = rb.band_nn_sorted(qc, qv, bt, r, b_max=1)
+    assert rb.band_nn_sorted.launches == before + 1
+    p = kb.band_nn_sorted_reference(qc, qv, bt, r)
+    torch.cuda.synchronize()
+    assert torch.equal(k[3], p[3])
+    hit = k[3] >= 0
+    assert torch.equal(torch.isinf(k[0]), ~hit)
+    assert torch.equal(k[0][hit], p[0][hit])
+    assert torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
+    # against the brute force: every query with a valid target within r hits
+    d = _brute_force(qc, tgt, valid)
+    best, ref = d.min(dim=1)
+    within = (best <= r * r) & qv
+    border = (best - r * r).abs() <= 1e-3    # float32 rounding at r
+    assert torch.equal(hit & ~border, within & ~border)
+    got = d.gather(1, k[3].clamp(min=0)[:, None])[:, 0]
+    assert bool(((got - best).abs() <= 1e-3)[hit].all())
+    # the winner's point and normal are the target's, its index an original
+    assert torch.equal(k[1][hit], tgt[k[3][hit]]) and torch.equal(k[2][hit], nrm[k[3][hit]])
+    assert bool(valid[k[3][hit]].all())
+    if case == "duplicates":    # a copy never wins over its original
+        assert bool((k[3][hit] < 20000).all())
+    if case == "empty_band":
+        assert bool((k[3][:kb.QT] == -1).all()) and bool((k[3][-kb.QT:] == -1).all())
+    assert int(hit.sum()) > 0.5 * int(qv.sum()) - 2 * kb.QT
+
+
+def test_band_kernel_rejects_bad_input(cuda):
+    tgt, qry, nrm = _band_cloud(cuda, 2000, 300, 0)
+    bt = rb.build_band_target(tgt, nrm)
+    qc = _sorted_queries(bt, qry)
+    qv = torch.ones(qc.shape[1], dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        kb.launch_band_nn(qc.T.contiguous().T, qv, bt, 5.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        kb.launch_band_nn(qc.cpu(), qv.cpu(), bt, 5.0)
+    with pytest.raises(ValueError):
+        kb.launch_band_nn(qc, qv.to(torch.uint8), bt, 5.0)
+
+
+def test_band_icp_launches_once_per_iteration_without_host_sync(cuda):
+    """``nn_method="auto"`` above the crossover takes the band route on the
+    card: one K8 launch per iteration, no host sync in the whole call, and
+    the pose of the same ICP on the CPU (K8's plain version)."""
+    rng = np.random.default_rng(13)
+    n = 32768            # 32768^2 pairs > the 24000^2 crossover
+    xy = rng.uniform(-150, 150, (n, 2))
+    z = 500 + 20 * np.sin(xy[:, 0] / 25.0) * np.cos(xy[:, 1] / 30.0) + 8 * np.sin(xy[:, 1] / 12.0)
+    src = np.column_stack([xy, z]).astype(np.float32)
+    gx = 20 * np.cos(xy[:, 0] / 25.0) / 25.0 * np.cos(xy[:, 1] / 30.0)
+    gy = (-20 * np.sin(xy[:, 0] / 25.0) * np.sin(xy[:, 1] / 30.0) / 30.0
+          + 8 * np.cos(xy[:, 1] / 12.0) / 12.0)
+    n0 = np.column_stack([-gx, -gy, np.ones_like(gx)])
+    n0 /= np.linalg.norm(n0, axis=1, keepdims=True)
+    ang = 0.01
+    R_true = np.array([[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang), 0],
+                       [0, 0, 1]], np.float32)
+    t_true = np.array([1.5, -1.0, 2.0], np.float32)
+    tgt = (src @ R_true.T + t_true).astype(np.float32)
+    n_tgt = (n0 @ R_true.T).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (src, tgt, n_tgt)]
+    on_card = [a.to(cuda) for a in args]
+    rb.band_nn_sorted.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = icp_point_to_plane(*on_card, iters=6, max_corr_dist=8.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert rb.band_nn_sorted.launches == 6
+    ref = icp_point_to_plane(*args, iters=6, max_corr_dist=8.0)
+    np.testing.assert_allclose(res.R.cpu().numpy(), ref.R.numpy(), atol=1e-5)
+    np.testing.assert_allclose(res.t.cpu().numpy(), ref.t.numpy(), atol=1e-3)
+    np.testing.assert_allclose(res.R.cpu().numpy(), R_true, atol=1e-4)
+    np.testing.assert_allclose(res.t.cpu().numpy(), t_true, atol=1e-2)

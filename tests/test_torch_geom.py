@@ -61,7 +61,7 @@ def _camera_pair(rng, with_pose=True):
 # ---------------------------------------------------------------- config
 
 @pytest.mark.parametrize("name", ["PatternConfig", "DecodeConfig",
-                                  "ReconstructConfig"])
+                                  "ReconstructConfig", "RegistrationConfig"])
 def test_config_fields_match_reference(name):
     a, b = getattr(jcfg, name), getattr(tcfg, name)
     fa = [(f.name, f.default) for f in dataclasses.fields(a)]
@@ -112,7 +112,12 @@ def test_port_imports_neither_jax_nor_slr():
         "import sys\n"
         "import slr_torch, slr_torch.pipeline.reconstruct, "
         "slr_torch.synth.render, slr_torch.entry, slr_torch.kernels.build, "
-        "slr_torch.kernels.unwrap_scan, slr_torch.kernels.wavefront\n"
+        "slr_torch.kernels.unwrap_scan, slr_torch.kernels.wavefront, "
+        "slr_torch.kernels.band_nn, slr_torch.geom.se3, slr_torch.registration, "
+        "slr_torch.registration.band, slr_torch.registration.features, "
+        "slr_torch.registration.icp, slr_torch.registration.posegraph, "
+        "slr_torch.registration.projective, slr_torch.pipeline.registerfuse, "
+        "slr_torch.synth.scene\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'slr' or m.startswith('slr.'))\n"
         "print(bad)\n"
