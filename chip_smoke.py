@@ -6,7 +6,8 @@ From the repository root: builds the port's CUDA kernels with nvcc, one
 process per source, all at once (K1 and K2 of
 ``slr_torch/kernels/csrc/fused_scan.cu``; K3, K4 and K5 of
 ``slr_torch/kernels/csrc/unwrap.cu``; K8 of
-``slr_torch/kernels/csrc/band_nn.cu``), holds every kernel to its plain
+``slr_torch/kernels/csrc/band_nn.cu``; K6 and K7 of
+``slr_torch/kernels/csrc/crossing.cu``), holds every kernel to its plain
 PyTorch version on the card, and drives each scan path through the entry
 point a user calls (``DenseReconstructor``, ``slr_torch.entry``) on the
 config-3 rig (1280x1024 camera, 1024x768 projector): float32, uint8 and
@@ -16,7 +17,11 @@ both fusions), and the spatial repair (``spatial_iters=4``: voting, K4 at
 this size and K3 on a smaller camera; wavefront, K5). Then registration
 (config 4): the sorted-band search K8 at 256k points, point-to-plane ICP on
 its band route (``icp_point_to_plane``) at 256k and between two dense scans,
-and ``register_scans`` on a 4-scan orbit. Each path's output is checked
+and ``register_scans`` on a 4-scan orbit. Then the two-camera merge
+(``reconstruct_two_camera``): the crossing kernels K7 and K6 against their
+plain versions, the merge at full width in float32 and uint8 (K1 twice, K7
+four times), the tiled route on a 5 MP sensor (K6 four times), the splat and
+search oracles, and two merged rig poses registered. Each path's output is checked
 against the synthetic ground truth and its launches counted; then the
 kernels, their plain versions and the paths are timed with CUDA events.
 Each phase prints one JSON line; the last line is ``{"ok": true, "device":
@@ -51,7 +56,7 @@ TIMED_RUNS = 20
 HBM_PEAK_TBS = 3.35        # H100 SXM data sheet
 HDR_GAINS = (1.0, 3.2, 10.0)
 PROJ_DIST = [-0.08, 0.02, 0.001, -0.001, 0.0]
-LIBRARIES = ("fused_scan", "unwrap", "band_nn")   # csrc/<name>.cu, one nvcc each
+LIBRARIES = ("fused_scan", "unwrap", "band_nn", "crossing")   # csrc/<name>.cu, one nvcc each
 WAVEFRONT_TOL = 1e-3       # rad, K5 against its plain version on reached pixels
 BLOB_TOL = 1e-3            # rad, a repaired map against the clean phase
 SPATIAL_ITERS = 4
@@ -70,6 +75,20 @@ ROT_GATE_DEG, T_GATE_MM = 0.5, 2.0    # tests/test_pipeline.py:124-125
 # a pair costs K8 8 fp32 instructions (3 sub, 3 mul, 2 add; no FMA); the
 # card issues 33.5e12 a second, half its 67 TFLOP/s (an FMA counts 2)
 FP32_ISSUE_PER_S = 33.5e12
+# bounds: fp32 instructions of one voting sweep per pixel (4 neighbour
+# votes of a subtraction, an IEEE division of ~8 instructions, a rint and a
+# compare, then the consensus); K3 and K4 are bound by these, not by bytes
+VOTE_INSTR_PER_PX_SWEEP = 50
+# two-camera merge (slice 5): the reference's full-width case
+# (benchmarks/tpu_matrix.py:453-478)
+TWO_CAM_RMS_GATE_MM = 0.05
+TWO_CAM_MIN_POINTS = 560_000
+ORACLE_RMS_GATE_MM = 0.5              # tpu_matrix.py:511
+TILED_W, TILED_H = 2448, 2048         # a 5 MP machine-vision sensor
+CROSSING_REL_TOL = 1e-6               # where a bin has >= 2 crossings (sum order)
+MERGE_MASK_AGREE = 0.9999             # kernel against plain route (tests/test_twocam.py:99-103)
+MERGE_POINTS_TOL = 1e-3               # mm
+INTERP = (True, True, False, False)   # invert_to_projector's channel layout
 REGISTER_STAGES = ("_subsample", "icp_point_to_plane", "fpfh_features",
                    "ransac_align", "icp_projective", "pose_graph_optimize")
 
@@ -492,7 +511,394 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
             "max_abs_err": max(v["d2_max_abs_err_vs_plain"] for v in k8.values()),
             "max_abs_err_of": "d2 (mm^2) against the plain version; points, normals "
                               "and idx equal",
-            "ms": ms["k8"], "plain_ms": ms["plain_k8"], "exact_nn_ms": ms["exact_nn"]}
+            "ms": ms["k8"], "plain_ms": ms["plain_k8"], "exact_nn_ms": ms["exact_nn"],
+            # 8 fp32 instructions a pair (3 sub, 3 mul, 2 add; no FMA)
+            "bound_ms": pairs * 8 / FP32_ISSUE_PER_S * 1e3, "bound_by": "operations",
+            "library_ms": None}
+
+
+def crossing_agree(name, got, plain):
+    """(cnt, vals) of K6 or K7 against their plain version: counts equal;
+    bit-equal where a bin has at most one crossing (every other term is an
+    exact zero); relative CROSSING_REL_TOL of max(|v|, 1) where it has
+    more (the plain contraction sums in another order)."""
+    (cnt, vals), (cnt_p, vals_p) = got, plain
+    check(torch.equal(cnt, cnt_p), f"{name}: crossing counts differ")
+    one = (cnt_p <= 1)[None].expand_as(vals_p)
+    check(torch.equal(vals[one], vals_p[one]), f"{name}: not bit-equal where cnt <= 1")
+    rel = ((vals - vals_p).abs() / vals_p.abs().clamp(min=1.0))[~one]
+    rel = float(rel.max()) if rel.numel() else 0.0
+    check(rel <= CROSSING_REL_TOL, f"{name}: relative {rel} where cnt >= 2")
+    return dict(shape=list(vals.shape), crossings=int(cnt_p.sum()),
+                max_cnt=float(cnt_p.max()), bins_cnt_ge2=int((cnt_p >= 2).sum()),
+                bit_equal=bool(torch.equal(vals, vals_p)), max_rel_err_cnt_ge2=rel,
+                max_abs_err=float((vals - vals_p).abs().max()))
+
+
+def crossing_case(dev, R, U, seed, wiggle=0.0):
+    """The reference's random crossing case (tests/test_twocam.py:316-322),
+    from numpy seeded ``seed``; ``wiggle``: noise on the codes, so that
+    bins cross several times."""
+    rng = np.random.default_rng(seed)
+    code = np.cumsum(rng.uniform(0.2, 1.4, (R, U)), axis=1)
+    code = code - code[:, :1] + rng.uniform(-3, 3, (R, 1))
+    code = (code + wiggle * rng.normal(size=(R, U))).astype(np.float32)
+    valid = rng.random((R, U)) > 0.05
+    ch = (rng.normal(0, 1, (4, R, U)) * 10 + 50).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (code, valid, ch)]
+
+
+def captured(module, name, run):
+    """Run ``run`` with ``module.<name>`` wrapped to record each call's
+    arguments; returns (result, [(args, kwargs), ...])."""
+    orig, calls = getattr(module, name), []
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    setattr(module, name, record)
+    try:
+        out = run()
+    finally:
+        setattr(module, name, orig)
+    return out, calls
+
+
+def crossing_k7_bytes(R, U, K, C=4):
+    """K7's least traffic: code (4 B), valid (1 B) and C channels (4 B) per
+    pixel read once; cnt and C values (4 B) per bin written once."""
+    return R * U * (5 + 4 * C) + R * K * 4 * (1 + C)
+
+
+def crossing_k6_bytes(R, U, N, K):
+    """K6's least traffic: lo, hi and N payload channels per pair read
+    once; N sums per bin written once."""
+    return (2 + N) * 4 * R * U + N * 4 * R * K
+
+
+def two_camera_phases(dev, counts_of, card):
+    """Phases 24-30, the two-camera merge (slice 5): K7 and K6 against
+    their plain versions; ``reconstruct_two_camera`` at the reference's
+    full width in float32 and uint8; the tiled route on a 5 MP sensor; the
+    splat and search oracles; two merged rig poses registered; then times.
+    Returns the ``kernels`` entries of K7 and K6."""
+    from slr_torch.config import (
+        DecodeConfig, PatternConfig, ReconstructConfig, RegistrationConfig)
+    from slr_torch.geom.camera import pixel_to_ray
+    from slr_torch.geom.se3 import so3_exp
+    from slr_torch.kernels import crossing as kx
+    from slr_torch.pipeline import registerfuse as rf
+    from slr_torch.pipeline import twocam
+    from slr_torch.synth.render import move_rig, quantize_frames, render_scan, two_camera_rig
+    from slr_torch.synth.scene import rocks_scene, spheres_scene
+
+    cfg = PatternConfig(proj_width=PROJ_W, proj_height=PROJ_H, gray_bits=7,
+                        row_gray_bits=6, phase_steps=4, row_phase_steps=4)
+    dec = DecodeConfig()
+    rec = ReconstructConfig(min_depth=300.0, max_depth=900.0)
+
+    def render_pair(W, H, scene, seed, pose=None, uint8=False):
+        """Both cameras' stacks (36 frames each) of ``scene`` from the rig
+        moved by ``pose``; noise 0.003, cast shadows."""
+        c1, c2, proj = two_camera_rig(W, H, PROJ_W, PROJ_H, device=dev)
+        scans = []
+        for i, c in enumerate((c1, c2)):
+            if pose is not None:
+                c, p = move_rig(c, proj, *pose)
+            else:
+                p = proj
+            sc = render_scan(c, p, scene(c, H, W), cfg, noise_std=0.003, cast_shadows=True,
+                             generator=torch.Generator(device=dev).manual_seed(seed + i))
+            if uint8:
+                sc = sc._replace(frames=quantize_frames(sc.frames))
+            scans.append(sc)
+        return (c1, c2, proj), scans
+
+    def merge(f1, f2, c1, c2, **kw):
+        return twocam.reconstruct_two_camera(f1, f2, c1, c2, cfg, dec, rec, **kw)
+
+    def proj_truth(proj, scene):
+        """Ground truth on the projector grid (tpu_matrix.py:469-478): the
+        first surface along each projector ray."""
+        u, v = torch.meshgrid(torch.arange(PROJ_W, dtype=torch.float32, device=dev),
+                              torch.arange(PROJ_H, dtype=torch.float32, device=dev),
+                              indexing="xy")
+        o, d = pixel_to_ray(proj, u, v)
+        dz = torch.einsum("j,...j->...", proj.R[2], d)
+        return o + (scene(proj, PROJ_H, PROJ_W) / dz)[..., None] * d
+
+    def rms_grid(cloud, truth):
+        err = torch.linalg.norm(cloud.points - truth, dim=-1)[cloud.mask]
+        return math.sqrt(float((err * err).mean())), int(cloud.mask.sum())
+
+    def merge_launches(n, k1, k7, k6):
+        check((n["k1"], n["k7"], n["k6"]) == (k1, k7, k6)
+              and all(v == 0 for k, v in n.items() if k not in ("k1", "k6", "k7")),
+              f"merge launches {n}")
+
+    # the config-3-width rig (1280x1024 cameras, 1024x768 projector),
+    # spheres_scene, float32
+    (c1, c2, proj), scans = render_pair(CAM_W, CAM_H, spheres_scene, 20)
+    f1, f2 = (s.frames for s in scans)
+    truth = proj_truth(proj, spheres_scene)
+
+    # phase 24: K7 against its plain version: the reference's random case, a
+    # ragged noisy one, and the four passes of the full-width merge
+    _, k7_calls = captured(twocam, "crossing_interp_fused", lambda: merge(f1, f2, c1, c2))
+    check(len(k7_calls) == 4, f"{len(k7_calls)} fused crossing passes in a merge")
+    cases = {"random_24x700": (*crossing_case(dev, 24, 700, 3), 520, ((1, 3.0),),
+                               0.125, 4.0),
+             "ragged_37x333": (*crossing_case(dev, 37, 333, 370, wiggle=0.5), 200,
+                               ((1, 25.0),), 0.125, 4.0)}
+    for i, (a, kw) in enumerate(k7_calls):
+        cases[f"merge_cam{i // 2 + 1}_pass{i % 2 + 1}"] = (
+            *a[:4], kw["gates"], kw["dmin"], kw["dmax"])
+    k7_checks, k6_checks, k7_err, k6_err = {}, {}, 0.0, 0.0
+    for name, (code, valid, ch, K, gates, dmin, dmax) in cases.items():
+        got = kx.crossing_interp_fused(code, valid, ch, K, INTERP, gates, dmin, dmax)
+        plain = kx.crossing_interp_fused_reference(code, valid, ch, K, INTERP, gates, dmin,
+                                                   dmax)
+        torch.cuda.synchronize()
+        k7_checks[name] = crossing_agree(f"K7 {name}", got, plain)
+        k7_err = max(k7_err, k7_checks[name]["max_abs_err"])
+        # phase 25 on the same cases: K6 through crossing_interp
+        gate = kx.gate_mask(ch, gates)
+        got6 = kx.crossing_interp(code, valid, ch, K, INTERP, dmin, dmax, pair_gate=gate)
+        plain6 = kx.crossing_interp(code, valid, ch, K, INTERP, dmin, dmax,
+                                    use_kernel=False, pair_gate=gate)
+        torch.cuda.synchronize()
+        k6_checks[name] = crossing_agree(f"K6 {name}", got6, plain6)
+        k6_checks[name]["vs_k7"] = crossing_agree(f"K6 vs K7 {name}", got6, got)
+        k6_err = max(k6_err, k6_checks[name]["max_abs_err"])
+    emit("k7_vs_plain", rel_tol=CROSSING_REL_TOL, **k7_checks)
+
+    # phase 26: the merge at full width, float32 and uint8: K1 (decode_only)
+    # twice, K7 four times; the card's plain route; two calls bit-identical
+    merge_runs, k7_launches = {}, 0
+    frames = {"float32": (f1, f2), "uint8": tuple(quantize_frames(f) for f in (f1, f2))}
+    for kind, (g1, g2) in frames.items():
+        cloud, n = counts_of(lambda: merge(g1, g2, c1, c2))
+        merge_launches(n, 2, 4, 0)
+        k7_launches += n["k7"]
+        check(tuple(cloud.points.shape) == (PROJ_H, PROJ_W, 3)
+              and bool(torch.isfinite(cloud.points).all()), f"merge {kind} points")
+        rms, n_pts = rms_grid(cloud, truth)
+        check(rms <= TWO_CAM_RMS_GATE_MM and n_pts >= TWO_CAM_MIN_POINTS,
+              f"merge {kind}: RMS {rms} mm over {n_pts} points")
+        again = merge(g1, g2, c1, c2)
+        same = all(torch.equal(a, b) for a, b in zip(cloud, again))
+        check(same, f"merge {kind}: two calls differ")
+        plain = merge(g1, g2, c1, c2, merge_kernel=False)
+        torch.cuda.synchronize()
+        agree = float((plain.mask == cloud.mask).float().mean())
+        both = plain.mask & cloud.mask
+        dmax = float(torch.linalg.norm(plain.points - cloud.points, dim=-1)[both].max())
+        check(agree >= MERGE_MASK_AGREE and dmax <= MERGE_POINTS_TOL,
+              f"merge {kind} against the plain route: {agree}, {dmax} mm")
+        merge_runs[kind] = dict(launches=n, rms_mm=rms, valid_points=n_pts,
+                                plain_route_mask_agree=agree, plain_route_max_dpoints_mm=dmax,
+                                bit_identical_calls=same)
+    emit("two_camera_merge", rms_gate_mm=TWO_CAM_RMS_GATE_MM,
+         min_points=TWO_CAM_MIN_POINTS, pattern_frames=cfg.num_frames, **merge_runs)
+
+    # phase 27: the tiled route on a 5 MP sensor: 1024 x 2448 x 4 B = 10 MB
+    # passes the reference's 8 MiB rule, so every pass takes K6; rendered in
+    # float32 and quantized, one camera at a time
+    check(not twocam.takes_fused(TILED_H, TILED_W, PROJ_W, PROJ_H), "5 MP takes K7")
+    (t1, t2, tproj), tscans = render_pair(TILED_W, TILED_H, spheres_scene, 30, uint8=True)
+    tf1, tf2 = (s.frames for s in tscans)
+    del tscans
+    torch.cuda.empty_cache()
+    (tcloud, n), k6_calls = captured(
+        twocam, "crossing_interp", lambda: counts_of(lambda: merge(tf1, tf2, t1, t2)))
+    merge_launches(n, 2, 0, 4)
+    k6_launches = n["k6"]
+    trms, tn = rms_grid(tcloud, proj_truth(tproj, spheres_scene))
+    check(trms <= TWO_CAM_RMS_GATE_MM, f"tiled merge RMS {trms} mm")
+    k6_5mp = {}
+    for i, (a, kw) in enumerate(k6_calls):
+        code, valid, ch, K = a[:4]
+        got6 = kx.crossing_interp(*a, **kw)
+        plain6 = kx.crossing_interp(*a, **{**kw, "use_kernel": False})
+        torch.cuda.synchronize()
+        k6_5mp[f"cam{i // 2 + 1}_pass{i % 2 + 1}"] = crossing_agree(
+            f"K6 5 MP call {i}", got6, plain6)
+        k6_err = max(k6_err, k6_5mp[f"cam{i // 2 + 1}_pass{i % 2 + 1}"]["max_abs_err"])
+    emit("k6_vs_plain", rel_tol=CROSSING_REL_TOL, **k6_checks, **{f"5mp_{k}": v for k, v in
+                                                                 k6_5mp.items()})
+    emit("two_camera_tiled", sensor=[TILED_W, TILED_H], dtype=str(tf1.dtype), launches=n,
+         rms_mm=trms, valid_points=tn, rms_gate_mm=TWO_CAM_RMS_GATE_MM)
+
+    # phase 28: the oracles on the 1280x1024 float32 scan, on the cam-1 grid
+    oracles = {}
+    clouds_o = {}
+    for method in ("splat", "search"):
+        cl, n = counts_of(lambda: merge(f1, f2, c1, c2, method=method))
+        merge_launches(n, 2, 0, 0)
+        rms, n_pts = rms_vs_truth(cl.points, cl.mask, scans[0])
+        check(rms < ORACLE_RMS_GATE_MM, f"{method}: RMS {rms} mm")
+        oracles[method] = dict(rms_mm=rms, valid_points=n_pts)
+        clouds_o[method] = cl
+    both = clouds_o["search"].mask & clouds_o["splat"].mask
+    d = torch.linalg.norm(clouds_o["search"].points - clouds_o["splat"].points, dim=-1)[both]
+    share = int(both.sum()) / max(int(clouds_o["splat"].mask.sum()), 1)
+    p95 = float(torch.quantile(d, 0.95))
+    check(share >= 0.85 and p95 < 0.5, f"search vs splat: {share}, p95 {p95} mm")
+    emit("two_camera_oracles", rms_gate_mm=ORACLE_RMS_GATE_MM, both_valid_of_splat=share,
+         p95_dpoints_mm=p95, **oracles)
+
+    # phase 29: two rig poses of rocks_scene, merged, then registered
+    # (tests/test_twocam.py:208-246)
+    R_m = so3_exp(torch.tensor([0.0, 0.04, 0.01], device=dev))
+    t_m = torch.tensor([10.0, -5.0, 3.0], device=dev)
+    eye = (torch.eye(3, device=dev), torch.zeros(3, device=dev))
+    rclouds = []
+    for i, pose in enumerate((eye, (R_m, t_m))):
+        _, rs = render_pair(CAM_W, CAM_H, rocks_scene, 50 + 10 * i, pose=pose)
+        cl, n = counts_of(lambda: merge(rs[0].frames, rs[1].frames, c1, c2))
+        merge_launches(n, 2, 4, 0)
+        k7_launches += n["k7"]
+        rclouds.append(cl)
+    reg, n = counts_of(lambda: rf.register_scans(
+        rclouds, RegistrationConfig(icp_sample_points=2048), use_features=False,
+        loop_closures=False))
+    rot, tr = pose_error(reg.R[1], reg.t[1], R_m, t_m)
+    check(rot < ROT_GATE_DEG and tr < T_GATE_MM, f"two-camera registration: {rot} deg, {tr} mm")
+    emit("two_camera_register", rot_err_deg=rot, t_err_mm=tr, rot_gate_deg=ROT_GATE_DEG,
+         t_gate_mm=T_GATE_MM, valid_points=[int(c.mask.sum()) for c in rclouds],
+         k7_launches=k7_launches)
+    del rclouds, reg, clouds_o
+
+    # phase 30: times (CUDA events, in turns): the merge in float32 and uint8
+    # and its stages; K7 on the merge's pass 1 and pass 2 and its plain
+    # version; K6 on the 5 MP passes, its plain version and torch.bmm of
+    # the payload with a prebuilt float32 one-hot (TF32 off)
+    decoded = [twocam._decode(f, c, cfg, dec) for f, c in ((f1, c1), (f2, c2))]
+    edges = [twocam._code_edge_mask(r.x_p, r.y_p, r.mask, 3.0) for r in decoded]
+
+    def invert_both():
+        return [twocam.invert_to_projector(r.x_p, r.y_p, r.mask & e, r.quality, f[0],
+                                           PROJ_W, PROJ_H)
+                for r, e, f in zip(decoded, edges, (f1, f2))]
+
+    def k7_args(i):
+        a, kw = k7_calls[i]
+        return (*a, kw["gates"], kw["dmin"], kw["dmax"])
+
+    (code6, valid6, ch6, K6, *rest), kw6 = k6_calls[0]
+    lo6, hi6, pay6, _ = kx.crossing_pairs(code6, valid6, ch6, *rest,
+                                          pair_gate=kw6["pair_gate"])
+    R6, N6, U6 = pay6.shape
+    onehot = ((lo6[:, :, None] <= torch.arange(K6, dtype=torch.float32, device=dev))
+              & (hi6[:, :, None] > torch.arange(K6, dtype=torch.float32, device=dev))
+              ).to(torch.float32)                                   # (R, U, K)
+    bmm = torch.bmm(pay6, onehot)
+    plain_k6 = kx.crossing_bin_sum_reference(lo6, hi6, pay6, K6)
+    torch.cuda.synchronize()
+    check(float((bmm - plain_k6).abs().max()) <= 1e-4, "torch.bmm yardstick")
+    runs = {
+        "merge": lambda: merge(f1, f2, c1, c2),
+        "merge_uint8": lambda: merge(*frames["uint8"], c1, c2),
+        "decode_2x_k1": lambda: [twocam._decode(f, c, cfg, dec)
+                                 for f, c in ((f1, c1), (f2, c2))],
+        "edge_masks": lambda: [twocam._code_edge_mask(r.x_p, r.y_p, r.mask, 3.0)
+                               for r in decoded],
+        "invert_both": invert_both,
+        "k7_4x": lambda: [kx.launch_interp_fused(*k7_args(i)) for i in range(4)],
+        "k7_pass1": lambda: kx.launch_interp_fused(*k7_args(0)),
+        "k7_pass2": lambda: kx.launch_interp_fused(*k7_args(1)),
+        "plain_k7_pass1": lambda: kx.crossing_interp_fused_reference(*k7_args(0)),
+        "plain_k7_pass2": lambda: kx.crossing_interp_fused_reference(*k7_args(1)),
+        "k6_5mp_pass1": lambda: kx.launch_bin_sum(lo6, hi6, pay6, K6),
+        "plain_k6_5mp_pass1": lambda: kx.crossing_bin_sum_reference(lo6, hi6, pay6, K6),
+        "bmm_k6_5mp_pass1": lambda: torch.bmm(pay6, onehot),
+        "merge_tiled_5mp": lambda: merge(tf1, tf2, t1, t2),
+    }
+    turns = [("merge", "merge_uint8", "merge_uint8", "merge"),
+             ("decode_2x_k1", "edge_masks", "invert_both", "k7_4x", "k7_4x",
+              "invert_both", "edge_masks", "decode_2x_k1"),
+             ("plain_k7_pass1", "k7_pass1", "k7_pass1", "plain_k7_pass1"),
+             ("plain_k7_pass2", "k7_pass2", "k7_pass2", "plain_k7_pass2"),
+             ("plain_k6_5mp_pass1", "k6_5mp_pass1", "bmm_k6_5mp_pass1", "bmm_k6_5mp_pass1",
+              "k6_5mp_pass1", "plain_k6_5mp_pass1"),
+             ("merge_tiled_5mp", "merge_tiled_5mp")]
+    heavy = {"plain_k6_5mp_pass1", "bmm_k6_5mp_pass1", "merge_tiled_5mp", "plain_k7_pass1",
+             "plain_k7_pass2"}
+    times = {k: [] for k in runs}
+    for turn in turns:
+        for name in turn:
+            n_runs = 5 if name in heavy else TIMED_RUNS // 2
+            times[name] += cuda_ms(runs[name], n_runs, 1 if name in heavy else 3)
+    del onehot, bmm, plain_k6
+    torch.cuda.empty_cache()
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    (a1, _), (a2, _) = k7_calls[0], k7_calls[1]
+    moved = {"k7_pass1": crossing_k7_bytes(*a1[0].shape, a1[3]),
+             "k7_pass2": crossing_k7_bytes(*a2[0].shape, a2[3]),
+             "k6_5mp_pass1": crossing_k6_bytes(R6, U6, N6, K6)}
+    gbs = {k: b / (ms[k] * 1e-3) / 1e9 for k, b in moved.items()}
+    invert_glue = ms["invert_both"] - ms["k7_4x"]
+    # where a merge's time goes: torch.profiler over 3 float32 merges,
+    # device (kernel and copy) rows only, against the host wall
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            merge(f1, f2, c1, c2)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 3
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            row = by_name.setdefault(ev.name, [0, 0.0])
+            row[0] += 1
+            row[1] += ev.time_range.elapsed_us() / 1e3
+    device_ms = sum(v[1] for v in by_name.values()) / 3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    emit("profile_two_camera_merge", card=card, wall_ms=wall, device_ms=device_ms,
+         device_busy_share=device_ms / wall,
+         device_ops_per_merge=sum(v[0] for v in by_name.values()) / 3,
+         top_device_ms_per_merge={n[:90]: [c / 3, t / 3] for n, (c, t) in top})
+    emit("timing_two_camera", card=card, **{f"{k}_ms": v for k, v in ms.items()},
+         **{f"{k}_ms_spread": [min(v), max(v)] for k, v in times.items()},
+         runs_each={k: len(v) for k, v in times.items()},
+         merge_stages_ms={"decode_2x_k1": ms["decode_2x_k1"], "edge_masks": ms["edge_masks"],
+                          "k7_4x": ms["k7_4x"], "inversion_glue": invert_glue,
+                          "triangulation_glue": ms["merge"] - ms["decode_2x_k1"]
+                          - ms["edge_masks"] - ms["invert_both"]},
+         merge_host_ms=host_ms(runs["merge"], 10),
+         **{f"{k}_bytes": b for k, b in moved.items()},
+         **{f"{k}_gb_s": v for k, v in gbs.items()},
+         **{f"{k}_hbm_share": v / (HBM_PEAK_TBS * 1e3) for k, v in gbs.items()},
+         k7_pass_shapes=[[*a1[0].shape, a1[3]], [*a2[0].shape, a2[3]]],
+         k6_pass1_shape=[R6, N6, U6, K6],
+         after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
+    return [{
+        "name": "crossing_interp_fused", "route": "cuda",
+        "source": "slr_torch/kernels/csrc/crossing.cu",
+        "replaces": "slr/kernels/crossing.py:269",
+        "launches": k7_launches, "max_abs_err": k7_err,
+        "max_abs_err_of": "cnt and interpolated values against the plain version",
+        "ms": ms["k7_pass1"], "plain_ms": ms["plain_k7_pass1"],
+        "bound_ms": moved["k7_pass1"] / (HBM_PEAK_TBS * 1e12) * 1e3, "bound_by": "bytes",
+        "library_ms": None,
+        "ms_pass2": ms["k7_pass2"], "plain_ms_pass2": ms["plain_k7_pass2"],
+        "bound_ms_pass2": moved["k7_pass2"] / (HBM_PEAK_TBS * 1e12) * 1e3,
+    }, {
+        "name": "crossing_bin_sum", "route": "cuda",
+        "source": "slr_torch/kernels/csrc/crossing.cu",
+        "replaces": "slr/kernels/crossing.py:149",
+        "launches": k6_launches, "max_abs_err": k6_err,
+        "max_abs_err_of": "cnt and interpolated values through crossing_interp against "
+                          "its plain route",
+        "ms": ms["k6_5mp_pass1"], "plain_ms": ms["plain_k6_5mp_pass1"],
+        "bound_ms": moved["k6_5mp_pass1"] / (HBM_PEAK_TBS * 1e12) * 1e3,
+        "bound_by": "bytes", "library_ms": ms["bmm_k6_5mp_pass1"],
+        "library": "torch.bmm of the float32 payload with a prebuilt float32 one-hot",
+    }]
 
 
 def main():
@@ -510,6 +916,7 @@ def main():
     from slr_torch.entry import entry
     from slr_torch.geom.camera import make_camera
     from slr_torch.kernels import band_nn as kb
+    from slr_torch.kernels import crossing as kx
     from slr_torch.kernels import fused_scan as fs
     from slr_torch.kernels import unwrap_scan as us
     from slr_torch.kernels import wavefront as wf
@@ -524,7 +931,8 @@ def main():
     # every kernel wrapper's launch count, by kernel
     wrappers = {"k1": kernel, "k2": kernel_hdr, "k3": us.quality_unwrap,
                 "k4": us.quality_unwrap_tiled, "k5": wf.wavefront_pass,
-                "k8": kb.band_nn_sorted}
+                "k8": kb.band_nn_sorted, "k6": kx.crossing_bin_sum,
+                "k7": kx.crossing_interp_fused}
     dev = torch.device("cuda")
     dec = DecodeConfig()
     # points_max_abs_err (K1, K2), |dPhi| (K3-K5) of every comparison
@@ -581,6 +989,7 @@ def main():
     fs._library()
     us.library()
     kb.library()
+    kx.library()
     emit("build", setup_s=time.perf_counter() - t0,
          library={k: p.name for k, (p, _) in built.items()},
          ptxas={k: ptxas_summary(log) for k, (_, log) in built.items()})
@@ -993,6 +1402,18 @@ def main():
     # phases 19-23: registration (config 4), K8
     k8_entry = registration_phases(dev, cam, proj, cfg, counts_of, card)
 
+    # phases 24-30: the two-camera merge, K7 and K6
+    k7_entry, k6_entry = two_camera_phases(dev, counts_of, card)
+
+    def bound(nbytes=0, instr=0):
+        """The least time (ms) for ``nbytes`` of HBM traffic and ``instr``
+        fp32 instructions, and which of the two binds."""
+        t_b, t_i = nbytes / (HBM_PEAK_TBS * 1e12), instr / FP32_ISSUE_PER_S
+        return {"bound_ms": max(t_b, t_i) * 1e3,
+                "bound_by": "bytes" if t_b >= t_i else "operations"}
+
+    vote_instr = VOTE_INSTR_PER_PX_SWEEP * px * SPATIAL_ITERS
+
     print(json.dumps({"kernels": [{
         "name": "fused_decode_triangulate",
         "route": "cuda",
@@ -1007,6 +1428,8 @@ def main():
         "plain_ms": ms["plain"],
         "ms_uint8": ms["kernel_uint8"],
         "plain_ms_uint8": ms["plain_uint8"],
+        **bound(moved["kernel"]), "library_ms": None,
+        "bound_ms_uint8": bound(moved["kernel_uint8"])["bound_ms"],
     }, {
         "name": "fused_decode_triangulate_hdr",
         "route": "cuda",
@@ -1017,6 +1440,7 @@ def main():
         "max_abs_err": max(errs["k2"]),
         "ms": ms["kernel_hdr"],
         "plain_ms": ms["plain_hdr"],
+        **bound(moved["kernel_hdr"]), "library_ms": None,
     }, {
         "name": "quality_unwrap",
         "route": "cuda",
@@ -1028,6 +1452,7 @@ def main():
         "plain_ms": ms[f"plain_vote{SPATIAL_ITERS}"],
         "ms_iters8": ms["k3_8"],
         "plain_ms_iters8": ms["plain_vote8"],
+        **bound(moved[f"k3_{SPATIAL_ITERS}"], vote_instr), "library_ms": None,
     }, {
         "name": "quality_unwrap_tiled",
         "route": "cuda",
@@ -1039,6 +1464,7 @@ def main():
         "plain_ms": ms[f"plain_vote{SPATIAL_ITERS}"],
         "ms_iters8": ms["k4_8"],
         "plain_ms_iters8": ms["plain_vote8"],
+        **bound(moved[f"k4_{SPATIAL_ITERS}"], vote_instr), "library_ms": None,
     }, {
         "name": "wavefront_pass",
         "route": "cuda",
@@ -1052,7 +1478,8 @@ def main():
         "plain_ms_cols": ms["plain_pass_cols"],
         "ms_repair_8_passes": ms["repair"],
         "plain_ms_repair_8_passes": ms["plain_repair"],
-    }, k8_entry]}), flush=True)
+        **bound(moved["k5_rows"]), "library_ms": None,
+    }, k8_entry, k7_entry, k6_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

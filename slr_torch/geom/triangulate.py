@@ -1,7 +1,8 @@
 """Batched projector-camera triangulation (midpoint / ray-plane).
 
 Port of ``slr/geom/triangulate.py``; the unfused oracle for the fused
-kernel's geometry. All functions accept arbitrary extrinsics.
+kernel's geometry, and the batched 3x3 solve of the two-camera splat
+oracle. All functions accept arbitrary extrinsics.
 """
 
 from __future__ import annotations
@@ -61,3 +62,26 @@ def triangulate_rays(cam: Camera, proj: Camera, u, v, u_p, v_p):
     o_c, d_c = pixel_to_ray(cam, u, v)
     o_p, d_p = pixel_to_ray(proj, u_p, v_p)
     return triangulate_midpoint(o_c, d_c, o_p, d_p)
+
+
+def _solve3x3(A, b):
+    """Batched closed-form 3x3 solve via the adjugate (Cramer):
+    A (..., 3, 3), b (..., 3) -> x (..., 3)."""
+    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    a10, a11, a12 = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    a20, a21, a22 = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    c00 = a11 * a22 - a12 * a21
+    c01 = a02 * a21 - a01 * a22
+    c02 = a01 * a12 - a02 * a11
+    c10 = a12 * a20 - a10 * a22
+    c11 = a00 * a22 - a02 * a20
+    c12 = a02 * a10 - a00 * a12
+    c20 = a10 * a21 - a11 * a20
+    c21 = a01 * a20 - a00 * a21
+    c22 = a00 * a11 - a01 * a10
+    det = a00 * c00 + a01 * c10 + a02 * c20
+    det = torch.where(det.abs() < 1e-18, 1e-18, det)
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([(c00 * b0 + c01 * b1 + c02 * b2) / det,
+                        (c10 * b0 + c11 * b1 + c12 * b2) / det,
+                        (c20 * b0 + c21 * b1 + c22 * b2) / det], dim=-1)

@@ -1,6 +1,13 @@
 """slr_torch.kernels — kernels written by hand for Hopper, each beside its
 plain PyTorch version (port of ``slr.kernels``)."""
 
+from slr_torch.kernels.crossing import (
+    crossing_bin_sum,
+    crossing_bin_sum_reference,
+    crossing_interp,
+    crossing_interp_fused,
+    crossing_interp_fused_reference,
+)
 from slr_torch.kernels.fused_scan import (
     FusedScanOut,
     fused_decode_triangulate,

@@ -1,5 +1,5 @@
-"""slr_torch.pipeline — single-scan reconstruction and multi-scan registration
-(port of ``slr.pipeline``)."""
+"""slr_torch.pipeline — single-scan reconstruction, the two-camera merge and
+multi-scan registration (port of ``slr.pipeline``)."""
 
 from slr_torch.pipeline.reconstruct import (
     DenseReconstructor,
@@ -11,3 +11,4 @@ from slr_torch.pipeline.reconstruct import (
     scan_cloud_from_numpy,
 )
 from slr_torch.pipeline.registerfuse import RegisteredScans, register_scans
+from slr_torch.pipeline.twocam import match_via_projector, reconstruct_two_camera

@@ -4,7 +4,7 @@
 against an FPFH + RANSAC-initialised ICP, with a projective polish when the
 rig camera is given) into a pose chain, loop-closure edges, then pose-graph
 refinement over every relative measurement. ``register_scans_batched``,
-``ba_refine`` and ``fuse_scans`` are ROADMAP slice 5.
+``ba_refine`` and ``fuse_scans`` are ROADMAP slice 6.
 """
 
 from __future__ import annotations

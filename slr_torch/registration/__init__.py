@@ -4,7 +4,7 @@ Coarse: FPFH descriptors and batched RANSAC. Fine: point-to-plane ICP,
 whose correspondence search is the tiled exact search or, for dense clouds,
 the sorted-band search (kernel K8); and projective-association ICP on
 organized grids. Pose graph: Gauss-Newton over SE(3). The voxel hash and
-the outlier filters are ROADMAP slice 5.
+the outlier filters are ROADMAP slice 6.
 """
 
 from slr_torch.registration.band import (

@@ -52,11 +52,11 @@ def _resolve_nn_method(nn_method: str, N: int, M: int) -> str:
 
     On a CUDA device that is the reference's accelerator rule. On the CPU
     the reference takes its voxel hash above the crossover; the voxel hash
-    is not ported yet (ROADMAP slice 5), so the port takes the band search
+    is not ported yet (ROADMAP slice 6), so the port takes the band search
     through K8's plain version there."""
     if nn_method == "voxel":
         raise NotImplementedError(
-            "nn_method='voxel' (slr/registration/voxel.py) is ROADMAP slice 5")
+            "nn_method='voxel' (slr/registration/voxel.py) is ROADMAP slice 6")
     if nn_method == "auto":
         return "band" if N * M > _EXACT_NN_MAX_PAIRS else "exact"
     if nn_method not in NN_METHODS:

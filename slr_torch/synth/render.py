@@ -4,10 +4,12 @@ For each camera pixel: cast the camera ray to the scene depth, project the
 3D point into the projector, sample each projected pattern there, apply
 ambient light and optional sensor noise. Exact ground truth rides along.
 
-Ported: both codings, an ideal projector (no cast shadows, no defocus,
-gamma 1), an optional albedo map and the analytic phase fringes. The rest
-is ROADMAP slice 10. Noise comes from a ``torch.Generator``; its bits
-differ from ``jax.random``'s.
+Ported: both codings, cast shadows (a projector-space scatter-min depth
+map: a point is lit only if nothing nearer the projector claims its
+projector pixel, within ``shadow_bias``), an optional albedo map and the
+analytic phase fringes. Defocus and projector gamma are ROADMAP slice 10.
+Noise comes from a ``torch.Generator``; its bits differ from
+``jax.random``'s.
 """
 
 from __future__ import annotations
@@ -40,18 +42,41 @@ def default_rig(cam_w: int = 1280, cam_h: int = 1024, proj_w: int = 1024,
     f_c = 0.9 * cam_w
     cam = make_camera(fx=f_c, fy=f_c, cx=cam_w / 2 - 0.5, cy=cam_h / 2 - 0.5,
                       dist=cam_dist, device=device)
-    th = torch.deg2rad(torch.tensor(toe_in_deg, dtype=torch.float32))
-    c, s = torch.cos(th), torch.sin(th)
-    z, o = torch.zeros(()), torch.ones(())
-    R = torch.stack([torch.stack([c, z, s]), torch.stack([z, o, z]),
-                     torch.stack([-s, z, c])])
-    C = torch.tensor([baseline, 0.0, 0.0])  # projector centre, world
-    t = -R @ C
+    R, t = _toed_in(baseline, toe_in_deg)   # projector centre at x = baseline
     f_p = 1.2 * proj_w
     proj = make_camera(fx=f_p, fy=f_p, cx=proj_w / 2 - 0.5,
                        cy=proj_h / 2 - 0.5, dist=proj_dist, R=R, t=t,
                        device=device)
     return cam, proj
+
+
+def _toed_in(cx_world: float, deg: float):
+    """(R, t) of a camera at (cx_world, 0, 0) turned by ``deg`` about y;
+    R from float32 cos/sin of the float32 angle, as in slr."""
+    th = torch.deg2rad(torch.tensor(deg, dtype=torch.float32))
+    c, s = torch.cos(th), torch.sin(th)
+    z, o = torch.zeros(()), torch.ones(())
+    R = torch.stack([torch.stack([c, z, s]), torch.stack([z, o, z]),
+                     torch.stack([-s, z, c])])
+    return R, -R @ torch.tensor([cx_world, 0.0, 0.0])
+
+
+def two_camera_rig(cam_w: int = 1280, cam_h: int = 1024, proj_w: int = 1024,
+                   proj_h: int = 768, baseline: float = 280.0,
+                   toe_in_deg: float = 14.0, device="cpu"):
+    """Two cameras at x = -+ baseline/2, toed in toward a working volume
+    around z ~ 500, and a projector at the origin between them. Returns
+    (cam1, cam2, proj); two-camera reconstruction never reads ``proj``."""
+    f_c = 0.9 * cam_w
+    cams = []
+    for sign in (-1.0, 1.0):
+        R, t = _toed_in(sign * baseline / 2, sign * toe_in_deg)
+        cams.append(make_camera(fx=f_c, fy=f_c, cx=cam_w / 2 - 0.5,
+                                cy=cam_h / 2 - 0.5, R=R, t=t, device=device))
+    f_p = 1.2 * proj_w
+    proj = make_camera(fx=f_p, fy=f_p, cx=proj_w / 2 - 0.5, cy=proj_h / 2 - 0.5,
+                       device=device)
+    return cams[0], cams[1], proj
 
 
 def move_rig(cam: Camera, proj: Camera, R_m, t_m):
@@ -90,6 +115,25 @@ def _bilinear_sample(img, x, y):
             + v10 * (1 - fx) * fy + v11 * fx * fy)
 
 
+def _shadow_cells(xp, yp, proj_w: int, proj_h: int):
+    """Flat index of each point's nearest projector pixel."""
+    xi = torch.clamp(torch.round(xp).to(torch.int64), 0, proj_w - 1)
+    yi = torch.clamp(torch.round(yp).to(torch.int64), 0, proj_h - 1)
+    return yi * proj_w + xi
+
+
+def _shadow_map(xp, yp, z_p, in_frustum, proj_w: int, proj_h: int):
+    """Scatter-min projector-space depth map (proj_h, proj_w) of the scene
+    points: every point in the frustum splats its projector-frame depth
+    onto its nearest projector pixel. A min is order-free, so the map is
+    the same on every run and device."""
+    z = torch.where(in_frustum, z_p, float("inf"))
+    smap = torch.full((proj_h * proj_w,), float("inf"), device=z_p.device)
+    smap.scatter_reduce_(0, _shadow_cells(xp, yp, proj_w, proj_h).reshape(-1),
+                         z.reshape(-1), "amin", include_self=True)
+    return smap.reshape(proj_h, proj_w)
+
+
 def quantize_frames(frames, dtype=torch.uint8):
     """Quantize rendered [0,1] frames to raw sensor integers (8-bit ADC by
     default), the realistic camera output format."""
@@ -107,13 +151,15 @@ def render_scan(
     noise_std: float = 0.0,
     generator: Optional[torch.Generator] = None,
     cast_shadows: bool = False,
+    shadow_bias: float = 2.0,   # scene units; slope tolerance of the test
     defocus_sigma: float = 0.0,
     proj_gamma: float = 1.0,
 ) -> RenderedScan:
-    """Render the (F, H, W) stack seen by ``cam`` of ``depth`` lit by ``proj``."""
-    if cast_shadows or defocus_sigma != 0.0 or proj_gamma != 1.0:
-        raise NotImplementedError(
-            "cast shadows, defocus and projector gamma are ROADMAP slice 10")
+    """Render the (F, H, W) stack seen by ``cam`` of ``depth`` lit by ``proj``.
+    ``cast_shadows``: points that something nearer the projector hides
+    get ambient light only."""
+    if defocus_sigma != 0.0 or proj_gamma != 1.0:
+        raise NotImplementedError("defocus and projector gamma are ROADMAP slice 10")
     H, W = depth.shape
     dev = depth.device
     v = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
@@ -128,6 +174,11 @@ def render_scan(
     xp, yp = uv_p[..., 0], uv_p[..., 1]
     illuminated = ((z_p > 0) & (xp >= 0) & (xp <= cfg.proj_width - 1)
                    & (yp >= 0) & (yp <= cfg.proj_height - 1))
+    if cast_shadows:
+        smap = _shadow_map(xp, yp, z_p, illuminated, cfg.proj_width,
+                           cfg.proj_height).reshape(-1)
+        cells = _shadow_cells(xp, yp, cfg.proj_width, cfg.proj_height)
+        illuminated = illuminated & (z_p <= smap[cells] + shadow_bias)
 
     # the phase fringes are evaluated analytically at the exact projected
     # coordinate (a continuous sinusoid; bilinear interpolation of the

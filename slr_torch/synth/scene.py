@@ -2,8 +2,9 @@
 
 Ported so far: ``bumps_depth`` (the config-3 scene), ``checker_albedo``
 (the HDR bracket's texture), and the closed-form world scenes that render
-from any rig pose, ``plane_depth``, ``sphere_depth`` and ``rocks_scene``
-(the config-4 registration scene). The rest of ``slr.synth`` is ROADMAP
+from any rig pose, ``plane_depth``, ``sphere_depth``, ``spheres_scene``
+(the two-camera scene) and ``rocks_scene`` (the config-4 registration
+scene). The rest of ``slr.synth`` is ROADMAP
 slice 10.
 """
 
@@ -57,6 +58,21 @@ def sphere_depth(cam: Camera, h: int, w: int, center, radius, background=None):
     if background is None:
         background = float(center[2]) + 4.0 * radius
     return torch.where(hit & (lam > 0), z, float(background))
+
+
+def spheres_scene(cam: Camera, h: int, w: int, plane_point=(0, 0, 560.0),
+                  plane_normal=(0.15, 0.1, -1.0), spheres=None):
+    """Tilted plane and three unequal spheres (min depth): an asymmetric
+    world scene, re-renderable from any rig pose."""
+    if spheres is None:
+        spheres = (((20.0, 5.0, 540.0), 140.0),
+                   ((-60.0, -40.0, 520.0), 60.0),
+                   ((70.0, 50.0, 530.0), 45.0))
+    depth = plane_depth(cam, h, w, plane_point, plane_normal)
+    for center, radius in spheres:
+        depth = torch.minimum(depth, sphere_depth(cam, h, w, center, radius,
+                                                  background=1e6))
+    return depth
 
 
 def rocks_scene(cam: Camera, h: int, w: int, n: int = 18, seed: int = 0,

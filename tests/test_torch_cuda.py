@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1, every branch, K2, the spatial repair's K3, K4
-and K5, and the band search K8) against their plain PyTorch versions, on
-the card.
+and K5, the band search K8, and the crossing kernels K6 and K7 of the
+two-camera merge) against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it also runs on a machine without it:
@@ -20,15 +20,18 @@ from slr_torch.codec import unwrap as pu
 from slr_torch.config import DecodeConfig, PatternConfig
 from slr_torch.geom.camera import make_camera
 from slr_torch.kernels import band_nn as kb
+from slr_torch.kernels import crossing as kx
 from slr_torch.kernels import fused_scan as fs
 from slr_torch.kernels import unwrap_scan as us
 from slr_torch.kernels import wavefront as wf
 from slr_torch.pipeline.reconstruct import (
     DenseReconstructor, accumulate_by_projector, spatial_repair)
+from slr_torch.pipeline.twocam import reconstruct_two_camera
 from slr_torch.registration import band as rb
 from slr_torch.registration.icp import icp_point_to_plane
-from slr_torch.synth.render import default_rig, quantize_frames, render_scan
-from slr_torch.synth.scene import bumps_depth, checker_albedo
+from slr_torch.synth.render import (
+    default_rig, quantize_frames, render_scan, two_camera_rig)
+from slr_torch.synth.scene import bumps_depth, checker_albedo, spheres_scene
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
@@ -492,3 +495,135 @@ def test_band_icp_launches_once_per_iteration_without_host_sync(cuda):
     np.testing.assert_allclose(res.t.cpu().numpy(), ref.t.numpy(), atol=1e-3)
     np.testing.assert_allclose(res.R.cpu().numpy(), R_true, atol=1e-4)
     np.testing.assert_allclose(res.t.cpu().numpy(), t_true, atol=1e-2)
+
+
+# ------------------------------------------------------------ K6 and K7
+
+INTERP = (True, True, False, False)
+
+
+def _crossing_case(device, R, U, seed, wiggle=0.0):
+    """The reference's random crossing case (tests/test_twocam.py:316-322),
+    with noise ``wiggle`` on the codes so that bins cross several times."""
+    rng = np.random.default_rng(seed)
+    code = np.cumsum(rng.uniform(0.2, 1.4, (R, U)), axis=1)
+    code = code - code[:, :1] + rng.uniform(-3, 3, (R, 1))
+    code = (code + wiggle * rng.normal(size=(R, U))).astype(np.float32)
+    valid = rng.random((R, U)) > 0.05
+    ch = (rng.normal(0, 1, (4, R, U)) * 10 + 50).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (code, valid, ch)]
+
+
+def _crossing_agree(cnt, vals, cnt_p, vals_p):
+    """Counts equal; bit-equal where a bin has at most two crossings (a sum
+    of two does not depend on its order); relative 1e-6 beyond."""
+    assert torch.equal(cnt, cnt_p)
+    few = (cnt_p <= 2)[None].expand_as(vals_p)
+    assert torch.equal(vals[few], vals_p[few])
+    rel = ((vals - vals_p).abs() / vals_p.abs().clamp(min=1.0))[~few]
+    assert rel.numel() == 0 or float(rel.max()) <= 1e-6
+
+
+@pytest.mark.parametrize("R,U,K,wiggle", [(24, 700, 520, 0.0), (37, 333, 200, 0.5),
+                                          (1024, 1280, 1024, 0.3), (7, 2, 9, 0.0)])
+def test_crossing_kernels_match_plain_versions(cuda, R, U, K, wiggle):
+    code, valid, ch = _crossing_case(cuda, R, U, R + U, wiggle)
+    gates = ((1, 25.0),)
+    before = (kx.crossing_interp_fused.launches, kx.crossing_bin_sum.launches)
+    cnt, vals = kx.crossing_interp_fused(code, valid, ch, K, INTERP, gates=gates)
+    gate = (ch[1][:, 1:] - ch[1][:, :-1]).abs() < 25.0
+    cnt6, vals6 = kx.crossing_interp(code, valid, ch, K, INTERP, pair_gate=gate)
+    assert (kx.crossing_interp_fused.launches, kx.crossing_bin_sum.launches) == (
+        before[0] + 1, before[1] + 1)
+    cnt_p, vals_p = kx.crossing_interp_fused_reference(code, valid, ch, K, INTERP, gates=gates)
+    torch.cuda.synchronize()
+    _crossing_agree(cnt, vals, cnt_p, vals_p)
+    _crossing_agree(cnt6, vals6, cnt_p, vals_p)
+    if wiggle:
+        assert float(cnt_p.max()) >= 2.0
+    # two launches give the same bits (no float atomics)
+    again = kx.crossing_interp_fused(code, valid, ch, K, INTERP, gates=gates)
+    assert torch.equal(again[0], cnt) and torch.equal(again[1], vals)
+
+
+def test_bin_sum_kernel_matches_plain_version(cuda):
+    rng = np.random.default_rng(7)
+    R, U, N, K = 33, 411, 11, 300           # N > the kernel's channel group of 8
+    lo = np.cumsum(rng.uniform(0.2, 1.6, (R, U)), axis=1).astype(np.float32) - 5.0
+    hi = lo + rng.uniform(0.1, 2.4, (R, U)).astype(np.float32)
+    dead = rng.random((R, U)) < 0.1
+    lo[dead] = hi[dead] = -1.0
+    pay = rng.normal(0, 3, (R, N, U)).astype(np.float32)
+    pay[np.broadcast_to(dead[:, None, :], pay.shape)] = 0.0
+    lo, hi, pay = (torch.from_numpy(a).to(cuda) for a in (lo, hi, pay))
+    out = kx.crossing_bin_sum(lo, hi, pay, K)
+    ref = kx.crossing_bin_sum_reference(lo, hi, pay, K)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-5)
+
+
+def test_crossing_kernels_reject_bad_input(cuda):
+    code, valid, ch = _crossing_case(cuda, 16, 64, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        kx.launch_interp_fused(code.T.contiguous().T, valid, ch, 50, INTERP)
+    with pytest.raises(ValueError, match="contiguous"):
+        kx.launch_interp_fused(code, valid.T.contiguous().T, ch, 50, INTERP)
+    with pytest.raises(ValueError):
+        kx.launch_interp_fused(code, valid.to(torch.uint8), ch, 50, INTERP)
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = torch.zeros((2, 20000), device=cuda)
+        kx.launch_interp_fused(wide, wide > 0, torch.zeros((4, 2, 20000), device=cuda),
+                               50, INTERP)
+    with pytest.raises(ValueError, match="CUDA"):
+        kx.launch_bin_sum(code.cpu(), code.cpu(), ch.cpu()[None, :, 0], 50)
+
+
+def _two_camera(device, W, H, dtype=torch.float32):
+    cfg = PatternConfig(proj_width=256, proj_height=192, gray_bits=5, row_gray_bits=5,
+                        phase_steps=3, row_phase_steps=3)
+    c1, c2, proj = two_camera_rig(cam_w=W, cam_h=H, proj_w=256, proj_h=192, device=device)
+    frames = []
+    for i, c in enumerate((c1, c2)):
+        gen = torch.Generator(device=device).manual_seed(i)
+        f = render_scan(c, proj, spheres_scene(c, H, W), cfg, noise_std=0.003,
+                        generator=gen, cast_shadows=True).frames
+        frames.append(quantize_frames(f) if dtype == torch.uint8 else f)
+    return cfg, c1, c2, frames
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+def test_merge_launches_k1_twice_and_k7_four_times(cuda, dtype):
+    """The merge on the card: K1's decode_only route for each camera and K7
+    for both passes of both; the plain route agrees, and two calls give the
+    same bits."""
+    cfg, c1, c2, (f1, f2) = _two_camera(cuda, 320, 256, dtype)
+    counts = [fs.fused_decode_triangulate, kx.crossing_interp_fused, kx.crossing_bin_sum]
+    before = [w.launches for w in counts]
+    a = reconstruct_two_camera(f1, f2, c1, c2, cfg)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(counts, before)] == [2, 4, 0]
+    b = reconstruct_two_camera(f1, f2, c1, c2, cfg)
+    assert torch.equal(a.points, b.points) and torch.equal(a.mask, b.mask)
+    p = reconstruct_two_camera(f1, f2, c1, c2, cfg, merge_kernel=False)
+    torch.cuda.synchronize()
+    assert float((a.mask == p.mask).float().mean()) >= 0.9999
+    both = a.mask & p.mask
+    assert float(both.float().mean()) > 0.3
+    assert float(torch.linalg.norm(a.points - p.points, dim=-1)[both].max()) <= 1e-3
+
+
+def test_tiled_route_launches_k6(cuda, monkeypatch):
+    """Past the route rule each pass goes to K6 through crossing_interp."""
+    from slr_torch.pipeline import twocam
+
+    monkeypatch.setattr(twocam, "FUSED_BUDGET", 0)
+    cfg, c1, c2, (f1, f2) = _two_camera(cuda, 320, 256)
+    before = (kx.crossing_interp_fused.launches, kx.crossing_bin_sum.launches)
+    a = reconstruct_two_camera(f1, f2, c1, c2, cfg)
+    torch.cuda.synchronize()
+    assert (kx.crossing_interp_fused.launches - before[0],
+            kx.crossing_bin_sum.launches - before[1]) == (0, 4)
+    monkeypatch.setattr(twocam, "FUSED_BUDGET", 8 * 2 ** 20)
+    b = reconstruct_two_camera(f1, f2, c1, c2, cfg)
+    assert torch.equal(a.mask, b.mask)
+    assert float(torch.linalg.norm(a.points - b.points, dim=-1)[a.mask].max()) <= 1e-3

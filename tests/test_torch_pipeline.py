@@ -146,9 +146,13 @@ def test_render_noise_from_generator():
     assert torch.equal(noisy(0), noisy(0)) and not torch.equal(noisy(0), noisy(1))
     clean = trender.render_scan(cam, proj, depth, cfg).frames
     assert 0.005 < float((noisy(0) - clean).std()) < 0.02
-    for kw in (dict(cast_shadows=True), dict(defocus_sigma=1.0), dict(proj_gamma=2.2)):
+    for kw in (dict(defocus_sigma=1.0), dict(proj_gamma=2.2)):
         with pytest.raises(NotImplementedError, match="slice 10"):
             trender.render_scan(cam, proj, depth, cfg, **kw)
+    # cast shadows are ported: they only ever take light away
+    lit = trender.render_scan(cam, proj, depth, cfg, cast_shadows=True).mask_true
+    unshadowed = trender.render_scan(cam, proj, depth, cfg).mask_true
+    assert bool((lit <= unshadowed).all()) and bool(lit.any())
 
 
 def test_accuracy_vs_ground_truth():
@@ -174,6 +178,16 @@ def test_entry_matches_reference_entry():
     assert (mj != mt).mean() <= 1e-3
     both = mj & mt
     assert np.abs(np.asarray(ptsj) - pts.numpy())[both].max() <= 1e-2
+
+
+def test_entry_defaults_to_the_card(monkeypatch):
+    """``entry()`` with no argument runs on the card: without one it raises
+    and does not fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry("cuda")
 
 
 def test_checker_albedo_matches_reference():

@@ -415,7 +415,7 @@ def test_icp_nn_method_resolution():
     assert ticp._resolve_nn_method("auto", 4096, 4096) == "exact"
     assert ticp._resolve_nn_method("auto", 262144, 262144) == "band"
     assert ticp._resolve_nn_method("exact", 262144, 262144) == "exact"
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="slice 6"):
         ticp._resolve_nn_method("voxel", 10, 10)
     with pytest.raises(ValueError):
         ticp._resolve_nn_method("kdtree", 10, 10)
