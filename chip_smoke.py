@@ -17,13 +17,21 @@ both fusions), and the spatial repair (``spatial_iters=4``: voting, K4 at
 this size and K3 on a smaller camera; wavefront, K5). Then registration
 (config 4): the sorted-band search K8 at 256k points, point-to-plane ICP on
 its band route (``icp_point_to_plane``) at 256k and between two dense scans,
-and ``register_scans`` on a 4-scan orbit. Then the two-camera merge
-(``reconstruct_two_camera``): the crossing kernels K7 and K6 against their
-plain versions, the merge at full width in float32 and uint8 (K1 twice, K7
-four times), the tiled route on a 5 MP sensor (K6 four times), the splat and
-search oracles, and two merged rig poses registered. Each path's output is checked
-against the synthetic ground truth and its launches counted; then the
-kernels, their plain versions and the paths are timed with CUDA events.
+and ``register_scans`` on a 4-scan orbit, each registration twice and held
+to the same bits. Then the two-camera merge (``reconstruct_two_camera``):
+the crossing kernels K7 and K6 against their plain versions, bit for bit
+(the reference's random case, a ragged one, the merge's passes and the 5 MP
+calls; rows with long pair ranges, NaN and infinite codes, clipped bins,
+unaligned rows, few and many rows, the widest row a block holds, and
+channel layouts other than the merge's), the merge at full width in float32 and uint8 (K1 twice, K7 four times; RMS and
+cells equal to the recorded digits), the tiled route on a 5 MP sensor (K6
+four times), the splat and search oracles, and two merged rig poses
+registered, twice (with the sample draw's ops repeated on the same
+inputs). Each path's output is checked against the
+synthetic ground truth and its launches counted; then the kernels, their
+plain versions and the paths are timed with CUDA events (K6 and K7 also by
+device time, from CUDA-graph replays, with their registers, blocks an SM
+and K7's host launch time), and the whole run's wall time is printed.
 Each phase prints one JSON line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check ends the run with a traceback and a non-zero
 exit, as does a machine without a CUDA device. Imports nothing of JAX."""
@@ -89,6 +97,11 @@ CROSSING_REL_TOL = 1e-6               # where a bin has >= 2 crossings (sum orde
 MERGE_MASK_AGREE = 0.9999             # kernel against plain route (tests/test_twocam.py:99-103)
 MERGE_POINTS_TOL = 1e-3               # mm
 INTERP = (True, True, False, False)   # invert_to_projector's channel layout
+# the merge's outputs as recorded in PERF.md (RMS mm to 6 decimals, cells):
+# a change to the crossing kernels must not move them
+MERGE_RECORDED = {"float32": ("0.004995", 624712), "uint8": ("0.005320", 621927),
+             "tiled_5mp": ("0.005374", 664270)}
+GRAPH_LAUNCHES = 20        # launches a CUDA graph replays when a kernel's device time is taken
 REGISTER_STAGES = ("_subsample", "icp_point_to_plane", "fpfh_features",
                    "ransac_align", "icp_projective", "pose_graph_optimize")
 
@@ -162,6 +175,24 @@ def cuda_ms(fn, runs=TIMED_RUNS, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return times
+
+
+def graph_ms(fn, launches=GRAPH_LAUNCHES, replays=5):
+    """Device time of one call of ``fn`` (kernel launches only): ``launches``
+    calls captured in a CUDA graph, replayed back to back, CUDA events
+    around each replay; no host time between launches."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return [t / launches for t in cuda_ms(graph.replay, replays, 1)]
 
 
 def host_ms(fn, runs=TIMED_RUNS):
@@ -430,6 +461,8 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
     rc = RegistrationConfig()
     src, _ = rf._subsample(clouds[1], N_BIG, seed=1)
     tgt_d, tgt_n = rf._subsample(clouds[0], N_BIG, seed=0)
+    check(torch.equal(src, rf._subsample(clouds[1], N_BIG, seed=1)[0]),
+          "_subsample: two draws from one seed differ")
 
     def dense_icp():
         return icp_point_to_plane(src, tgt_d, tgt_n, iters=rc.icp_iters,
@@ -441,11 +474,14 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
     rot, tr = pose_error(res.R, res.t, *poses[1])
     check(rot < ROT_GATE_DEG and tr < T_GATE_MM,
           f"icp_dense_scans: {rot} deg, {tr} mm")
+    again = dense_icp()
+    same_dense = torch.equal(res.R, again.R) and torch.equal(res.t, again.t)
+    check(same_dense, "icp_dense_scans: two calls give other poses")
     emit("icp_dense_scans", samples=N_BIG, iters=rc.icp_iters,
          max_corr_dist_mm=rc.icp_max_corr_dist, launches=n["k8"], rot_err_deg=rot,
          t_err_mm=tr, rot_gate_deg=ROT_GATE_DEG, t_gate_mm=T_GATE_MM,
          rms_mm=float(res.rms), inlier_frac=float(res.inlier_frac),
-         valid_px=[int(c.mask.sum()) for c in clouds[:2]])
+         valid_px=[int(c.mask.sum()) for c in clouds[:2]], bit_identical_calls=same_dense)
 
     # phase 22: register_scans on the orbit with the defaults (4096
     # samples: the exact route, no K8), features, the projective polish and
@@ -464,8 +500,11 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
     decode()
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3
-    _, stages = stage_times(rf, REGISTER_STAGES, lambda: register(clouds))
+    reg2, stages = stage_times(rf, REGISTER_STAGES, lambda: register(clouds))
+    same_reg = torch.equal(reg.R, reg2.R) and torch.equal(reg.t, reg2.t)
+    check(same_reg, "config4_register: two calls give other poses")
     emit("config4_register", scans=ORBIT_SCANS, samples=rc.icp_sample_points,
+         bit_identical_calls=same_reg,
          rot_err_deg=[e[0] for e in errs], t_err_mm=[e[1] for e in errs],
          max_rot_err_deg=max_rot, max_t_err_mm=max_t, rot_gate_deg=ROT_GATE_DEG,
          t_gate_mm=T_GATE_MM, icp_rms_mm=reg.icp_rms.tolist(), pg_rms=float(reg.pg_rms),
@@ -521,7 +560,8 @@ def crossing_agree(name, got, plain):
     """(cnt, vals) of K6 or K7 against their plain version: counts equal;
     bit-equal where a bin has at most one crossing (every other term is an
     exact zero); relative CROSSING_REL_TOL of max(|v|, 1) where it has
-    more (the plain contraction sums in another order)."""
+    more; and bit-equal everywhere (the plain versions sum each bin in the
+    kernels' ascending pair order)."""
     (cnt, vals), (cnt_p, vals_p) = got, plain
     check(torch.equal(cnt, cnt_p), f"{name}: crossing counts differ")
     one = (cnt_p <= 1)[None].expand_as(vals_p)
@@ -529,23 +569,84 @@ def crossing_agree(name, got, plain):
     rel = ((vals - vals_p).abs() / vals_p.abs().clamp(min=1.0))[~one]
     rel = float(rel.max()) if rel.numel() else 0.0
     check(rel <= CROSSING_REL_TOL, f"{name}: relative {rel} where cnt >= 2")
+    same = bool(torch.equal(vals, vals_p))
+    check(same, f"{name}: not bit-equal to its plain version")
     return dict(shape=list(vals.shape), crossings=int(cnt_p.sum()),
                 max_cnt=float(cnt_p.max()), bins_cnt_ge2=int((cnt_p >= 2).sum()),
-                bit_equal=bool(torch.equal(vals, vals_p)), max_rel_err_cnt_ge2=rel,
+                bit_equal=same, max_rel_err_cnt_ge2=rel,
                 max_abs_err=float((vals - vals_p).abs().max()))
 
 
-def crossing_case(dev, R, U, seed, wiggle=0.0):
+def crossing_case(dev, R, U, seed, wiggle=0.0, start=(-3, 3), nan_inf=False):
     """The reference's random crossing case (tests/test_twocam.py:316-322),
     from numpy seeded ``seed``; ``wiggle``: noise on the codes, so that
-    bins cross several times."""
+    bins cross several times; ``start``: the range of a row's first code
+    (below 0: bins clipped at the low end); ``nan_inf``: 3 % of the codes
+    NaN, 1 % +inf, 1 % -inf."""
     rng = np.random.default_rng(seed)
     code = np.cumsum(rng.uniform(0.2, 1.4, (R, U)), axis=1)
-    code = code - code[:, :1] + rng.uniform(-3, 3, (R, 1))
+    code = code - code[:, :1] + rng.uniform(*start, (R, 1))
     code = (code + wiggle * rng.normal(size=(R, U))).astype(np.float32)
+    if nan_inf:
+        for value, share in ((np.nan, 0.03), (np.inf, 0.01), (-np.inf, 0.01)):
+            code[rng.random((R, U)) < share] = value
     valid = rng.random((R, U)) > 0.05
     ch = (rng.normal(0, 1, (4, R, U)) * 10 + 50).astype(np.float32)
     return [torch.from_numpy(a).to(dev) for a in (code, valid, ch)]
+
+
+def span_case(dev, seed=17):
+    """K6's pairs spanning 30-45 bins (K = 150), clipped at both ends, with
+    NaN and infinite codes and 10 % dead pairs: (lo, hi, payload, K)."""
+    rng = np.random.default_rng(seed)
+    R, U, N, K = 64, 333, 7, 150
+    lo = rng.uniform(-20, K + 5, (R, U)).astype(np.float32)
+    hi = (lo + rng.uniform(30, 45, (R, U))).astype(np.float32)
+    dead = rng.random((R, U)) < 0.1
+    lo[dead] = hi[dead] = -1.0
+    lo[0, :7] = [np.nan, -np.inf, 3.5, np.nan, -np.inf, 10.0, np.inf]
+    hi[0, :7] = [5.0, 2.5, np.nan, np.nan, np.inf, np.inf, np.inf]
+    pay = rng.normal(0, 3, (R, N, U)).astype(np.float32)
+    pay[np.broadcast_to(dead[:, None, :], pay.shape)] = 0.0
+    return [torch.from_numpy(a).to(dev) for a in (lo, hi, pay)] + [K]
+
+
+def distinct_results(fn, repeats=8):
+    """The number of different results (by their bits) of ``repeats`` calls
+    of ``fn``."""
+    seen = []
+    for _ in range(repeats):
+        out = fn()
+        if not any(torch.equal(out, o) for o in seen):
+            seen.append(out)
+    return len(seen)
+
+
+def draw_repeats(cloud):
+    """Each op behind the registration's sample draw, eight times on the
+    same inputs: ``register_scans``' subsample weights over ``cloud``'s
+    pixels through ``torch.multinomial`` and ``torch.cumsum`` (float scans)
+    and through the port's fixed-point draw, and the 6x6 normal equations
+    of N_BIG rows (cuBLAS). Returns {op: distinct results of 8}."""
+    from slr_torch.pipeline import registerfuse as rf
+    from slr_torch.registration.normals import grid_normals
+
+    normals = grid_normals(cloud.points, cloud.mask)
+    vdir = cloud.points / (torch.linalg.norm(cloud.points, dim=-1, keepdim=True) + 1e-9)
+    p = (cloud.mask & (torch.abs(torch.sum(normals * vdir, dim=-1)) > 0.35)).reshape(-1)
+    p = p.to(torch.float32) / torch.sum(p)
+
+    def gen(seed):
+        return torch.Generator(device=p.device).manual_seed(seed)
+
+    w = torch.rand(N_BIG, generator=gen(5), device=p.device)
+    A = torch.randn((N_BIG, 6), generator=gen(6), device=p.device)
+    ops = {"torch_multinomial_4096": lambda: torch.multinomial(p, 4096, replacement=True,
+                                                               generator=gen(0)),
+           "port_draw_4096": lambda: rf._draw_samples(p, 4096, 0),
+           "torch_cumsum": lambda: torch.cumsum(p, 0),
+           f"normal_equations_{N_BIG}": lambda: (A * w[:, None]).T @ A}
+    return {"pixels": p.numel(), **{k: distinct_results(fn) for k, fn in ops.items()}}
 
 
 def captured(module, name, run):
@@ -566,18 +667,59 @@ def captured(module, name, run):
 
 
 def crossing_k7_bytes(R, U, K, C=4):
-    """K7's least traffic: code (4 B), valid (1 B) and C channels (4 B) per
-    pixel read once; cnt and C values (4 B) per bin written once."""
+    """K7's traffic with every input read once: code (4 B), valid (1 B) and
+    C channels (4 B) per pixel; cnt and C values (4 B) per bin written."""
     return R * U * (5 + 4 * C) + R * K * 4 * (1 + C)
 
 
+def _pixels_of(pairs):
+    """The pixels (R, U) of a set of pairs (R, U - 1): both ends of each."""
+    px = torch.zeros((pairs.shape[0], pairs.shape[1] + 1), dtype=torch.bool,
+                     device=pairs.device)
+    px[:, :-1] |= pairs
+    px[:, 1:] |= pairs
+    return int(px.sum())
+
+
+def fires_a_bin(lo, hi, K):
+    """(R, U) bool: the pairs that cross at least one bin k in [0, K)."""
+    k0 = torch.clamp(torch.ceil(lo), min=0.0)
+    k1 = torch.clamp(torch.ceil(hi), max=float(K))
+    return (lo < hi) & (k0 < k1)
+
+
+def crossing_k7_bytes_needed(kx, code, valid, ch, K, gates, dmin, dmax):
+    """K7's least traffic on this run's data: code and valid of every pixel;
+    the gate channels at the pixels of the pairs that pass the validity and
+    step tests; every other channel only at the pixels of the pairs that
+    cross a bin; cnt and C values per bin written once."""
+    R, U = code.shape
+    C = ch.shape[0]
+    cl, chh = code[:, :-1], code[:, 1:]
+    d = chh - cl
+    cand = valid[:, :-1] & valid[:, 1:] & (d > dmin) & (d < dmax)
+    gate = kx.gate_mask(ch, gates)
+    fire = (cand if gate is None else cand & gate) & fires_a_bin(cl, chh, K)
+    n_gate = len({c for c, _ in gates})
+    return (R * U * 5 + n_gate * 4 * _pixels_of(cand) + (C - n_gate) * 4 * _pixels_of(fire)
+            + R * K * 4 * (1 + C))
+
+
 def crossing_k6_bytes(R, U, N, K):
-    """K6's least traffic: lo, hi and N payload channels per pair read
-    once; N sums per bin written once."""
+    """K6's traffic with every input read once: lo, hi and N payload
+    channels per pair; N sums per bin written."""
     return (2 + N) * 4 * R * U + N * 4 * R * K
 
 
-def two_camera_phases(dev, counts_of, card):
+def crossing_k6_bytes_needed(lo, hi, N, K):
+    """K6's least traffic on this run's data: lo and hi of every pair, the
+    N payload values of the pairs that cross a bin (no other pair's payload
+    enters a sum), N sums per bin written once."""
+    R, U = lo.shape
+    return 8 * R * U + N * 4 * int(fires_a_bin(lo, hi, K).sum()) + N * 4 * R * K
+
+
+def two_camera_phases(dev, counts_of, card, ptxas):
     """Phases 24-30, the two-camera merge (slice 5): K7 and K6 against
     their plain versions; ``reconstruct_two_camera`` at the reference's
     full width in float32 and uint8; the tiled route on a 5 MP sensor; the
@@ -647,30 +789,85 @@ def two_camera_phases(dev, counts_of, card):
     # ragged noisy one, and the four passes of the full-width merge
     _, k7_calls = captured(twocam, "crossing_interp_fused", lambda: merge(f1, f2, c1, c2))
     check(len(k7_calls) == 4, f"{len(k7_calls)} fused crossing passes in a merge")
-    cases = {"random_24x700": (*crossing_case(dev, 24, 700, 3), 520, ((1, 3.0),),
+    cases = {"random_24x700": (*crossing_case(dev, 24, 700, 3), 520, INTERP, ((1, 3.0),),
                                0.125, 4.0),
-             "ragged_37x333": (*crossing_case(dev, 37, 333, 370, wiggle=0.5), 200,
+             "ragged_37x333": (*crossing_case(dev, 37, 333, 370, wiggle=0.5), 200, INTERP,
                                ((1, 25.0),), 0.125, 4.0)}
     for i, (a, kw) in enumerate(k7_calls):
         cases[f"merge_cam{i // 2 + 1}_pass{i % 2 + 1}"] = (
-            *a[:4], kw["gates"], kw["dmin"], kw["dmax"])
+            *a[:5], kw["gates"], kw["dmin"], kw["dmax"])
+    # the redesign's cases: long pair ranges (bins crossed many times), NaN
+    # and infinite codes, bins clipped at both ends, rows not a multiple of
+    # 16 bytes (ragged heads and tails staged by threads), R below the SM
+    # count and far above the persistent grid, and the widest row a block
+    # holds (one row buffer, no prefetch); then layouts other than the
+    # merge's, which take K7's general build
+    lib = kx.library()
+    u_limit = 2048
+    while lib.slr_interp_fused_smem(u_limit + 1, 4, u_limit + 1) <= kx.SMEM_MAX:
+        u_limit += 1
+    gate25 = ((1, 25.0),)
+    cases.update({
+        "wiggle2_12x333": (*crossing_case(dev, 12, 333, 11, wiggle=2.0), 260, INTERP, gate25,
+                           0.125, 4.0),
+        "nan_inf_9x701": (*crossing_case(dev, 9, 701, 12, nan_inf=True), 520, INTERP, gate25,
+                          0.125, 4.0),
+        "clipped_10x300": (*crossing_case(dev, 10, 300, 13, wiggle=0.3, start=(-30, -5)),
+                           120, INTERP, gate25, 0.125, 4.0),
+        "rows_below_sms_7x1280": (*crossing_case(dev, 7, 1280, 14, wiggle=0.3), 1024, INTERP,
+                                  gate25, 0.125, 4.0),
+        "rows_above_grid_3000x130": (*crossing_case(dev, 3000, 130, 15, wiggle=0.3), 110,
+                                     INTERP, gate25, 0.125, 4.0),
+        f"smem_limit_3x{u_limit}": (*crossing_case(dev, 3, u_limit, 16, wiggle=0.3), u_limit,
+                                    INTERP, gate25, 0.125, 4.0),
+    })
+    for name, (R, U, K, seed, c, interp, gates) in {
+            "layout_c3_interp_101_40x517": (40, 517, 400, 18, 3, (True, False, True),
+                                            ((2, 25.0),)),
+            "layout_c4_interp_0110_20x701": (20, 701, 520, 19, 4, (False, True, True, False),
+                                             ((0, 30.0), (3, 30.0))),
+            "layout_c1_nearest_9x333": (9, 333, 260, 20, 1, (False,), ())}.items():
+        code, valid, ch = crossing_case(dev, R, U, seed, wiggle=0.5)
+        cases[name] = (code, valid, ch[:c].contiguous(), K, interp, gates, 0.125, 4.0)
     k7_checks, k6_checks, k7_err, k6_err = {}, {}, 0.0, 0.0
-    for name, (code, valid, ch, K, gates, dmin, dmax) in cases.items():
-        got = kx.crossing_interp_fused(code, valid, ch, K, INTERP, gates, dmin, dmax)
-        plain = kx.crossing_interp_fused_reference(code, valid, ch, K, INTERP, gates, dmin,
+    for name, (code, valid, ch, K, interp, gates, dmin, dmax) in cases.items():
+        got = kx.crossing_interp_fused(code, valid, ch, K, interp, gates, dmin, dmax)
+        plain = kx.crossing_interp_fused_reference(code, valid, ch, K, interp, gates, dmin,
                                                    dmax)
         torch.cuda.synchronize()
         k7_checks[name] = crossing_agree(f"K7 {name}", got, plain)
+        k7_checks[name]["grid_blocks_per_sm"] = list(kx.launch_shape(
+            "K7", *code.shape, ch.shape[0], K, interp))
         k7_err = max(k7_err, k7_checks[name]["max_abs_err"])
         # phase 25 on the same cases: K6 through crossing_interp
         gate = kx.gate_mask(ch, gates)
-        got6 = kx.crossing_interp(code, valid, ch, K, INTERP, dmin, dmax, pair_gate=gate)
-        plain6 = kx.crossing_interp(code, valid, ch, K, INTERP, dmin, dmax,
+        got6 = kx.crossing_interp(code, valid, ch, K, interp, dmin, dmax, pair_gate=gate)
+        plain6 = kx.crossing_interp(code, valid, ch, K, interp, dmin, dmax,
                                     use_kernel=False, pair_gate=gate)
         torch.cuda.synchronize()
         k6_checks[name] = crossing_agree(f"K6 {name}", got6, plain6)
         k6_checks[name]["vs_k7"] = crossing_agree(f"K6 vs K7 {name}", got6, got)
         k6_err = max(k6_err, k6_checks[name]["max_abs_err"])
+    # K6 alone: pairs spanning 30-45 bins, and the widest row a block holds
+    # (one row buffer, no prefetch)
+    u6_limit = 2048
+    while lib.slr_bin_sum_smem(u6_limit + 1, 1024) <= kx.SMEM_MAX:
+        u6_limit += 1
+    lo_w, hi_w, pay_w, _ = kx.crossing_pairs(
+        *crossing_case(dev, 5, u6_limit + 1, 21, wiggle=0.3)[:3], INTERP)
+    for name, (lo_s, hi_s, pay_s, K_s) in {
+            "spans_30_45_bins": span_case(dev),
+            f"smem_limit_5x{u6_limit}": (lo_w, hi_w, pay_w, 1024)}.items():
+        ref_s = kx.crossing_bin_sum_reference(lo_s, hi_s, pay_s, K_s)
+        fires = kx.crossing_bin_sum_reference(lo_s, hi_s, torch.ones_like(pay_s[:, :1]), K_s)
+        out_s = kx.launch_bin_sum(lo_s, hi_s, pay_s, K_s)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(out_s, ref_s))
+        check(same, f"K6 {name}: not bit-equal to its plain version")
+        k6_checks[name] = dict(
+            shape=list(out_s.shape), max_fires=float(fires.max()), bit_equal=same,
+            max_abs_err=float((out_s - ref_s).abs().max()),
+            grid_blocks_per_sm=list(kx.launch_shape("K6", *lo_s.shape, pay_s.shape[1], K_s)))
     emit("k7_vs_plain", rel_tol=CROSSING_REL_TOL, **k7_checks)
 
     # phase 26: the merge at full width, float32 and uint8: K1 (decode_only)
@@ -686,6 +883,8 @@ def two_camera_phases(dev, counts_of, card):
         rms, n_pts = rms_grid(cloud, truth)
         check(rms <= TWO_CAM_RMS_GATE_MM and n_pts >= TWO_CAM_MIN_POINTS,
               f"merge {kind}: RMS {rms} mm over {n_pts} points")
+        check((f"{rms:.6f}", n_pts) == MERGE_RECORDED[kind],
+              f"merge {kind}: {rms:.6f} mm over {n_pts} cells, recorded {MERGE_RECORDED[kind]}")
         again = merge(g1, g2, c1, c2)
         same = all(torch.equal(a, b) for a, b in zip(cloud, again))
         check(same, f"merge {kind}: two calls differ")
@@ -716,15 +915,21 @@ def two_camera_phases(dev, counts_of, card):
     k6_launches = n["k6"]
     trms, tn = rms_grid(tcloud, proj_truth(tproj, spheres_scene))
     check(trms <= TWO_CAM_RMS_GATE_MM, f"tiled merge RMS {trms} mm")
+    check((f"{trms:.6f}", tn) == MERGE_RECORDED["tiled_5mp"],
+          f"tiled merge: {trms:.6f} mm over {tn} cells, "
+          f"recorded {MERGE_RECORDED['tiled_5mp']}")
     k6_5mp = {}
     for i, (a, kw) in enumerate(k6_calls):
         code, valid, ch, K = a[:4]
         got6 = kx.crossing_interp(*a, **kw)
         plain6 = kx.crossing_interp(*a, **{**kw, "use_kernel": False})
         torch.cuda.synchronize()
-        k6_5mp[f"cam{i // 2 + 1}_pass{i % 2 + 1}"] = crossing_agree(
-            f"K6 5 MP call {i}", got6, plain6)
-        k6_err = max(k6_err, k6_5mp[f"cam{i // 2 + 1}_pass{i % 2 + 1}"]["max_abs_err"])
+        key = f"cam{i // 2 + 1}_pass{i % 2 + 1}"
+        k6_5mp[key] = crossing_agree(f"K6 5 MP call {i}", got6, plain6)
+        interp = a[4]    # payload: the count, (a, g) per interpolated channel, one term else
+        k6_5mp[key]["grid_blocks_per_sm"] = list(kx.launch_shape(
+            "K6", code.shape[0], code.shape[1] - 1, 1 + len(interp) + sum(interp), K))
+        k6_err = max(k6_err, k6_5mp[key]["max_abs_err"])
     emit("k6_vs_plain", rel_tol=CROSSING_REL_TOL, **k6_checks, **{f"5mp_{k}": v for k, v in
                                                                  k6_5mp.items()})
     emit("two_camera_tiled", sensor=[TILED_W, TILED_H], dtype=str(tf1.dtype), launches=n,
@@ -760,14 +965,22 @@ def two_camera_phases(dev, counts_of, card):
         merge_launches(n, 2, 4, 0)
         k7_launches += n["k7"]
         rclouds.append(cl)
-    reg, n = counts_of(lambda: rf.register_scans(
-        rclouds, RegistrationConfig(icp_sample_points=2048), use_features=False,
-        loop_closures=False))
+    def register_two():
+        return rf.register_scans(rclouds, RegistrationConfig(icp_sample_points=2048),
+                                 use_features=False, loop_closures=False)
+
+    reg, n = counts_of(register_two)
     rot, tr = pose_error(reg.R[1], reg.t[1], R_m, t_m)
     check(rot < ROT_GATE_DEG and tr < T_GATE_MM, f"two-camera registration: {rot} deg, {tr} mm")
+    reg2 = register_two()
+    same = torch.equal(reg.R, reg2.R) and torch.equal(reg.t, reg2.t)
+    check(same, "two-camera registration: two calls give other poses")
+    repeats = draw_repeats(rclouds[0])
+    check(repeats["port_draw_4096"] == 1, f"the sample draw is not reproducible: {repeats}")
     emit("two_camera_register", rot_err_deg=rot, t_err_mm=tr, rot_gate_deg=ROT_GATE_DEG,
          t_gate_mm=T_GATE_MM, valid_points=[int(c.mask.sum()) for c in rclouds],
-         k7_launches=k7_launches)
+         k7_launches=k7_launches, bit_identical_calls=same,
+         distinct_results_of_8_calls=repeats)
     del rclouds, reg, clouds_o
 
     # phase 30: times (CUDA events, in turns): the merge in float32 and uint8
@@ -830,13 +1043,37 @@ def two_camera_phases(dev, counts_of, card):
         for name in turn:
             n_runs = 5 if name in heavy else TIMED_RUNS // 2
             times[name] += cuda_ms(runs[name], n_runs, 1 if name in heavy else 3)
+    # each kernel's device time: GRAPH_LAUNCHES launches replayed from a
+    # CUDA graph (no host time between them), in turns; its grid; the
+    # host time of one K7 launch through its wrapper
+    device = {k: [] for k in ("k7_pass1", "k7_pass2", "k6_5mp_pass1")}
+    for name in (*device, *reversed(device)):
+        device[name] += graph_ms(runs[name])
+    def k7_shape(i):
+        code, _, ch, K, interp = k7_args(i)[:5]
+        return list(kx.launch_shape("K7", *code.shape, ch.shape[0], K, interp))
+
+    shapes = {"k7_pass1": k7_shape(0), "k7_pass2": k7_shape(1),
+              "k6_5mp_pass1": list(kx.launch_shape("K6", R6, U6, N6, K6))}
+    k7_host_ms = host_ms(runs["k7_pass1"])
     del onehot, bmm, plain_k6
     torch.cuda.empty_cache()
     ms = {k: statistics.median(v) for k, v in times.items()}
+    dev_ms = {k: statistics.median(v) for k, v in device.items()}
+    regs = {"k7_merge_layout": next(v for k, v in ptxas.items()
+                                    if "interp_fused_kernelILi4ELi3" in k),
+            "k7_any_layout": next(v for k, v in ptxas.items() if "interp_fused_kernelILi8" in k),
+            "k6": next(v for k, v in ptxas.items() if "bin_sum_kernel" in k)}
     (a1, _), (a2, _) = k7_calls[0], k7_calls[1]
-    moved = {"k7_pass1": crossing_k7_bytes(*a1[0].shape, a1[3]),
-             "k7_pass2": crossing_k7_bytes(*a2[0].shape, a2[3]),
-             "k6_5mp_pass1": crossing_k6_bytes(R6, U6, N6, K6)}
+    def k7_needed(i):
+        code, valid, ch, K, _, gates, dmin, dmax = k7_args(i)
+        return crossing_k7_bytes_needed(kx, code, valid, ch, K, gates, dmin, dmax)
+
+    moved = {"k7_pass1": k7_needed(0), "k7_pass2": k7_needed(1),
+             "k6_5mp_pass1": crossing_k6_bytes_needed(lo6, hi6, N6, K6)}
+    moved_all = {"k7_pass1": crossing_k7_bytes(*a1[0].shape, a1[3]),
+                 "k7_pass2": crossing_k7_bytes(*a2[0].shape, a2[3]),
+                 "k6_5mp_pass1": crossing_k6_bytes(R6, U6, N6, K6)}
     gbs = {k: b / (ms[k] * 1e-3) / 1e9 for k, b in moved.items()}
     invert_glue = ms["invert_both"] - ms["k7_4x"]
     # where a merge's time goes: torch.profiler over 3 float32 merges,
@@ -871,10 +1108,18 @@ def two_camera_phases(dev, counts_of, card):
                           - ms["edge_masks"] - ms["invert_both"]},
          merge_host_ms=host_ms(runs["merge"], 10),
          **{f"{k}_bytes": b for k, b in moved.items()},
+         bytes_of="least traffic on this run's data (channels and payload only where a "
+                  "pair crosses a bin)",
+         **{f"{k}_bytes_all_inputs": b for k, b in moved_all.items()},
          **{f"{k}_gb_s": v for k, v in gbs.items()},
          **{f"{k}_hbm_share": v / (HBM_PEAK_TBS * 1e3) for k, v in gbs.items()},
          k7_pass_shapes=[[*a1[0].shape, a1[3]], [*a2[0].shape, a2[3]]],
          k6_pass1_shape=[R6, N6, U6, K6],
+         device_ms=dev_ms, device_ms_spread={k: [min(v), max(v)] for k, v in device.items()},
+         device_timing=f"CUDA graph of {GRAPH_LAUNCHES} launches, replayed in turns",
+         device_hbm_share={k: moved[k] / (dev_ms[k] * 1e-3) / (HBM_PEAK_TBS * 1e12)
+                           for k in dev_ms},
+         grid_blocks_per_sm=shapes, registers=regs, k7_host_launch_ms=k7_host_ms,
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
     return [{
         "name": "crossing_interp_fused", "route": "cuda",
@@ -883,10 +1128,18 @@ def two_camera_phases(dev, counts_of, card):
         "launches": k7_launches, "max_abs_err": k7_err,
         "max_abs_err_of": "cnt and interpolated values against the plain version",
         "ms": ms["k7_pass1"], "plain_ms": ms["plain_k7_pass1"],
+        "plain_of": "payload build, each bin summed in the kernels' ascending pair "
+                    "order (not a one-hot einsum), unpack",
         "bound_ms": moved["k7_pass1"] / (HBM_PEAK_TBS * 1e12) * 1e3, "bound_by": "bytes",
         "library_ms": None,
         "ms_pass2": ms["k7_pass2"], "plain_ms_pass2": ms["plain_k7_pass2"],
         "bound_ms_pass2": moved["k7_pass2"] / (HBM_PEAK_TBS * 1e12) * 1e3,
+        "bound_ms_all_inputs": moved_all["k7_pass1"] / (HBM_PEAK_TBS * 1e12) * 1e3,
+        "bound_ms_all_inputs_pass2": moved_all["k7_pass2"] / (HBM_PEAK_TBS * 1e12) * 1e3,
+        "ms_of": "CUDA events around one launch through the wrapper (host time included)",
+        "device_ms": dev_ms["k7_pass1"], "device_ms_pass2": dev_ms["k7_pass2"],
+        "host_launch_ms": k7_host_ms, "registers": regs["k7_merge_layout"],
+        "grid_blocks_per_sm": shapes["k7_pass1"],
     }, {
         "name": "crossing_bin_sum", "route": "cuda",
         "source": "slr_torch/kernels/csrc/crossing.cu",
@@ -895,13 +1148,20 @@ def two_camera_phases(dev, counts_of, card):
         "max_abs_err_of": "cnt and interpolated values through crossing_interp against "
                           "its plain route",
         "ms": ms["k6_5mp_pass1"], "plain_ms": ms["plain_k6_5mp_pass1"],
+        "plain_of": "each bin summed in the kernels' ascending pair order (not a "
+                    "one-hot einsum)",
         "bound_ms": moved["k6_5mp_pass1"] / (HBM_PEAK_TBS * 1e12) * 1e3,
         "bound_by": "bytes", "library_ms": ms["bmm_k6_5mp_pass1"],
         "library": "torch.bmm of the float32 payload with a prebuilt float32 one-hot",
+        "ms_of": "CUDA events around one launch through the wrapper (host time included)",
+        "bound_ms_all_inputs": moved_all["k6_5mp_pass1"] / (HBM_PEAK_TBS * 1e12) * 1e3,
+        "device_ms": dev_ms["k6_5mp_pass1"], "registers": regs["k6"],
+        "grid_blocks_per_sm": shapes["k6_5mp_pass1"],
     }]
 
 
 def main():
+    wall_start = time.perf_counter()
     # phase 1: the card
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on an NVIDIA GPU")
@@ -1403,7 +1663,8 @@ def main():
     k8_entry = registration_phases(dev, cam, proj, cfg, counts_of, card)
 
     # phases 24-30: the two-camera merge, K7 and K6
-    k7_entry, k6_entry = two_camera_phases(dev, counts_of, card)
+    k7_entry, k6_entry = two_camera_phases(dev, counts_of, card,
+                                           ptxas_summary(built["crossing"][1]))
 
     def bound(nbytes=0, instr=0):
         """The least time (ms) for ``nbytes`` of HBM traffic and ``instr``
@@ -1413,6 +1674,7 @@ def main():
                 "bound_by": "bytes" if t_b >= t_i else "operations"}
 
     vote_instr = VOTE_INSTR_PER_PX_SWEEP * px * SPATIAL_ITERS
+    emit("wall", s=time.perf_counter() - wall_start)
 
     print(json.dumps({"kernels": [{
         "name": "fused_decode_triangulate",

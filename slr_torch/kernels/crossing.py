@@ -19,18 +19,17 @@ value), bins sum the payloads of their crossings, and q*(k) =
   interpolation of one row in one launch.
 
 Both live in ``csrc/crossing.cu``. Their plain versions are
-``crossing_bin_sum_reference`` (the reference's one-hot contraction,
-chunked over bins) and ``crossing_interp_fused_reference`` (payload build,
-plain contraction and unpack, with the carried-channel ``gates`` as a pair
-veto: ``crossing_interp(..., pair_gate=...)``). The payload is plain
-float32: per interpolated channel (a, g), per nearest channel one term,
-plus the count, so N = 7 for ``invert_to_projector``'s layout. The TPU's
-bf16 3-split, its bf16 storage of nearest channels, the 8-channel and
-128-lane padding and the activity table do not exist here; the tiling
-knobs (``utile``, ``usub``, ``ksub``, ``ktile``, ``rt``) are accepted for
-signature parity and ignored. The one-hot contraction runs in full float32
-(``slr_torch`` turns TF32 off: under TF32 it would round the payload to 10
-mantissa bits).
+``crossing_bin_sum_reference`` (the reference's one-hot, chunked over
+bins, each bin summed in ascending pair order as the kernels sum it) and
+``crossing_interp_fused_reference`` (payload build, plain contraction and
+unpack, with the carried-channel ``gates`` as a pair veto:
+``crossing_interp(..., pair_gate=...)``). The payload is plain float32: per
+interpolated channel (a, g), per nearest channel one term, plus the count,
+so N = 7 for ``invert_to_projector``'s layout. The TPU's bf16 3-split, its
+bf16 storage of nearest channels, the 8-channel and 128-lane padding and
+the activity table do not exist here; the tiling knobs (``utile``,
+``usub``, ``ksub``, ``ktile``, ``rt``) are accepted for signature parity
+and ignored. The sums are float32 adds, no matrix product.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor, or raises; ``crossing_bin_sum.launches`` and
@@ -47,7 +46,6 @@ import torch
 from slr_torch.kernels.build import load_library
 
 MAX_CHANNELS = 8     # SLR_XING_MAX_C in csrc/crossing.cu
-MAX_TERMS = 16       # SLR_XING_MAX_TERMS
 MAX_GATES = 8        # SLR_XING_MAX_GATES
 SMEM_MAX = 232448    # shared memory a block may use on Hopper
 
@@ -94,16 +92,32 @@ def build_payload(pair_valid, code_lo, channels_lo, channels_hi, d, interp: tupl
 
 def crossing_bin_sum_reference(code_lo, code_hi, payload, num_bins: int,
                                chunk: int = 128):
-    """K6's plain version: the same contraction through a materialised
-    one-hot, ``chunk`` bins at a time."""
+    """K6's plain version, ``chunk`` bins at a time: the one-hot of the
+    pairs that cross each bin, and each bin's crossings added in ascending
+    pair order, the kernels' order. The running count of the one-hot along
+    the pairs is exact (integers), so the j-th crossing of a bin is the
+    first pair where it reaches j; the j-th crossings are added, one float32
+    add a bin, for j = 1, 2, ... in turn. So K6 and K7 equal it bit for bit
+    however many crossings a bin has."""
     R, U = code_lo.shape
+    N = payload.shape[1]
     payload = payload.to(torch.float32)
-    outs = [torch.zeros((R, payload.shape[1], 0), device=payload.device)]
+    outs = [torch.zeros((R, N, 0), device=payload.device)]
     for k0 in range(0, num_bins, chunk):
         k = torch.arange(k0, min(k0 + chunk, num_bins), dtype=torch.float32,
                          device=payload.device)[None, :, None]
-        oh = ((code_lo[:, None, :] <= k) & (code_hi[:, None, :] > k)).to(torch.float32)
-        outs.append(torch.einsum("rku,rnu->rnk", oh, payload))
+        fire = (code_lo[:, None, :] <= k) & (code_hi[:, None, :] > k)      # (R, kc, U)
+        rank = torch.cumsum(fire, dim=2, dtype=torch.int32)
+        count = rank[:, :, -1]
+        n_max = int(count.max()) if count.numel() else 0
+        js = torch.arange(1, n_max + 1, dtype=torch.int32, device=payload.device)
+        u_j = torch.searchsorted(rank, js.expand(R, k.shape[1], n_max).contiguous())
+        u_j = u_j.clamp(max=U - 1)
+        acc = torch.zeros((R, N, k.shape[1]), device=payload.device)
+        for j in range(n_max):
+            term = torch.gather(payload, 2, u_j[:, None, :, j].expand(R, N, -1))
+            acc = torch.where((count > j)[:, None, :], acc + term, acc)
+        outs.append(acc)
     return torch.cat(outs, dim=2)
 
 
@@ -115,10 +129,12 @@ def library() -> ctypes.CDLL:
     lib.slr_crossing_bin_sum.argtypes = [ptr] * 3 + [i32] * 4 + [ptr, i32, ptr]
     lib.slr_crossing_interp_fused.argtypes = ([ptr] * 3 + [i32] * 6 + [ptr] * 2
                                               + [f32] * 2 + [ptr] * 2 + [i32, ptr])
-    for fn in (lib.slr_crossing_bin_sum, lib.slr_crossing_interp_fused):
+    lib.slr_crossing_launch_shape.argtypes = [i32] * 7 + [ptr] * 2
+    for fn in (lib.slr_crossing_bin_sum, lib.slr_crossing_interp_fused,
+               lib.slr_crossing_launch_shape):
         fn.restype = ctypes.c_int
-    lib.slr_bin_sum_smem.argtypes = [i32]
-    lib.slr_interp_fused_smem.argtypes = [i32, i32]
+    lib.slr_bin_sum_smem.argtypes = [i32] * 2
+    lib.slr_interp_fused_smem.argtypes = [i32] * 3
     for fn in (lib.slr_bin_sum_smem, lib.slr_interp_fused_smem):
         fn.restype = ctypes.c_longlong
     lib.slr_cuda_error_string.argtypes = [i32]
@@ -126,17 +142,26 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=64)
+def _gate_arrays(gates: tuple):
+    """K7's gate channels and thresholds as C arrays, built once per gates."""
+    ch = (ctypes.c_int * MAX_GATES)(*(c for c, _ in gates))
+    thr = (ctypes.c_float * MAX_GATES)(*(t for _, t in gates))
+    return ch, thr
+
+
 def _check(what: str, want):
     """Every (tensor, shape, dtype): contiguous, of that shape and type, on
     the first tensor's CUDA device."""
-    dev = want[0][0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
+    first = want[0][0]
+    if not first.is_cuda:
+        raise ValueError(f"{what} needs CUDA tensors, got {first.device}")
+    index = first.get_device()
     for x, shape, dtype in want:
-        if (tuple(x.shape) != shape or x.dtype != dtype or x.device != dev
+        if (x.shape != shape or x.dtype != dtype or x.get_device() != index
                 or not x.is_contiguous()):
             raise ValueError(f"{what}: expected a contiguous {dtype} tensor of shape "
-                             f"{shape} on {dev}, got {x.dtype} {tuple(x.shape)} on "
+                             f"{shape} on {first.device}, got {x.dtype} {tuple(x.shape)} on "
                              f"{x.device} (contiguous: {x.is_contiguous()})")
 
 
@@ -150,6 +175,20 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def launch_shape(kernel: str, R: int, U: int, n: int, num_bins: int,
+                 interp: tuple = ()) -> tuple:
+    """(grid, blocks an SM) that a launch of ``kernel`` ("K6": ``n``
+    payload rows of U pairs; "K7": ``n`` channels of U codes, ``interp``)
+    takes on the current CUDA device."""
+    lib = library()
+    grid, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    mask = sum(1 << c for c, i in enumerate(interp) if i)
+    _raise_on(lib, f"{kernel} launch shape", lib.slr_crossing_launch_shape(
+        {"K6": 6, "K7": 7}[kernel], R, U, n, num_bins, mask, torch.cuda.current_device(),
+        ctypes.byref(grid), ctypes.byref(per_sm)))
+    return grid.value, per_sm.value
+
+
 def launch_bin_sum(code_lo, code_hi, payload, num_bins: int):
     """K6, one launch. Returns (R, N, num_bins) float32."""
     R, U = code_lo.shape
@@ -158,7 +197,7 @@ def launch_bin_sum(code_lo, code_hi, payload, num_bins: int):
     _check("K6", [(code_lo, (R, U), f32), (code_hi, (R, U), f32),
                   (payload, (R, N, U), f32)])
     lib = library()
-    if lib.slr_bin_sum_smem(U) > SMEM_MAX:
+    if lib.slr_bin_sum_smem(U, num_bins) > SMEM_MAX:
         raise ValueError(f"K6: {U} pairs a row exceed one block's shared memory")
     out = torch.empty((R, N, num_bins), device=payload.device)
     _raise_on(lib, "K6 crossing_bin_sum", lib.slr_crossing_bin_sum(
@@ -252,25 +291,21 @@ def launch_interp_fused(code, valid, channels, num_bins: int, interp: tuple,
     C = channels.shape[0]
     _check("K7", [(code, (R, U), torch.float32), (valid, (R, U), torch.bool),
                   (channels, (C, R, U), torch.float32)])
-    terms = sum(2 if i else 1 for i in interp)
-    if (len(interp) != C or C > MAX_CHANNELS or terms > MAX_TERMS
-            or len(gates) > MAX_GATES or U < 2):
+    if len(interp) != C or C > MAX_CHANNELS or len(gates) > MAX_GATES or U < 2:
         raise ValueError(f"K7: {C} channels, interp {interp}, {len(gates)} gates, "
                          f"{U} codes a row")
     lib = library()
-    if lib.slr_interp_fused_smem(U, terms) > SMEM_MAX:
+    if lib.slr_interp_fused_smem(U, C, num_bins) > SMEM_MAX:
         raise ValueError(f"K7: a row of {U} codes exceeds one block's shared memory; "
                          "take crossing_interp's tiled route")
-    cnt = torch.empty((R, num_bins), device=code.device)
-    vals = torch.empty((C, R, num_bins), device=code.device)
-    gate_ch = (ctypes.c_int * MAX_GATES)(*(c for c, _ in gates))
-    gate_thr = (ctypes.c_float * MAX_GATES)(*(t for _, t in gates))
+    out = torch.empty((1 + C, R, num_bins), device=code.device)
+    cnt, vals = out[0], out[1:]
+    gate_ch, gate_thr = _gate_arrays(tuple(gates))
     mask = sum(1 << c for c, i in enumerate(interp) if i)
     _raise_on(lib, "K7 crossing_interp_fused", lib.slr_crossing_interp_fused(
         code.data_ptr(), valid.data_ptr(), channels.data_ptr(), R, U, C, num_bins,
-        mask, len(gates), ctypes.cast(gate_ch, ctypes.c_void_p),
-        ctypes.cast(gate_thr, ctypes.c_void_p), dmin, dmax, cnt.data_ptr(),
-        vals.data_ptr(), code.device.index, _stream(code)))
+        mask, len(gates), ctypes.addressof(gate_ch), ctypes.addressof(gate_thr), dmin,
+        dmax, cnt.data_ptr(), vals.data_ptr(), code.device.index, _stream(code)))
     crossing_interp_fused.launches += 1
     return cnt, vals
 
@@ -288,8 +323,9 @@ def crossing_interp_fused(code, valid, channels, num_bins: int, interp: tuple,
     if code.device.type == "cpu":
         return crossing_interp_fused_reference(code, valid, channels, num_bins,
                                                interp, gates, dmin, dmax)
-    return launch_interp_fused(code.to(torch.float32), valid, channels, num_bins,
-                               interp, gates, dmin, dmax)
+    if code.dtype != torch.float32:
+        code = code.to(torch.float32)
+    return launch_interp_fused(code, valid, channels, num_bins, interp, gates, dmin, dmax)
 
 
 crossing_bin_sum.launches = 0

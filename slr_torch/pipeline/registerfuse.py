@@ -15,7 +15,7 @@ import torch
 
 from slr_torch.config import RegistrationConfig
 from slr_torch.pipeline.reconstruct import ScanCloud
-from slr_torch.registration.features import fpfh_features, ransac_align
+from slr_torch.registration.features import draw_categorical, fpfh_features, ransac_align
 from slr_torch.registration.icp import icp_point_to_plane
 from slr_torch.registration.normals import grid_normals
 from slr_torch.registration.posegraph import pose_graph_optimize
@@ -32,9 +32,9 @@ class RegisteredScans(NamedTuple):
 def _draw_samples(p, n: int, seed: int):
     """``n`` pixel indices drawn with replacement with probabilities ``p``
     (the counterpart of the reference's ``jax.random.choice(key, H*W, (n,),
-    p=p)``; a test may substitute the JAX draw)."""
-    g = torch.Generator(device=p.device).manual_seed(seed)
-    return torch.multinomial(p, n, replacement=True, generator=g)
+    p=p)``; a test may substitute the JAX draw); the same bits in every
+    call on every device."""
+    return draw_categorical(p, n, torch.Generator(device=p.device).manual_seed(seed))
 
 
 def _subsample(cloud: ScanCloud, n: int, seed: int = 0, min_incidence: float = 0.35):

@@ -96,12 +96,36 @@ def _kabsch(P, Q, w):
     return R, cq - torch.einsum("...ij,...j->...i", R, cp)
 
 
+def draw_categorical(p, n: int, generator=None):
+    """``n`` indices drawn with replacement with probabilities proportional
+    to ``p`` (1-D, non-negative), the same bits in every call with the same
+    generator state, on every device.
+
+    ``torch.multinomial`` is not reproducible on the card: it scans a float
+    cumulative distribution with a reduction order that changes between
+    calls, and a rounding that moves a bin edge moves a sample. Here the
+    weights are fixed-point integers (``p / max(p)`` in units of 2^-b, with b
+    chosen so that their sum stays below 2^62), whose cumulative sum is
+    exact in any order; each sample is the first index whose cumulative
+    weight exceeds ``floor(u * total)``, u uniform in [0, 1) in float64.
+    A weight below 2^-b of the largest rounds to 0 and is never drawn."""
+    m = p.numel()
+    bits = 62 - max(m - 1, 1).bit_length()
+    w = p.to(torch.float64)
+    w = torch.round(w / torch.max(w) * float(2 ** bits)).to(torch.int64)
+    cum = torch.cumsum(w, 0)
+    total = cum[-1:]
+    u = torch.rand(n, generator=generator, dtype=torch.float64, device=p.device)
+    target = torch.minimum(torch.floor(u * total.to(torch.float64)).to(torch.int64),
+                           total - 1)
+    return torch.searchsorted(cum, target, right=True)
+
+
 def _draw_hypotheses(probs, n_iters: int, generator=None):
     """(n_iters, 3) match indices, drawn with replacement with ``probs``
     (the counterpart of the reference's ``jax.random.choice(..., p=probs)``
     per hypothesis; a test may substitute the JAX draw)."""
-    return torch.multinomial(probs, 3 * n_iters, replacement=True,
-                             generator=generator).reshape(n_iters, 3)
+    return draw_categorical(probs, 3 * n_iters, generator).reshape(n_iters, 3)
 
 
 def ransac_align(src_pts, src_feat, tgt_pts, tgt_feat, n_iters: int = 256,

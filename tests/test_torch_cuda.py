@@ -515,13 +515,9 @@ def _crossing_case(device, R, U, seed, wiggle=0.0):
 
 
 def _crossing_agree(cnt, vals, cnt_p, vals_p):
-    """Counts equal; bit-equal where a bin has at most two crossings (a sum
-    of two does not depend on its order); relative 1e-6 beyond."""
-    assert torch.equal(cnt, cnt_p)
-    few = (cnt_p <= 2)[None].expand_as(vals_p)
-    assert torch.equal(vals[few], vals_p[few])
-    rel = ((vals - vals_p).abs() / vals_p.abs().clamp(min=1.0))[~few]
-    assert rel.numel() == 0 or float(rel.max()) <= 1e-6
+    """Counts and values bit-equal: the plain versions sum each bin in the
+    kernels' ascending pair order."""
+    assert torch.equal(cnt, cnt_p) and torch.equal(vals, vals_p)
 
 
 @pytest.mark.parametrize("R,U,K,wiggle", [(24, 700, 520, 0.0), (37, 333, 200, 0.5),
@@ -559,7 +555,125 @@ def test_bin_sum_kernel_matches_plain_version(cuda):
     out = kx.crossing_bin_sum(lo, hi, pay, K)
     ref = kx.crossing_bin_sum_reference(lo, hi, pay, K)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-5)
+    assert torch.equal(out, ref)
+
+
+def _adversarial(device, kind, seed=0):
+    """The adversarial rows of tests/test_torch_crossing.py (code, valid,
+    channels, K), or K6's wide spans (lo, hi, payload, K); plus R below the
+    SM count and R far above the persistent grid."""
+    rng = np.random.default_rng(seed)
+    if kind == "span40":
+        R, U, N, K = 9, 333, 5, 150
+        lo = rng.uniform(-20, K + 5, (R, U)).astype(np.float32)
+        hi = (lo + rng.uniform(30, 45, (R, U))).astype(np.float32)
+        dead = rng.random((R, U)) < 0.1
+        lo[dead] = hi[dead] = -1.0
+        lo[0, :7] = [np.nan, -np.inf, 3.5, np.nan, -np.inf, 10.0, np.inf]
+        hi[0, :7] = [5.0, 2.5, np.nan, np.nan, np.inf, np.inf, np.inf]
+        pay = rng.normal(0, 3, (R, N, U)).astype(np.float32)
+        pay[np.broadcast_to(dead[:, None, :], pay.shape)] = 0.0
+        return [torch.from_numpy(a).to(device) for a in (lo, hi, pay)] + [K]
+    R, U, K, wiggle, start = {"wiggle2": (12, 333, 260, 2.0, (-3, 3)),
+                              "nan_inf": (9, 701, 520, 0.0, (-3, 3)),
+                              "clipped": (10, 300, 120, 0.3, (-30, -5)),
+                              "u700": (6, 700, 520, 0.5, (-3, 3)),
+                              "rows_below_sms": (7, 1280, 1024, 0.3, (-3, 3)),
+                              "rows_above_grid": (3000, 130, 110, 0.3, (-3, 3))}[kind]
+    code = np.cumsum(rng.uniform(0.2, 1.4, (R, U)), axis=1)
+    code = code - code[:, :1] + rng.uniform(*start, (R, 1))
+    code = (code + wiggle * rng.normal(size=(R, U))).astype(np.float32)
+    if kind == "nan_inf":
+        for value, share in ((np.nan, 0.03), (np.inf, 0.01), (-np.inf, 0.01)):
+            code[rng.random((R, U)) < share] = value
+    valid = rng.random((R, U)) > 0.05
+    ch = (rng.normal(0, 1, (4, R, U)) * 10 + 50).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (code, valid, ch)] + [K]
+
+
+@pytest.mark.parametrize("kind", ["wiggle2", "nan_inf", "clipped", "u700", "rows_below_sms",
+                                  "rows_above_grid"])
+def test_crossing_kernels_match_plain_versions_on_adversarial_rows(cuda, kind):
+    """K7, and K6 through crossing_interp, against the
+    plain versions: long pair ranges, NaN and infinite codes, bins clipped
+    at both ends, unaligned rows, few rows and many; two launches equal."""
+    code, valid, ch, K = _adversarial(cuda, kind, seed=len(kind))
+    gates = ((1, 25.0),)
+    gate = kx.gate_mask(ch, gates)
+    plain = kx.crossing_interp_fused_reference(code, valid, ch, K, INTERP, gates=gates)
+    lo, hi, pay, unpack = kx.crossing_pairs(code, valid, ch, INTERP, pair_gate=gate)
+    kgrid = torch.arange(K, dtype=torch.float32, device=cuda)[None, :]
+    got = kx.crossing_interp_fused(code, valid, ch, K, INTERP, gates=gates)
+    again = kx.crossing_interp_fused(code, valid, ch, K, INTERP, gates=gates)
+    torch.cuda.synchronize()
+    _crossing_agree(*got, *plain)
+    _crossing_agree(*again, *got)
+    cnt6, vals6 = unpack(kx.launch_bin_sum(lo, hi, pay, K), kgrid)
+    torch.cuda.synchronize()
+    _crossing_agree(cnt6, torch.stack(vals6), *plain)
+    if kind == "wiggle2":
+        assert float(plain[0].max()) >= 4.0
+
+
+def test_bin_sum_kernel_on_wide_spans(cuda):
+    """K6 on pairs spanning 30-45 bins, clipped at both ends, with NaN and
+    infinite codes, against its plain version."""
+    lo, hi, pay, K = _adversarial(cuda, "span40")
+    ref = kx.crossing_bin_sum_reference(lo, hi, pay, K)
+    n_fire = kx.crossing_bin_sum_reference(lo, hi, torch.ones_like(pay[:, :1]), K)
+    out = kx.launch_bin_sum(lo, hi, pay, K)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert float(n_fire.max()) >= 20
+
+
+def test_crossing_kernels_at_the_shared_memory_limit(cuda):
+    """The widest rows a block holds (one row buffer, no prefetch) launch and
+    equal their plain versions; one code wider is refused."""
+    lib = kx.library()
+    U = 2048
+    while lib.slr_interp_fused_smem(U + 1, 4, U + 1) <= kx.SMEM_MAX:
+        U += 1
+    code, valid, ch = _crossing_case(cuda, 3, U, 5, 0.3)
+    got = kx.crossing_interp_fused(code, valid, ch, U, INTERP, gates=((1, 25.0),))
+    plain = kx.crossing_interp_fused_reference(code, valid, ch, U, INTERP, gates=((1, 25.0),))
+    torch.cuda.synchronize()
+    _crossing_agree(*got, *plain)
+    wide = torch.cat([code, code[:, -1:] + 1.0], dim=1)
+    with pytest.raises(ValueError, match="shared memory"):
+        kx.launch_interp_fused(wide, torch.ones_like(wide, dtype=torch.bool),
+                               torch.cat([ch, ch[:, :, -1:]], dim=2), U + 1, INTERP)
+    Up = 2048
+    while lib.slr_bin_sum_smem(Up + 1, 1024) <= kx.SMEM_MAX:
+        Up += 1
+    lo, hi, pay, _ = kx.crossing_pairs(*_crossing_case(cuda, 5, Up + 1, 6, 0.3)[:3], INTERP)
+    out = kx.launch_bin_sum(lo, hi, pay, 1024)
+    ref = kx.crossing_bin_sum_reference(lo, hi, pay, 1024)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    with pytest.raises(ValueError, match="shared memory"):
+        kx.launch_bin_sum(*kx.crossing_pairs(*_crossing_case(cuda, 2, Up + 2, 6)[:3],
+                                             INTERP)[:3], 1024)
+
+
+@pytest.mark.parametrize("C,interp,gates,U", [
+    (3, (True, False, True), ((2, 25.0),), 517),
+    (4, (False, True, True, False), ((0, 30.0), (3, 30.0)), 701),
+    (1, (False,), (), 333)])
+def test_fused_kernel_on_other_channel_layouts(cuda, C, interp, gates, U):
+    """Layouts other than the merge's take K7's general build: bit-equal to
+    the plain version, and K6 through crossing_interp equal to both."""
+    code, valid, ch = _crossing_case(cuda, 21, U, C + U, 0.5)
+    ch = ch[:C].contiguous()
+    got = kx.crossing_interp_fused(code, valid, ch, 400, interp, gates=gates)
+    plain = kx.crossing_interp_fused_reference(code, valid, ch, 400, interp, gates=gates)
+    got6 = kx.crossing_interp(code, valid, ch, 400, interp, pair_gate=kx.gate_mask(ch, gates))
+    torch.cuda.synchronize()
+    _crossing_agree(*got, *plain)
+    _crossing_agree(*got6, *plain)
+    assert float(plain[0].max()) >= 2.0
+    grid, per_sm = kx.launch_shape("K7", 21, U, C, 400, interp)
+    assert grid == 21 and per_sm >= 1
 
 
 def test_crossing_kernels_reject_bad_input(cuda):

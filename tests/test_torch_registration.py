@@ -522,6 +522,50 @@ def test_ransac_with_reference_draw_matches_reference(monkeypatch):
     assert rot_err < 5.0 and np.linalg.norm(_np(tt) - t_true) < 10.0
 
 
+@pytest.mark.parametrize("m,zeros", [(300, (5, 77)), (1280 * 1024, ())])
+def test_draw_categorical_is_reproducible_and_keeps_the_distribution(m, zeros):
+    """The port's categorical draw (``_draw_samples``, ``_draw_hypotheses``):
+    the same bits from the same generator state; zero weights never drawn;
+    the frequencies within 5 standard errors of p in every category, and of
+    ``torch.multinomial``'s (the draw it replaces). At the 1.3 M-pixel size
+    of ``_subsample``'s 0/1 weights, the draw covers the valid pixels
+    uniformly (each category's count within 5 standard errors)."""
+    rng = np.random.default_rng(21)
+    n = 200_000
+    if m <= 1000:
+        p = torch.from_numpy(rng.random(m).astype(np.float32) ** 3)
+    else:
+        p = torch.from_numpy((rng.random(m) < 0.5).astype(np.float32))
+    p[list(zeros)] = 0.0
+
+    def gen():
+        return torch.Generator().manual_seed(4)
+
+    a, b = tfeat.draw_categorical(p, n, gen()), tfeat.draw_categorical(p, n, gen())
+    assert a.dtype == torch.int64 and torch.equal(a, b)
+    assert not bool((p[a] == 0).any())
+    q = (p.double() / p.double().sum()).numpy()
+    sigma = np.sqrt(q * (1 - q) / n) + 1e-12
+    f_new = np.bincount(a.numpy(), minlength=m) / n
+    if m <= 1000:
+        f_old = np.bincount(torch.multinomial(p, n, replacement=True, generator=gen()).numpy(),
+                            minlength=m) / n
+        assert np.all(np.abs(f_new - q) <= 5 * sigma)
+        assert np.all(np.abs(f_new - f_old) <= 5 * np.sqrt(2) * sigma)
+    else:
+        # ~655k valid pixels: per-pixel counts are Poisson(0.3); the share
+        # drawn among valid pixels, and none outside
+        valid = q > 0
+        assert abs(f_new[valid].sum() - 1.0) < 1e-12
+        hits = np.bincount(a.numpy(), minlength=m)[valid]
+        lam = n / valid.sum()
+        assert abs(hits.mean() - lam) < 1e-9 and abs(hits.var() - lam) < 5 * lam * np.sqrt(
+            2.0 / valid.sum()) + 0.01
+    # the two draws of the registration path, twice from the same seed
+    assert torch.equal(tfeat._draw_hypotheses(p / p.sum(), 64, gen()),
+                       tfeat._draw_hypotheses(p / p.sum(), 64, gen()))
+
+
 def test_ransac_own_draw_recovers_motion():
     src, n_src, tgt, n_tgt, R_true, t_true = _feature_pair()
     fs = tfeat.fpfh_features(_t(src), _t(n_src), k=12)
