@@ -14,9 +14,11 @@ config-3 rig (1280x1024 camera, 1024x768 projector): float32, uint8 and
 uint16 ingest, Gray only, row+column midpoint with and without row phase,
 multifreq, ``decode_only`` on a posed camera, the HDR exposure bracket (K2,
 both fusions), and the spatial repair (``spatial_iters=4``: voting, K4 at
-this size and K3 on a smaller camera; wavefront, K5). Then registration
-(config 4): the sorted-band search K8 at 256k points, point-to-plane ICP on
-its band route (``icp_point_to_plane``) at 256k and between two dense scans,
+this size and K3 on a smaller camera; wavefront, K5, held to its plain pass
+bit for bit on every case). Then registration (config 4): the sorted-band
+search K8 at 256k points, point-to-plane ICP on its band route
+(``icp_point_to_plane``) at 256k (and the same case on the voxel route) and
+between two dense scans,
 and ``register_scans`` on a 4-scan orbit, each registration twice and held
 to the same bits. Then the two-camera merge (``reconstruct_two_camera``):
 the crossing kernels K7 and K6 against their plain versions, bit for bit
@@ -29,9 +31,10 @@ four times), the splat and search oracles, and two merged rig poses
 registered, twice (with the sample draw's ops repeated on the same
 inputs). Each path's output is checked against the
 synthetic ground truth and its launches counted; then the kernels, their
-plain versions and the paths are timed with CUDA events (K6 and K7 also by
-device time, from CUDA-graph replays, with their registers, blocks an SM
-and K7's host launch time), and the whole run's wall time is printed.
+plain versions and the paths are timed with CUDA events (every kernel also
+by device time, from CUDA-graph replays or, for K3, back-to-back launches;
+K6 and K7 with their registers, blocks an SM and K7's host launch time),
+and the whole run's wall time is printed.
 Each phase prints one JSON line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check ends the run with a traceback and a non-zero
 exit, as does a machine without a CUDA device. Imports nothing of JAX."""
@@ -65,7 +68,15 @@ HBM_PEAK_TBS = 3.35        # H100 SXM data sheet
 HDR_GAINS = (1.0, 3.2, 10.0)
 PROJ_DIST = [-0.08, 0.02, 0.001, -0.001, 0.0]
 LIBRARIES = ("fused_scan", "unwrap", "band_nn", "crossing")   # csrc/<name>.cu, one nvcc each
-WAVEFRONT_TOL = 1e-3       # rad, K5 against its plain version on reached pixels
+K1_UINT8_RMS_RECORDED = "0.0463"   # mm, config 3 uint8 (PERF.md)
+# K1's layouts, at 215 rows (the last 2-row box partial): rows of 299 and
+# 301 uint8 or uint16 pixels, not a multiple of 16 bytes, so no box is
+# staged; 1296 = 10 * 128 + 16 columns, rows aligned, a partial last
+# 128-column box
+K1_LAYOUT_WIDTHS = (299, 301, 1296)
+# K5 alone against its plain pass: (H, W, offset of each map in its buffer)
+K5_CASES = ((2048, 2448, 0), (215, 300, 0), (1037, 1283, 0), (9000, 40, 0),
+            (3, 10240, 0), (64, 1280, 1))
 BLOB_TOL = 1e-3            # rad, a repaired map against the clean phase
 SPATIAL_ITERS = 4
 # registration (config 4): the reference's dense band case
@@ -87,6 +98,16 @@ FP32_ISSUE_PER_S = 33.5e12
 # votes of a subtraction, an IEEE division of ~8 instructions, a rint and a
 # compare, then the consensus); K3 and K4 are bound by these, not by bytes
 VOTE_INSTR_PER_PX_SWEEP = 50
+# K5's scan: instructions of a compose whose y is CHAIN, counted from the
+# source's operations: with an upstream x that is not KILL, 19 (the two
+# tags' extraction and tests, a subtraction, the reciprocal product and two
+# FMAs, the rounding's two guards and select, a rint, a multiply and an
+# add, the ps select and the tag update); with a KILL x, 7 (the tag tests
+# and update only). A y that is not CHAIN is never composed: the kernel
+# skips it, and a thread or warp without CHAIN skips the step. The bound
+# counts the composes that the timed map needs (wave_tree_composes)
+WAVE_INSTR_CHAIN = 19
+WAVE_INSTR_CHAIN_KILL = 7
 # two-camera merge (slice 5): the reference's full-width case
 # (benchmarks/tpu_matrix.py:453-478)
 TWO_CAM_RMS_GATE_MM = 0.05
@@ -161,7 +182,11 @@ def rms_vs_truth(points, mask, scan):
 
 
 def cuda_ms(fn, runs=TIMED_RUNS, warmup=3):
-    """Per-run device time of ``fn`` with CUDA events, after warm-up."""
+    """Per-run span of one call of ``fn`` between two CUDA events, after
+    warm-up: the start event is recorded, then ``fn`` runs on the host (a
+    wrapper's checks, allocations and launch), then the end event. So a
+    kernel's span includes the host time between the events, not only its
+    device time (``graph_ms`` gives that)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -193,6 +218,56 @@ def graph_ms(fn, launches=GRAPH_LAUNCHES, replays=5):
         for _ in range(launches):
             fn()
     return [t / launches for t in cuda_ms(graph.replay, replays, 1)]
+
+
+def queued_ms(fn, launches=GRAPH_LAUNCHES, replays=5):
+    """Device time of one call of ``fn`` for a kernel a CUDA graph does not
+    capture (K3's cooperative launch): ``launches`` calls enqueued back to
+    back between two events, so the card runs them without a gap whenever a
+    call's host time is below its device time."""
+    def batch():
+        for _ in range(launches):
+            fn()
+    return [t / launches for t in cuda_ms(batch, replays, 1)]
+
+
+def wave_maps(device, H, W, seed, offset=0):
+    """(phi, elig, Phi, done) for one K5 pass, from numpy's generator: a
+    noisy ramp wrapped, 2 % done, 85 % eligible; ``offset``: each map
+    starts that many elements into a larger buffer (contiguous, unaligned)."""
+    rng = np.random.default_rng(seed)
+    Phi = np.cumsum(rng.normal(0.6, 0.8, size=(H, W)), axis=1).astype(np.float32)
+    phi = np.mod(Phi, 2 * np.pi).astype(np.float32)
+    done = rng.random((H, W)) < 0.02
+    elig = rng.random((H, W)) < 0.85
+    out = []
+    for a in (phi, elig, np.where(done, Phi, phi).astype(np.float32), done):
+        t = torch.from_numpy(a).to(device)
+        buf = torch.empty(H * W + offset, dtype=t.dtype, device=device)
+        buf[offset:] = t.reshape(-1)
+        out.append(buf[offset:].view(H, W))
+    return out
+
+
+def wave_tree_composes(elig, done, axis):
+    """The composes that one forward K5 pass along ``axis`` does on this
+    data: the plain pass's Hillis-Steele tree replayed on the tags alone
+    (2 CONST, 1 CHAIN, 0 KILL; a compose gives y x's tag where y is CHAIN).
+    Returns (y CHAIN and x not KILL, y CHAIN and x KILL, every compose of
+    the tree)."""
+    tag = torch.where(done, 2, torch.where(elig, 1, 0)).to(torch.int8)
+    n, lines = tag.shape[axis], tag.numel() // tag.shape[axis]
+    arith = kill = every = 0
+    s = 1
+    while s < n:
+        x, y = tag.narrow(axis, 0, n - s), tag.narrow(axis, s, n - s)
+        chain = y == 1
+        arith += int((chain & (x != 0)).sum())
+        kill += int((chain & (x == 0)).sum())
+        every += (n - s) * lines
+        tag = torch.cat([tag.narrow(axis, 0, s), torch.where(chain, x, y)], axis)
+        s <<= 1
+    return arith, kill, every
 
 
 def host_ms(fn, runs=TIMED_RUNS):
@@ -416,7 +491,7 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
     t_true = torch.tensor([1.5, -1.0, 2.0], device=dev)
     tgt_icp = tgt @ R_true.T + t_true
     n_icp = nrm @ R_true.T
-    check(_resolve_nn_method("auto", N_BIG, N_BIG) == "band", "auto is not band at 256k")
+    check(_resolve_nn_method("auto", N_BIG, N_BIG, dev) == "band", "auto is not band at 256k")
 
     def band_icp():
         return icp_point_to_plane(tgt, tgt_icp, n_icp, iters=ICP_BAND_ITERS,
@@ -432,6 +507,26 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
     emit("icp_band_256k", iters=ICP_BAND_ITERS, launches=n["k8"], R_err=r_err,
          t_err_mm=t_err, R_gate=ICP_R_GATE, t_gate_mm=ICP_T_GATE,
          rms_mm=float(res.rms), inlier_frac=float(res.inlier_frac))
+
+    # phase 20b: the same case on the voxel route (the reference's CPU
+    # route, plain torch on the card: no kernel), twice, to the same bits
+    def voxel_icp():
+        return icp_point_to_plane(tgt, tgt_icp, n_icp, iters=ICP_BAND_ITERS,
+                                  max_corr_dist=R_CORR, nn_method="voxel")
+
+    resv, n = counts_of(voxel_icp)
+    check(quiet(n), f"icp_voxel_256k: launches {n}")
+    resv2 = voxel_icp()
+    same = all(torch.equal(a, b) for a, b in zip(resv, resv2))
+    check(same, "icp_voxel_256k: two calls differ")
+    rv_err = float((resv.R - R_true).abs().max())
+    tv_err = float((resv.t - t_true).abs().max())
+    check(rv_err <= ICP_R_GATE and tv_err <= ICP_T_GATE,
+          f"icp_voxel_256k: R_err {rv_err}, t_err {tv_err} mm")
+    emit("icp_voxel_256k", iters=ICP_BAND_ITERS, R_err=rv_err, t_err_mm=tv_err,
+         R_gate=ICP_R_GATE, t_gate_mm=ICP_T_GATE, bit_identical_calls=same,
+         rms_mm=float(resv.rms), inlier_frac=float(resv.inlier_frac),
+         ms=statistics.median(cuda_ms(voxel_icp, runs=3, warmup=0)))
 
     # the config-4 orbit: ORBIT_SCANS uint8 scans of the rocks scene from a
     # moving config-3 rig, decoded by K1 with the rig's own calibration, so
@@ -1225,9 +1320,10 @@ def main():
         errs["k1"].append(a["points_max_abs_err"])
         return a
 
-    def k1_path(name, frames, cam, proj, cfg, scan, rms_gate, **fields):
+    def k1_path(name, frames, cam, proj, cfg, scan, rms_gate, recorded=None, **fields):
         """Kernel vs plain, then the path through DenseReconstructor: exactly
-        one K1 launch, finite points of the right shape, RMS under the gate."""
+        one K1 launch, finite points of the right shape, RMS under the gate
+        (and, where ``recorded``, equal to the recorded digits)."""
         a = versus_plain(frames, cam, proj, cfg, name)
         model = DenseReconstructor(cam, proj, cfg).to(dev)
         cloud, n1, n2 = counted(lambda: model(frames))
@@ -1236,6 +1332,8 @@ def main():
               and bool(torch.isfinite(cloud.points).all()), f"{name} points")
         rms, n = rms_vs_truth(cloud.points, cloud.mask, scan)
         check(rms <= rms_gate, f"{name}: RMS {rms} mm > {rms_gate}")
+        check(recorded is None or f"{rms:.4f}" == recorded,
+              f"{name}: RMS {rms} mm, recorded {recorded}")
         emit(name, launches=n1, rms_mm=rms, rms_gate_mm=rms_gate,
              valid_points=n, frames=list(frames.shape), dtype=str(frames.dtype),
              kernel_vs_plain=a, **fields)
@@ -1313,7 +1411,7 @@ def main():
     # phase 7: K1 on raw 8-bit camera frames: 20 B + 28 B per pixel
     frames8 = quantize_frames(frames)
     launches += k1_path("k1_uint8", frames8, cam_d, proj_d, cfg, scan, RMS_GATE_MM,
-                        bytes=(20 + 28) * CAM_H * CAM_W)
+                        recorded=K1_UINT8_RMS_RECORDED, bytes=(20 + 28) * CAM_H * CAM_W)
 
     # phase 8: K1 on 12-bit data in a uint16 container, ragged scene
     m12 = (1 << 12) - 1
@@ -1329,6 +1427,43 @@ def main():
     launches += n1
     emit("k1_uint16_bit_depth_12", launches=n1, kernel_vs_plain=a12,
          mask_vs_float32_decode=md)
+
+    # phase 8b: the integer kernel's layouts against its plain version: rows
+    # whose byte count is not a multiple of 16 and an aligned width with a
+    # partial 128-column box (both decoded from device memory, not staged),
+    # a uint8 stack 3 bytes into its buffer (contiguous, no 16-byte copy
+    # takes it), and 12-bit data at full size
+    layouts = {}
+
+    def layout_device_ms(f, lcam, lproj, lcfg):
+        """K1's device time on uint8 frames ``f`` (CUDA-graph replay)."""
+        prm = fs.scan_params(lcam, lproj, lcfg, dec, (1.0, 1e4), 8, *f.shape[-2:],
+                             dtype=torch.uint8)
+        return statistics.median(graph_ms(lambda: fs.launch_fused_scan(f, prm)))
+
+    for w in K1_LAYOUT_WIDTHS:
+        lcam, lproj = default_rig(cam_w=w, cam_h=215, proj_w=256, proj_h=192,
+                                  baseline=150.0, toe_in_deg=14.0, device=dev)
+        lscan = render_scan(lcam, lproj, bumps_depth(215, w, base=480.0, amp=20.0,
+                                                     device=dev), rcfg)
+        f8 = quantize_frames(lscan.frames)
+        layouts[f"uint8_{w}x215"] = versus_plain(f8, lcam, lproj, rcfg, f"uint8 {w}x215")
+        layouts[f"uint8_{w}x215"]["device_ms"] = layout_device_ms(f8, lcam, lproj, rcfg)
+        layouts[f"uint16_{w}x215"] = versus_plain(
+            torch.clamp(torch.round(lscan.frames * m12), 0, m12).to(torch.uint16),
+            lcam, lproj, rcfg, f"uint16 {w}x215", bit_depth=12)
+    layouts["uint8_300x215_device_ms"] = layout_device_ms(
+        quantize_frames(rscan.frames), rcam, rproj, rcfg)
+    buf = torch.empty(frames8.numel() + 3, dtype=torch.uint8, device=dev)
+    buf[3:] = frames8.reshape(-1)
+    frames8_off = buf[3:].view(frames8.shape)
+    check(frames8_off.is_contiguous() and frames8_off.data_ptr() % 4 == 3, "offset stack")
+    layouts["uint8_offset3"] = versus_plain(frames8_off, cam_d, proj_d, cfg, "uint8 offset 3")
+    layouts["uint8_offset3"]["device_ms"] = layout_device_ms(frames8_off, cam_d, proj_d, cfg)
+    frames16 = torch.clamp(torch.round(frames * m12), 0, m12).to(torch.uint16)
+    layouts["uint16_1280x1024"] = versus_plain(frames16, cam_d, proj_d, cfg,
+                                               "uint16 1280x1024", bit_depth=12)
+    emit("k1_integer_layouts", **layouts)
 
     # phase 9: Gray only (config 1), half-stripe centres by design
     cfg1 = PatternConfig(proj_width=PROJ_W, proj_height=PROJ_H, gray_bits=7,
@@ -1485,10 +1620,9 @@ def main():
                                                     trust=trust, **kw)
         check(torch.equal(reached, reached_ref), f"{name}: reached maps differ")
         err = float((out - ref)[reached].abs().max())
-        check(err <= WAVEFRONT_TOL, f"{name}: |dPhi| {err} rad")
+        check(torch.equal(out, ref), f"{name}: not bit-equal, |dPhi| {err} rad")
         errs["k5"].append(err)
-        wave[name] = dict(launches=n["k5"], max_abs_err=err,
-                          bit_equal=bool(torch.equal(out, ref)),
+        wave[name] = dict(launches=n["k5"], max_abs_err=err, bit_equal=True,
                           reached=float(reached.float().mean()))
         if clean is not None:
             fixed = float((out - clean).abs().max())
@@ -1504,6 +1638,28 @@ def main():
                                clean=c, levels=4, rounds_per_level=2)
     versus_plain_wavefront("phase_only", 32, torch.remainder(Phi_n, 2 * math.pi),
                            q, mask, levels=4, rounds_per_level=2)
+    # K5 alone, both axes and directions, against the plain pass bit for
+    # bit: a 5 MP map (columns of 2048: 4 a block), a ragged one, lines of
+    # 1283 and 1037 (no multiple of 8 or 16; 6 columns a block), columns of
+    # 9000 and rows of MAX_LINE (the 16-element build), and rows whose maps
+    # start one float off a 16-byte boundary (no vector path)
+    for H, W, off in K5_CASES:
+        args = wave_maps(dev, H, W, seed=H + W, offset=off)
+        for axis in (1, 0):
+            for rev in (False, True):
+                got = wf.launch_wavefront_pass(*args, axis, rev)
+                want = pu.directional_pass(*args, axis, rev)
+                err = float((got[0] - want[0]).abs().max())
+                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                      f"K5 {H}x{W}+{off} axis {axis} reverse {rev}: not bit-equal, "
+                      f"|dPhi| {err}")
+                errs["k5"].append(err)
+        wave[f"alone_{H}x{W}" + (f"_offset{off}" if off else "")] = dict(
+            bit_equal=True, passes=4, done_after=float(got[1].float().mean()))
+    # K5 rounds (x - ps) / 2pi by a reciprocal and one FMA correction: the
+    # same bits as the IEEE division on every float32 input
+    wave["cycles_mismatches_of_2e32"] = wf.cycles_mismatches(dev)
+    check(wave["cycles_mismatches_of_2e32"] == 0, "K5's rounding differs from the division")
     emit("k5_wavefront", **wave)
 
     # phase 17: the spatial repair on the main path: DenseReconstructor with
@@ -1576,6 +1732,8 @@ def main():
                              CAM_W, dtype=torch.uint8)
     params_h = fs.scan_params(cam_d, proj_d, cfg, dec, (1.0, 1e4), 8, CAM_H,
                               CAM_W, dtype=torch.uint8, exposures=len(HDR_GAINS))
+    params16 = fs.scan_params(cam_d, proj_d, cfg, dec, (1.0, 1e4), 8, CAM_H,
+                              CAM_W, dtype=torch.uint16, bit_depth=12)
     model = DenseReconstructor(cam, proj, cfg).to(dev)
     runs = {
         "plain": lambda: fs.fused_decode_triangulate_reference(
@@ -1590,9 +1748,13 @@ def main():
             bracket, cam_d, proj_d, cfg, dec),
         "kernel_hdr": lambda: fs.launch_fused_scan_hdr(bracket, params_h),
         "scan_hdr": lambda: model(bracket),
+        "plain_uint16": lambda: fs.fused_decode_triangulate_reference(
+            frames16, cam_d, proj_d, cfg, dec, bit_depth=12),
+        "kernel_uint16": lambda: fs.launch_fused_scan(frames16, params16),
     }
     turns = [tuple(n + sfx for n in ("plain", "kernel", "scan", "scan", "kernel", "plain"))
              for sfx in ("", "_uint8", "_hdr")]
+    turns.append(("plain_uint16", "kernel_uint16", "kernel_uint16", "plain_uint16"))
     # the spatial repair on the config-3 decode's own map: K3 and K4 at 4
     # and 8 sweeps, one K5 pass along rows and along columns (the repair's
     # last level: every masked pixel eligible, the trusted ones done), the
@@ -1637,6 +1799,7 @@ def main():
     tiles = -(-CAM_W // us.TILE_W) * -(-CAM_H // 64)
     moved = {"kernel": (4 * cfg.num_frames + 7 * 4) * px,
              "kernel_uint8": (cfg.num_frames + 7 * 4) * px,
+             "kernel_uint16": (2 * cfg.num_frames + 7 * 4) * px,
              "kernel_hdr": hdr_bytes,
              # K3: phi and mask in, out (and scratch) written once; the
              # sweeps between run in L2
@@ -1647,12 +1810,24 @@ def main():
              # K5: phi, Phi (4 B), elig, done (1 B) in; Phi, done out
              "k5_rows": 15 * px, "k5_cols": 15 * px}
     gbs = {f"{k}_gb_s": b / (ms[k] * 1e-3) / 1e9 for k, b in moved.items()}
+    # the kernels alone on the device: CUDA-graph replays (K3: back-to-back
+    # launches), median per launch, in turns
+    device_runs = ("kernel", "kernel_uint8", "kernel_uint16", "kernel_hdr",
+                   f"k4_{SPATIAL_ITERS}", "k5_rows", "k5_cols")
+    device_times = {k: [] for k in (*device_runs, f"k3_{SPATIAL_ITERS}")}
+    for _ in range(2):
+        for k in device_runs:
+            device_times[k] += graph_ms(runs[k])
+        device_times[f"k3_{SPATIAL_ITERS}"] += queued_ms(runs[f"k3_{SPATIAL_ITERS}"])
+    device_ms = {k: statistics.median(v) for k, v in device_times.items()}
     host = {f"{k}_host_ms": host_ms(fn) for k, fn in (
         ("scan_params", lambda: fs.scan_params(cam_d, proj_d, cfg, dec,
                                                (1.0, 1e4), 8, CAM_H, CAM_W)),
         ("launch", runs["kernel"]), ("scan", runs["scan"]))}
     emit("timing", card=card, runs_each=len(times["kernel"]),
          **{f"{k}_ms": v for k, v in ms.items()}, **host, **spread,
+         **{f"{k}_device_ms": v for k, v in device_ms.items()},
+         **{f"{k}_device_ms_spread": [min(v), max(v)] for k, v in device_times.items()},
          **{f"{k}_bytes": b for k, b in moved.items()}, **gbs,
          hbm_peak_gb_s=HBM_PEAK_TBS * 1e3,
          **{k.replace("gb_s", "hbm_share"): v / (HBM_PEAK_TBS * 1e3)
@@ -1674,6 +1849,13 @@ def main():
                 "bound_by": "bytes" if t_b >= t_i else "operations"}
 
     vote_instr = VOTE_INSTR_PER_PX_SWEEP * px * SPATIAL_ITERS
+    # K5: the composes of the timed passes' trees on this run's map, and
+    # every compose of the tree at full cost (a map all CHAIN)
+    composes = {k: wave_tree_composes(m3, trust3, axis)
+                for k, axis in (("k5_rows", 1), ("k5_cols", 0))}
+    wave_instr = {k: a * WAVE_INSTR_CHAIN + b * WAVE_INSTR_CHAIN_KILL
+                  for k, (a, b, _) in composes.items()}
+    wave_instr_all = {k: c[2] * WAVE_INSTR_CHAIN for k, c in composes.items()}
     emit("wall", s=time.perf_counter() - wall_start)
 
     print(json.dumps({"kernels": [{
@@ -1690,8 +1872,14 @@ def main():
         "plain_ms": ms["plain"],
         "ms_uint8": ms["kernel_uint8"],
         "plain_ms_uint8": ms["plain_uint8"],
+        "ms_uint16": ms["kernel_uint16"],
+        "plain_ms_uint16": ms["plain_uint16"],
         **bound(moved["kernel"]), "library_ms": None,
         "bound_ms_uint8": bound(moved["kernel_uint8"])["bound_ms"],
+        "bound_ms_uint16": bound(moved["kernel_uint16"])["bound_ms"],
+        "device_ms": device_ms["kernel"],
+        "device_ms_uint8": device_ms["kernel_uint8"],
+        "device_ms_uint16": device_ms["kernel_uint16"],
     }, {
         "name": "fused_decode_triangulate_hdr",
         "route": "cuda",
@@ -1703,6 +1891,7 @@ def main():
         "ms": ms["kernel_hdr"],
         "plain_ms": ms["plain_hdr"],
         **bound(moved["kernel_hdr"]), "library_ms": None,
+        "device_ms": device_ms["kernel_hdr"],
     }, {
         "name": "quality_unwrap",
         "route": "cuda",
@@ -1715,6 +1904,8 @@ def main():
         "ms_iters8": ms["k3_8"],
         "plain_ms_iters8": ms["plain_vote8"],
         **bound(moved[f"k3_{SPATIAL_ITERS}"], vote_instr), "library_ms": None,
+        "device_ms": device_ms[f"k3_{SPATIAL_ITERS}"],
+        "device_ms_by": "back-to-back launches",
     }, {
         "name": "quality_unwrap_tiled",
         "route": "cuda",
@@ -1727,6 +1918,7 @@ def main():
         "ms_iters8": ms["k4_8"],
         "plain_ms_iters8": ms["plain_vote8"],
         **bound(moved[f"k4_{SPATIAL_ITERS}"], vote_instr), "library_ms": None,
+        "device_ms": device_ms[f"k4_{SPATIAL_ITERS}"],
     }, {
         "name": "wavefront_pass",
         "route": "cuda",
@@ -1740,7 +1932,15 @@ def main():
         "plain_ms_cols": ms["plain_pass_cols"],
         "ms_repair_8_passes": ms["repair"],
         "plain_ms_repair_8_passes": ms["plain_repair"],
-        **bound(moved["k5_rows"]), "library_ms": None,
+        **bound(moved["k5_rows"], wave_instr["k5_rows"]), "library_ms": None,
+        "bound_ms_cols": bound(moved["k5_cols"], wave_instr["k5_cols"])["bound_ms"],
+        "bound_ms_all_inputs": bound(moved["k5_rows"], wave_instr_all["k5_rows"])["bound_ms"],
+        "bound_ms_all_inputs_cols": bound(moved["k5_cols"],
+                                          wave_instr_all["k5_cols"])["bound_ms"],
+        "tree_composes": {k: dict(chain=a, chain_after_kill=b, of_tree=c)
+                          for k, (a, b, c) in composes.items()},
+        "device_ms": device_ms["k5_rows"],
+        "device_ms_cols": device_ms["k5_cols"],
     }, k8_entry, k7_entry, k6_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

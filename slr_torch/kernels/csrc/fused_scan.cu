@@ -21,19 +21,21 @@
 // (a few hundred flop/px with the 8-step undistortion) is far under the
 // compute roof.
 //
-// Design for that bound: one thread per camera pixel on a 2-D grid. A warp
-// covers 32 neighbouring pixels of one row, so each frame read and each
-// output write is one coalesced transaction; frames sit H*W apart, so the
-// thread walks them at that stride. Integer frames are loaded as bytes or
-// halfwords and widened to int: the Gray bits and the contrast, certainty
-// and saturation gates compare raw counts against integer thresholds (as
-// the TPU kernel does); only phase frames are converted to float. Every
-// intermediate lives in registers and each output is written once. The
-// frame type, the geometry and multifreq are template parameters (15 K1
-// and 6 K2 instantiations), so each kernel keeps only its own registers;
-// the bit and step counts are runtime fields. The ragged edge is masked in
-// the kernel (no padding). Parameters arrive by value as __grid_constant__,
-// i.e. in the constant bank.
+// Design for that bound: K1 stages a 128 x 2 pixel box of every frame in
+// shared memory by 16-byte asynchronous copies, all in flight at once, then
+// decodes and triangulates one pixel a thread from there; a box those
+// copies cannot take whole decodes from device memory (see
+// fused_scan_kernel). K2 reads its frames straight from device memory, one
+// thread per camera pixel on a 2-D grid, a warp on 32 neighbouring pixels
+// of one row, frames H*W apart. Integer frames are widened to int: the
+// Gray bits and the contrast, certainty and saturation gates compare raw
+// counts against integer thresholds (as the TPU kernel does); only phase
+// frames are converted to float. Every intermediate lives in registers and
+// each output is written once. The frame type, the geometry and multifreq
+// are template parameters (15 K1 and 6 K2 instantiations), so each kernel
+// keeps only its own registers; the bit and step counts are runtime
+// fields. The ragged edge is masked in the kernel (no padding). Parameters
+// arrive by value as __grid_constant__, i.e. in the constant bank.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,19 +93,21 @@ enum Fuse { kSum = 0, kSelect = 1 };
 
 // Frame access by container type. Integer containers widen to int and use
 // the integer thresholds; float frames use the float ones.
-template <typename T>
+// SH: the frames sit in shared memory (a staged box), else in global
+// memory, read through the non-coherent cache.
+template <typename T, bool SH = false>
 struct Frame {
   using Raw = int;
-  static __device__ __forceinline__ int load(const T* q) { return (int)__ldg(q); }
+  static __device__ __forceinline__ int load(const T* q) { return SH ? (int)*q : (int)__ldg(q); }
   static __device__ __forceinline__ int tau_black(const SlrScanParams& p) { return p.tau_black_i; }
   static __device__ __forceinline__ int tau_white(const SlrScanParams& p) { return p.tau_white_i; }
   static __device__ __forceinline__ int tau_sat(const SlrScanParams& p) { return p.tau_sat_i; }
 };
 
-template <>
-struct Frame<float> {
+template <bool SH>
+struct Frame<float, SH> {
   using Raw = float;
-  static __device__ __forceinline__ float load(const float* q) { return __ldg(q); }
+  static __device__ __forceinline__ float load(const float* q) { return SH ? *q : __ldg(q); }
   static __device__ __forceinline__ float tau_black(const SlrScanParams& p) { return p.tau_black; }
   static __device__ __forceinline__ float tau_white(const SlrScanParams& p) { return p.tau_white; }
   static __device__ __forceinline__ float tau_sat(const SlrScanParams& p) { return p.tau_sat; }
@@ -119,14 +123,14 @@ struct Decoded {
 
 // MSB-first Gray bits at frames [first, first+bits) against their inverses at
 // [first+bits, first+2 bits), certainty on every bit; prefix XOR -> binary.
-template <typename T>
+template <typename T, bool SH = false>
 __device__ __forceinline__ int gray_block(const T* f, size_t hw, int first, int bits,
                                           typename Frame<T>::Raw tau_white, bool& certain) {
   const T* pat = f + (size_t)first * hw;
   const T* inv = pat + (size_t)bits * hw;
   int g = 0;
   for (int b = 0; b < bits; ++b) {
-    const auto diff = Frame<T>::load(pat + b * hw) - Frame<T>::load(inv + b * hw);
+    const auto diff = Frame<T, SH>::load(pat + b * hw) - Frame<T, SH>::load(inv + b * hw);
     g = (g << 1) | (diff > 0 ? 1 : 0);
     certain = certain && (abs_raw(diff) > tau_white);
   }
@@ -135,7 +139,7 @@ __device__ __forceinline__ int gray_block(const T* f, size_t hw, int first, int 
 }
 
 // N-step phase sums of frames [first, first+steps), raw units.
-template <typename T>
+template <typename T, bool SH = false>
 __device__ __forceinline__ void phase_sums(const T* f, size_t hw, int first, int steps,
                                            const float* sin_d, const float* cos_d,
                                            float& S, float& C) {
@@ -143,7 +147,7 @@ __device__ __forceinline__ void phase_sums(const T* f, size_t hw, int first, int
   S = 0.0f;
   C = 0.0f;
   for (int k = 0; k < steps; ++k) {
-    const float fk = (float)Frame<T>::load(ph + k * hw);
+    const float fk = (float)Frame<T, SH>::load(ph + k * hw);
     S = S + fk * sin_d[k];
     C = C + fk * cos_d[k];
   }
@@ -169,15 +173,16 @@ __device__ __forceinline__ float unwrap_cyclic(float phi, int code, int bits, fl
 // projector rows when coded. The phase sums S, C (rows: Sr, Cr) come from
 // the caller: K2 fuses them over its bracket. `contrast` is read only when
 // steps == 0 (Gray only), which K2 never takes.
-template <typename T>
+template <typename T, bool SH = false>
 __device__ __forceinline__ Decoded gray_phase_decode(const T* f, size_t hw,
                                                      const SlrScanParams& p, bool certain,
                                                      typename Frame<T>::Raw contrast,
                                                      float S, float C, float Sr, float Cr) {
   const auto tau_white = Frame<T>::tau_white(p);
-  const int code = gray_block(f, hw, 2, p.bits, tau_white, certain);
+  const int code = gray_block<T, SH>(f, hw, 2, p.bits, tau_white, certain);
   int row_code = 0;
-  if (p.row_bits) row_code = gray_block(f, hw, 2 + 2 * p.bits, p.row_bits, tau_white, certain);
+  if (p.row_bits)
+    row_code = gray_block<T, SH>(f, hw, 2 + 2 * p.bits, p.row_bits, tau_white, certain);
   Decoded d;
   if (p.steps) {
     const float phi = wrapped_phase(S, C);
@@ -206,13 +211,13 @@ __device__ __forceinline__ Decoded gray_phase_decode(const T* f, size_t hw,
 
 // Multi-frequency hierarchical unwrap: level 0 spans the projector width, each
 // finer level takes its fringe order from the previous absolute phase.
-template <typename T>
+template <typename T, bool SH = false>
 __device__ __forceinline__ Decoded multifreq_decode(const T* f, size_t hw,
                                                     const SlrScanParams& p, bool certain) {
   float Phi = 0.0f, mod = 0.0f;
   for (int l = 0; l < p.mf_levels; ++l) {
     float S, C;
-    phase_sums(f, hw, 2 + l * p.steps, p.steps, p.sin_d, p.cos_d, S, C);
+    phase_sums<T, SH>(f, hw, 2 + l * p.steps, p.steps, p.sin_d, p.cos_d, S, C);
     const float phi = wrapped_phase(S, C);
     const float B = p.mod_scale * sqrtf(S * S + C * C);
     certain = certain && (B > p.tau_mod);
@@ -310,31 +315,75 @@ __device__ __forceinline__ void triangulate_write(const SlrScanParams& p, int u,
   out[6 * hw + pix] = d.y_p;
 }
 
-template <typename T, int G, bool MF>
-__global__ void __launch_bounds__(256)
-fused_scan_kernel(const T* __restrict__ frames, float* __restrict__ out,
-                  const __grid_constant__ SlrScanParams p) {
-  const int u = blockIdx.x * blockDim.x + threadIdx.x;
-  const int v = blockIdx.y * blockDim.y + threadIdx.y;
-  if (u >= p.width || v >= p.height) return;
-  const size_t hw = (size_t)p.height * p.width;
-  const size_t pix = (size_t)v * p.width + u;
-  const T* f = frames + pix;
-
+// One pixel's decode from its frames at f, f + hw, f + 2 hw, ...
+template <typename T, bool MF, bool SH>
+__device__ __forceinline__ Decoded decode_pixel(const T* f, size_t hw, const SlrScanParams& p) {
   // shadow mask: white - black contrast
-  const auto contrast = Frame<T>::load(f) - Frame<T>::load(f + hw);
+  const auto contrast = Frame<T, SH>::load(f) - Frame<T, SH>::load(f + hw);
   const bool certain = contrast > Frame<T>::tau_black(p);
-  Decoded d;
-  if (MF) {
-    d = multifreq_decode(f, hw, p, certain);
-  } else {
-    const int base = 2 + 2 * p.bits + 2 * p.row_bits;
-    float S = 0.0f, C = 0.0f, Sr = 0.0f, Cr = 0.0f;
-    if (p.steps) phase_sums(f, hw, base, p.steps, p.sin_d, p.cos_d, S, C);
-    if (p.row_steps)
-      phase_sums(f, hw, base + p.steps, p.row_steps, p.row_sin_d, p.row_cos_d, Sr, Cr);
-    d = gray_phase_decode(f, hw, p, certain, contrast, S, C, Sr, Cr);
+  if (MF) return multifreq_decode<T, SH>(f, hw, p, certain);
+  const int base = 2 + 2 * p.bits + 2 * p.row_bits;
+  float S = 0.0f, C = 0.0f, Sr = 0.0f, Cr = 0.0f;
+  if (p.steps) phase_sums<T, SH>(f, hw, base, p.steps, p.sin_d, p.cos_d, S, C);
+  if (p.row_steps)
+    phase_sums<T, SH>(f, hw, base + p.steps, p.row_steps, p.row_sin_d, p.row_cos_d, Sr, Cr);
+  return gray_phase_decode<T, SH>(f, hw, p, certain, contrast, S, C, Sr, Cr);
+}
+
+// K1: a block of BOX_W x BOX_H pixels first copies the box's F frames into
+// shared memory with 16-byte cp.async copies, every one issued before any
+// is awaited, then each thread decodes its pixel from shared memory and
+// triangulates it, with the functions above. Loaded one frame at a time by
+// each thread, a warp load carries 32 (uint8), 64 (uint16) or 128 bytes
+// (float32) and a thread has one or two in flight; staged, a box of F = 20
+// frames is 320 (uint8) to 1,280 (float32) copies of 16 bytes in flight at
+// once. A box of 128 x 2 keeps each of its rows one 128-byte line of a
+// uint8 frame. A box that a 16-byte copy cannot take whole (frames whose
+// rows are not 16-byte aligned, or the map's ragged edge) is not staged:
+// its threads decode straight from device memory, a frame at a time, and
+// the launch reserves no shared memory when no box can be staged. A warp
+// covers 32 pixels of one row either way, so each of a thread's 7 output
+// stores is part of one coalesced 128-byte write of the warp; float4 stores
+// would need 4 pixels a thread, whose frames would have to sit in
+// registers, and those registers cost the resident warps that keep the
+// loads in flight.
+#define BOX_W 128
+#define BOX_H 2
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+template <typename T, int G, bool MF>
+__global__ void __launch_bounds__(BOX_W * BOX_H)
+fused_scan_kernel(const T* __restrict__ frames, float* __restrict__ out,
+                  const __grid_constant__ SlrScanParams p, int nframes, int aligned) {
+  extern __shared__ __align__(16) unsigned char k1_box[];
+  T* box = reinterpret_cast<T*>(k1_box);  // [frame][row][column] of the box
+  constexpr int AREA = BOX_W * BOX_H;
+  const int u0 = blockIdx.x * BOX_W, v0 = blockIdx.y * BOX_H;
+  const size_t hw = (size_t)p.height * p.width;
+  // the same for every thread of the block
+  const bool staged = aligned && u0 + BOX_W <= p.width && v0 + BOX_H <= p.height;
+  if (staged) {
+    constexpr int PER = 16 / (int)sizeof(T);  // pixels a 16-byte copy
+    constexpr int CHUNKS = BOX_W / PER;       // copies a box row
+    const int total = nframes * BOX_H * CHUNKS;
+    for (int c = threadIdx.y * BOX_W + threadIdx.x; c < total; c += AREA) {
+      const int q = c % CHUNKS, r = (c / CHUNKS) % BOX_H, f = c / (CHUNKS * BOX_H);
+      cp_async16(box + (f * BOX_H + r) * BOX_W + q * PER,
+                 frames + f * hw + (size_t)(v0 + r) * p.width + u0 + q * PER);
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();
   }
+  const int u = u0 + threadIdx.x, v = v0 + threadIdx.y;
+  if (u >= p.width || v >= p.height) return;
+  const size_t pix = (size_t)v * p.width + u;
+  const Decoded d =
+      staged ? decode_pixel<T, MF, true>(box + threadIdx.y * BOX_W + threadIdx.x, AREA, p)
+             : decode_pixel<T, MF, false>(frames + pix, hw, p);
   triangulate_write<G>(p, u, v, pix, hw, d, out);
 }
 
@@ -398,27 +447,40 @@ fused_scan_hdr_kernel(const T* __restrict__ stacks, float* __restrict__ out,
   triangulate_write<G>(p, u, v, pix, hw, d, out);
 }
 
+template <typename T, int G, bool MF>
+cudaError_t launch_k1_kernel(const T* f, float* out, const SlrScanParams& p,
+                             cudaStream_t stream) {
+  const int nframes = p.multifreq ? 2 + p.mf_levels * p.steps
+                                  : 2 + 2 * p.bits + 2 * p.row_bits + p.steps + p.row_steps;
+  const int aligned =
+      reinterpret_cast<uintptr_t>(f) % 16 == 0 && (p.width * sizeof(T)) % 16 == 0;
+  const size_t smem = aligned ? (size_t)nframes * BOX_W * BOX_H * sizeof(T) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_scan_kernel<T, G, MF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((p.width + BOX_W - 1) / BOX_W, (p.height + BOX_H - 1) / BOX_H);
+  fused_scan_kernel<T, G, MF><<<grid, dim3(BOX_W, BOX_H), smem, stream>>>(f, out, p, nframes,
+                                                                          aligned);
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t launch_k1(const void* frames, float* out, const SlrScanParams& p, dim3 grid,
-                      dim3 block, cudaStream_t stream) {
+cudaError_t launch_k1(const void* frames, float* out, const SlrScanParams& p,
+                      cudaStream_t stream) {
   const T* f = static_cast<const T*>(frames);
   if (p.multifreq) {
-    if (p.geometry == kPlane)
-      fused_scan_kernel<T, kPlane, true><<<grid, block, 0, stream>>>(f, out, p);
-    else if (p.geometry == kDecodeOnly)
-      fused_scan_kernel<T, kDecodeOnly, true><<<grid, block, 0, stream>>>(f, out, p);
-    else
-      return cudaErrorInvalidValue;  // multifreq codes no rows
-  } else if (p.geometry == kPlane) {
-    fused_scan_kernel<T, kPlane, false><<<grid, block, 0, stream>>>(f, out, p);
-  } else if (p.geometry == kMidpoint) {
-    fused_scan_kernel<T, kMidpoint, false><<<grid, block, 0, stream>>>(f, out, p);
-  } else if (p.geometry == kDecodeOnly) {
-    fused_scan_kernel<T, kDecodeOnly, false><<<grid, block, 0, stream>>>(f, out, p);
-  } else {
-    return cudaErrorInvalidValue;
+    if (p.geometry == kPlane) return launch_k1_kernel<T, kPlane, true>(f, out, p, stream);
+    if (p.geometry == kDecodeOnly)
+      return launch_k1_kernel<T, kDecodeOnly, true>(f, out, p, stream);
+    return cudaErrorInvalidValue;  // multifreq codes no rows
   }
-  return cudaGetLastError();
+  if (p.geometry == kPlane) return launch_k1_kernel<T, kPlane, false>(f, out, p, stream);
+  if (p.geometry == kMidpoint) return launch_k1_kernel<T, kMidpoint, false>(f, out, p, stream);
+  if (p.geometry == kDecodeOnly)
+    return launch_k1_kernel<T, kDecodeOnly, false>(f, out, p, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -454,12 +516,10 @@ int slr_fused_scan(const void* frames, float* out, const SlrScanParams* params, 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const SlrScanParams& p = *params;
-  const dim3 block(32, 8);
-  const dim3 grid((p.width + block.x - 1) / block.x, (p.height + block.y - 1) / block.y);
   switch (p.dtype) {
-    case 0: return (int)launch_k1<float>(frames, out, p, grid, block, stream);
-    case 1: return (int)launch_k1<uint8_t>(frames, out, p, grid, block, stream);
-    case 2: return (int)launch_k1<uint16_t>(frames, out, p, grid, block, stream);
+    case 0: return (int)launch_k1<float>(frames, out, p, stream);
+    case 1: return (int)launch_k1<uint8_t>(frames, out, p, stream);
+    case 2: return (int)launch_k1<uint16_t>(frames, out, p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

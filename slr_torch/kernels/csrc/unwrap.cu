@@ -40,25 +40,53 @@
 //   mask are 17 MB, inside the 50 MB L2, so the sweeps after the first run
 //   out of L2. Phi is read with __ldcg (L2, not L1): it was written by
 //   other SMs in the previous sweep.
-// - K5 runs one block per scan line (a row, or a column when axis = 0; the
-//   direction reversed when reverse = 1), loads the line's (tag, ps, pv)
-//   monoid elements into shared memory in scan order and runs a
-//   Hillis-Steele scan there: step s composes element i with element i - s,
-//   s = 1, 2, 4, ..., the association of the plain version. ceil(log2 n)
-//   steps, each reading the 24 B per element of the other buffer. Device
-//   traffic per pass: phi, Phi (4 B) and elig, done (1 B) in; Phi (4 B) and
-//   done (1 B) out per pixel. Column passes read with a stride of W.
-
+// - K5 scans lines (rows, or columns when axis = 0; the direction reversed
+//   when reverse = 1) with the Hillis-Steele tree of the plain version: step
+//   s composes element i with element i - s, s = 1, 2, 4, ..., so
+//   ceil(log2 n) steps of one compose per element. The monoid's float sums
+//   are not associative, so the tree, not only the result, is the contract.
+//   Device traffic per pass: phi, Phi (4 B) and elig, done (1 B) in; Phi
+//   (4 B) and done (1 B) out per pixel, 19.7 MB at 1280x1024: 0.0059 ms.
+//   A compose does work only where its y is still CHAIN, and on a repair's
+//   map (half the masked pixels trusted) CHAIN runs resolve within a few
+//   steps, so the bytes, not the tree, are the bound. The design keeps
+//   the tree in registers: a thread holds K = 8 consecutive elements of its
+//   line (16 in the build for lines past 8,192), the tags as 2-bit fields of
+//   one word, so steps s < K run in the thread, with the previous segment's
+//   last s elements by a warp shuffle; steps s >= K take the same element of
+//   the segment s / K upstream by a shuffle while it is in the warp, and
+//   through shared memory (one barrier to publish, one to release) only
+//   across warps. A thread whose elements are all resolved (no CHAIN left)
+//   composes nothing more, and a warp of such threads shuffles nothing. The
+//   rounding round((x - ps) / 2pi) is a reciprocal product and one FMA
+//   correction in place of the IEEE division, equal to it in every bit on
+//   all 2^32 float32 inputs (slr_wavefront_cycles_check, run by the tests).
+//   A row pass puts one row on a block and moves each thread's elements by
+//   16-byte loads and stores where the row is aligned. A column pass puts up
+//   to 8 adjacent columns on a block and stages them through a box in shared
+//   memory, read and written a map row of those columns at a time (32-byte
+//   segments), so the scan runs with lanes along each column as a row's
+//   does. Its loads remain one 32-byte sector a row: that, not the tree, is
+//   where a column pass loses against a row pass.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
 
+// K5's exchanges across warps (dynamic shared memory)
+extern __shared__ float k5_smem[];
+
 #define SLR_MAX_HALO 8
 #define SLR_TILE_W 64
 #define SLR_BLOCK 256
 #define SLR_MAX_SMEM 232448  // bytes of shared memory a block may opt in to
+// K5's two builds: 8 elements a thread and at most 1,024 threads a block
+// (lines up to 8,192), 16 and 640 (up to 10,240); a column pass takes up to
+// K5_MAX_COLUMNS adjacent columns a block
+#define K5_SMALL_THREADS 1024
+#define K5_LARGE_THREADS 640
+#define K5_MAX_COLUMNS 8
 
 namespace {
 
@@ -163,73 +191,461 @@ vote_tiled_kernel(const float* __restrict__ phi, const uint8_t* __restrict__ mas
   }
 }
 
+cudaError_t shared_memory(const void* kernel, size_t bytes);
+
 // K5. Tags: 2 CONST(pv) emits pv; 1 CHAIN(ps, pv) maps an arriving x to
 // pv + 2pi round((x - ps) / 2pi); 0 KILL blocks. compose(x, y) is
-// "x then y", x upstream; the result replaces y.
-__device__ __forceinline__ void compose(int tx, float psx, float pvx, int& ty,
-                                        float& psy, float& pvy) {
-  if (ty != 1) return;
-  if (tx != 0) pvy = __fadd_rn(pvy, __fmul_rn(kTwoPi, cycles(__fsub_rn(pvx, psy))));
-  if (tx == 1) psy = psx;
-  ty = tx;
+// "x then y", x upstream; the result replaces y. A thread keeps the tags of
+// its K elements as 2-bit fields of one word; element j's is at bit 2j.
+__device__ __forceinline__ uint32_t tag_at(uint32_t tags, int j) {
+  return (tags >> (2 * j)) & 3u;
 }
 
-__global__ void __launch_bounds__(SLR_BLOCK)
-wavefront_pass_kernel(const float* __restrict__ phi, const uint8_t* __restrict__ elig,
-                      const float* __restrict__ Phi, const uint8_t* __restrict__ done,
-                      float* __restrict__ Phi_out, uint8_t* __restrict__ done_out,
-                      int H, int W, int axis, int reverse) {
-  extern __shared__ float smem[];
-  const int n = axis == 1 ? W : H;
-  const int line = blockIdx.x;
-  // (tag, ps, pv) of the line in scan order, and a second buffer
-  int* tag = reinterpret_cast<int*>(smem);
-  float* ps = smem + n;
-  float* pv = smem + 2 * n;
-  int* tag2 = reinterpret_cast<int*>(smem + 3 * n);
-  float* ps2 = smem + 4 * n;
-  float* pv2 = smem + 5 * n;
-  // element i of the line in scan order, as an offset into the maps
-  auto at = [&](int i) -> long long {
-    const int p = reverse ? n - 1 - i : i;
-    return axis == 1 ? (long long)line * W + p : (long long)p * W + line;
-  };
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const long long g = at(i);
-    const bool d = done[g] != 0;
-    const float ph = phi[g];
-    tag[i] = d ? 2 : (elig[g] ? 1 : 0);
-    ps[i] = ph;
-    pv[i] = d ? Phi[g] : ph;
+// Whether any element of a tag word is still CHAIN (field 01). Only a
+// CHAIN element changes in a compose, and it never becomes CHAIN again, so
+// a thread without one has nothing left to compose, only to send.
+__device__ __forceinline__ bool chains_left(uint32_t tags) {
+  return ((tags & ~(tags >> 1)) & 0x55555555u) != 0u;
+}
+
+// round(x / 2pi) as cycles(x) gives it, without the division's slow path:
+// q0 = x * RN(1/2pi) and one FMA correction, q0 itself where it is 0, inf
+// or NaN (x = +-0, tiny, or not finite: the rounded quotient is then +-0
+// of x's sign, or q0). slr_wavefront_cycles_check counts the float32
+// inputs on which the two differ: 0 of 2^32.
+constexpr float kInvTwoPi = 1.0f / kTwoPi;
+
+__device__ __forceinline__ float cycles_recip(float x) {
+  const float q0 = __fmul_rn(x, kInvTwoPi);
+  const float q1 = __fmaf_rn(__fmaf_rn(-q0, kTwoPi, x), kInvTwoPi, q0);
+  return rintf(q0 == 0.f || !isfinite(q0) ? q0 : q1);
+}
+
+__device__ __forceinline__ void compose(uint32_t tx, float psx, float pvx, uint32_t& tags,
+                                        int j, float& psy, float& pvy) {
+  if (tag_at(tags, j) != 1u) return;
+  if (tx != 0u) pvy = __fadd_rn(pvy, __fmul_rn(kTwoPi, cycles_recip(__fsub_rn(pvx, psy))));
+  if (tx == 1u) psy = psx;
+  tags = (tags & ~(3u << (2 * j))) | (tx << (2 * j));
+}
+
+// One scan line's share held by a thread: elements seg*K + j, j < K, in
+// scan order, as registers.
+template <int K>
+struct Segment {
+  uint32_t tags;
+  float ps[K], pv[K];
+};
+
+// Where a block's threads sit: `lines` lines a block, T threads a line (a
+// multiple of 32, so a warp holds one line's segments); thread tid holds
+// segment seg = tid % T of line tid / T, and the segment d places upstream
+// is d threads lower. Exchanges across warps go through k5_smem:
+// [K][threads] ps, [K][threads] pv, [threads] tag words.
+struct Layout {
+  int tid, seg, segw, threads;
+  bool multiwarp;  // the line spans warps
+};
+
+template <int K>
+__device__ __forceinline__ float& shared_ps(const Layout& L, int j, int t) {
+  return k5_smem[j * L.threads + t];
+}
+template <int K>
+__device__ __forceinline__ float& shared_pv(const Layout& L, int j, int t) {
+  return k5_smem[(K + j) * L.threads + t];
+}
+template <int K>
+__device__ __forceinline__ uint32_t& shared_tags(const Layout& L, int t) {
+  return reinterpret_cast<uint32_t*>(k5_smem)[2 * K * L.threads + t];
+}
+
+// Step s < K: element j composes with element j - s, in the thread for
+// j >= s (descending j, so each reads its upstream element's old value),
+// else the previous segment's element K - s + j.
+template <int K, int S>
+__device__ __forceinline__ void step_within(Segment<K>& a, const Layout& L) {
+  const bool need = chains_left(a.tags);
+  float xps[S], xpv[S];
+  uint32_t xtag = 0u;
+  if (__any_sync(0xffffffffu, need)) {
+    xtag = __shfl_up_sync(0xffffffffu, a.tags, 1);
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      xps[j] = __shfl_up_sync(0xffffffffu, a.ps[K - S + j], 1);
+      xpv[j] = __shfl_up_sync(0xffffffffu, a.pv[K - S + j], 1);
+    }
   }
-  __syncthreads();
-  for (int s = 1; s < n; s <<= 1) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      int t = tag[i];
-      float p = ps[i], v = pv[i];
-      if (i >= s) compose(tag[i - s], ps[i - s], pv[i - s], t, p, v);
-      tag2[i] = t;
-      ps2[i] = p;
-      pv2[i] = v;
+  if (L.multiwarp) {
+    if (L.segw == 31) {  // the warp's last segment, for the next warp's first
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        shared_ps<K>(L, K - S + j, L.tid) = a.ps[K - S + j];
+        shared_pv<K>(L, K - S + j, L.tid) = a.pv[K - S + j];
+      }
+      shared_tags<K>(L, L.tid) = a.tags;
     }
     __syncthreads();
-    int* ti = tag;
-    tag = tag2;
-    tag2 = ti;
-    float* f = ps;
-    ps = ps2;
-    ps2 = f;
-    f = pv;
-    pv = pv2;
-    pv2 = f;
+    if (need && L.segw == 0 && L.seg > 0) {
+      const int src = L.tid - 1;
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        xps[j] = shared_ps<K>(L, K - S + j, src);
+        xpv[j] = shared_pv<K>(L, K - S + j, src);
+      }
+      xtag = shared_tags<K>(L, src);
+    }
+    __syncthreads();
   }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const long long g = at(i);
-    const bool d = done[g] != 0;
-    const bool reached = elig[g] && !d && tag[i] == 2;
-    Phi_out[g] = reached ? pv[i] : Phi[g];
-    done_out[g] = d || reached;
+  if (!need) return;
+#pragma unroll
+  for (int j = K - 1; j >= S; --j)
+    compose(tag_at(a.tags, j - S), a.ps[j - S], a.pv[j - S], a.tags, j, a.ps[j], a.pv[j]);
+  if (L.seg > 0) {
+#pragma unroll
+    for (int j = 0; j < S; ++j)
+      compose(tag_at(xtag, K - S + j), xps[j], xpv[j], a.tags, j, a.ps[j], a.pv[j]);
   }
+}
+
+template <int K, int S>
+__device__ __forceinline__ void steps_within(Segment<K>& a, const Layout& L, int n) {
+  if constexpr (S < K) {
+    if (S < n) {
+      step_within<K, S>(a, L);
+      steps_within<K, 2 * S>(a, L, n);
+    }
+  }
+}
+
+// Step s = d * K: every element composes with the same element of the
+// segment d upstream, by a shuffle inside the warp, else through shared
+// memory.
+template <int K>
+__device__ __forceinline__ void step_across(Segment<K>& a, const Layout& L, int d) {
+  const bool in_warp = d < 32;
+  const int src = L.tid - d;
+  const bool act = L.seg >= d && chains_left(a.tags);
+  const bool reader = act && L.multiwarp && (!in_warp || L.segw < d);
+  const bool warp_acts = __any_sync(0xffffffffu, act);
+  uint32_t xtag = a.tags;
+  if (in_warp && warp_acts) xtag = __shfl_up_sync(0xffffffffu, a.tags, d);
+  if (L.multiwarp) {
+    if (!in_warp || L.segw >= 32 - d) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        shared_ps<K>(L, j, L.tid) = a.ps[j];
+        shared_pv<K>(L, j, L.tid) = a.pv[j];
+      }
+      shared_tags<K>(L, L.tid) = a.tags;
+    }
+    __syncthreads();
+    if (reader) xtag = shared_tags<K>(L, src);
+  }
+  if (warp_acts) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      float xps = 0.f, xpv = 0.f;
+      if (in_warp) {
+        xps = __shfl_up_sync(0xffffffffu, a.ps[j], d);
+        xpv = __shfl_up_sync(0xffffffffu, a.pv[j], d);
+      }
+      if (reader) {
+        xps = shared_ps<K>(L, j, src);
+        xpv = shared_pv<K>(L, j, src);
+      }
+      if (act) compose(tag_at(xtag, j), xps, xpv, a.tags, j, a.ps[j], a.pv[j]);
+    }
+  }
+  if (L.multiwarp) __syncthreads();
+}
+
+// K consecutive floats, or K flags as bits, from an aligned address.
+template <int K>
+__device__ __forceinline__ void load_vec(const float* q, float (&t)[K]) {
+#pragma unroll
+  for (int v = 0; v < K / 4; ++v) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(q) + v);
+    t[4 * v] = x.x;
+    t[4 * v + 1] = x.y;
+    t[4 * v + 2] = x.z;
+    t[4 * v + 3] = x.w;
+  }
+}
+
+template <int K>
+__device__ __forceinline__ uint32_t load_flags(const uint8_t* q) {
+  uint32_t w[K / 4];
+  if constexpr (K == 16) {
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(q));
+    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+  } else {
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(q));
+    w[0] = x.x, w[1] = x.y;
+  }
+  uint32_t bits = 0;
+#pragma unroll
+  for (int o = 0; o < K; ++o) bits |= ((w[o / 4] >> (8 * (o % 4))) & 0xffu) ? (1u << o) : 0u;
+  return bits;
+}
+
+// K5 builds: K elements a thread, at most `threads` threads a block.
+template <int K>
+struct K5Build;
+template <>
+struct K5Build<8> {
+  static constexpr int threads = K5_SMALL_THREADS;
+};
+template <>
+struct K5Build<16> {
+  static constexpr int threads = K5_LARGE_THREADS;
+};
+
+// A column pass's staged box: `lines` columns of the map, each column's
+// element i (scan order) at (i % K) * (T + 1) + i / K of its slab of
+// K * (T + 1): the thread of segment s reads its element j at j * (T + 1)
+// + s, so a warp's reads fall in 32 banks, and so do the writes of a warp
+// that covers 32 / lines rows of `lines` adjacent columns.
+template <int K>
+struct Box {
+  int T, slab;
+  __device__ __forceinline__ int at(int line, int i) const {
+    return line * slab + (i % K) * (T + 1) + i / K;
+  }
+};
+
+// Floats of shared memory before a column box's Phi: the larger of the
+// exchanges and the box's phi and flags.
+template <int K>
+__host__ __device__ __forceinline__ int box_offset(int threads, int cells) {
+  const int exchange = threads * (2 * K + 1), staged = cells + (cells + 3) / 4;
+  return exchange > staged ? exchange : staged;
+}
+
+// One directional pass; see slr_wavefront_pass. The direction is a
+// template parameter, so every register index is a constant. Flags elig
+// and done ride in `flags`: bit j elig, bit 16 + j done.
+template <int K, bool REV>
+__global__ void __launch_bounds__(K5Build<K>::threads)
+wavefront_pass_kernel(const float* __restrict__ phi, const uint8_t* __restrict__ elig,
+                      const float* __restrict__ Phi, const uint8_t* __restrict__ done,
+                      float* __restrict__ Phi_out, uint8_t* __restrict__ done_out, int H,
+                      int W, int axis, int lines_a_block, int vec) {
+  static_assert(K == 8 || K == 16, "K5 holds 8 or 16 elements a thread");
+  const int n = axis == 1 ? W : H, lines = axis == 1 ? H : W;
+  const int T = blockDim.x / lines_a_block;
+  Layout L;
+  L.tid = threadIdx.x;
+  L.seg = L.tid % T;
+  L.segw = L.tid % 32;
+  L.threads = blockDim.x;
+  L.multiwarp = T > 32;
+  const int lb = L.tid / T;                      // line in the block
+  const int line0 = blockIdx.x * lines_a_block;  // first line of the block
+  const int line = line0 + lb;
+  const bool live = line < lines;
+  const int i0 = L.seg * K;  // scan index of element 0
+  auto position = [&](int i) { return REV ? n - 1 - i : i; };  // along the line
+
+  Segment<K> a;
+  a.tags = 0u;
+  uint32_t flags = 0u;
+  auto take = [&](int j, float ph, float Ph, bool d, bool e) {
+    a.ps[j] = ph;
+    a.pv[j] = d ? Ph : ph;
+    a.tags |= (d ? 2u : (e ? 1u : 0u)) << (2 * j);
+    flags |= (e ? 1u << j : 0u) | (d ? 1u << (16 + j) : 0u);
+  };
+#pragma unroll
+  for (int j = 0; j < K; ++j) a.ps[j] = a.pv[j] = 0.f;
+
+  // rows: each thread loads its own K elements (vector loads where the
+  // row is aligned); columns: the block stages its columns through a box
+  // in shared memory, read a row of `lines_a_block` columns at a time
+  // the box: phi, then the flags (elig | done << 1), in the memory the
+  // exchanges use next; the map's Phi after it, kept for the output
+  const Box<K> box{T, K * (T + 1)};
+  const int cells = lines_a_block * box.slab;
+  float* bphi = k5_smem;
+  uint8_t* bflags = reinterpret_cast<uint8_t*>(k5_smem + cells);
+  float* bPhi = k5_smem + box_offset<K>(L.threads, cells);
+  const bool wide = axis == 1 && vec && live && i0 + K <= n;
+  const long long base = (long long)line * W + (REV ? n - i0 - K : i0);
+  // the box's rows: thread tid takes column tid % lines_a_block of map rows
+  // tid / lines_a_block, + T, + 2T, ..., so a warp reads adjacent columns
+  const int bl = L.tid % lines_a_block, br = L.tid / lines_a_block;
+  const bool bcol = line0 + bl < lines;
+  if (axis == 0) {
+    if (bcol) {  // at most K rows a thread (T K >= n): all loads in flight at once
+      float v[K], V[K];
+      uint8_t e[K], d[K];
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        const int r = br + m * T;
+        if (r < n) {
+          const long long g = (long long)r * W + line0 + bl;
+          v[m] = __ldg(phi + g);
+          V[m] = __ldg(Phi + g);
+          e[m] = __ldg(elig + g);
+          d[m] = __ldg(done + g);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        const int r = br + m * T;
+        if (r < n) {
+          const int k = box.at(bl, REV ? n - 1 - r : r);
+          bphi[k] = v[m];
+          bPhi[k] = V[m];
+          bflags[k] = (e[m] ? 1 : 0) | (d[m] ? 2 : 0);
+        }
+      }
+    }
+    __syncthreads();
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        if (i0 + j < n) {
+          const int k = box.at(lb, i0 + j);
+          const uint8_t f = bflags[k];
+          take(j, bphi[k], bPhi[k], f & 2, f & 1);
+        }
+      }
+    }
+    __syncthreads();  // the box's memory is the exchanges' next
+  } else if (wide) {
+    float tphi[K], tPhi[K];
+    load_vec<K>(phi + base, tphi);
+    load_vec<K>(Phi + base, tPhi);
+    const uint32_t eb = load_flags<K>(elig + base), db = load_flags<K>(done + base);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int o = REV ? K - 1 - j : j;
+      take(j, tphi[o], tPhi[o], (db >> o) & 1u, (eb >> o) & 1u);
+    }
+  } else if (live) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (i0 + j < n) {
+        const long long g = (long long)line * W + position(i0 + j);
+        const bool d = done[g] != 0;
+        take(j, phi[g], d ? Phi[g] : 0.f, d, elig[g] != 0);
+      }
+    }
+  }
+
+  // the Hillis-Steele tree: s = 1, 2, 4, ... < n
+  steps_within<K, 1>(a, L, n);
+  for (int d = 1; d * K < n; d <<= 1) step_across<K>(a, L, d);
+
+  // reached: eligible, not done, and a CONST arrived. A done element kept
+  // its CONST, so its pv is its Phi; an element neither keeps the map's Phi.
+  auto reached = [&](int j) {
+    const bool d = (flags >> (16 + j)) & 1u;
+    return d || (((flags >> j) & 1u) && tag_at(a.tags, j) == 2u);
+  };
+  if (axis == 0) {
+    __syncthreads();  // every line's exchanges done: the box's memory is free
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        if (i0 + j < n) {
+          const int k = box.at(lb, i0 + j);
+          bphi[k] = a.pv[j];
+          bflags[k] = reached(j) ? 1 : 0;
+        }
+      }
+    }
+    __syncthreads();
+    if (bcol) {
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        const int r = br + m * T;
+        if (r < n) {
+          const long long g = (long long)r * W + line0 + bl;
+          const int k = box.at(bl, REV ? n - 1 - r : r);
+          const bool hit = bflags[k] != 0;
+          Phi_out[g] = hit ? bphi[k] : bPhi[k];
+          done_out[g] = hit;
+        }
+      }
+    }
+  } else if (wide) {
+    float tPhi[K], o4[K];
+    load_vec<K>(Phi + base, tPhi);
+    uint32_t ob[K / 4];
+#pragma unroll
+    for (int v = 0; v < K / 4; ++v) ob[v] = 0u;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int o = REV ? K - 1 - j : j;
+      const bool hit = reached(j);
+      o4[o] = hit ? a.pv[j] : tPhi[o];
+      ob[o / 4] |= (hit ? 1u : 0u) << (8 * (o % 4));
+    }
+#pragma unroll
+    for (int v = 0; v < K / 4; ++v)
+      reinterpret_cast<float4*>(Phi_out + base)[v] =
+          make_float4(o4[4 * v], o4[4 * v + 1], o4[4 * v + 2], o4[4 * v + 3]);
+    if constexpr (K == 16)
+      *reinterpret_cast<uint4*>(done_out + base) = make_uint4(ob[0], ob[1], ob[2], ob[3]);
+    else
+      *reinterpret_cast<uint2*>(done_out + base) = make_uint2(ob[0], ob[1]);
+  } else if (live) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (i0 + j < n) {
+        const long long g = (long long)line * W + position(i0 + j);
+        const bool hit = reached(j);
+        Phi_out[g] = hit ? a.pv[j] : Phi[g];
+        done_out[g] = hit;
+      }
+    }
+  }
+}
+
+// Threads a line for lines of n elements, K a thread.
+template <int K>
+int wavefront_threads(int n) {
+  return ((n + K - 1) / K + 31) / 32 * 32;
+}
+
+template <int K>
+cudaError_t launch_wavefront(const float* phi, const uint8_t* elig, const float* Phi,
+                             const uint8_t* done, float* Phi_out, uint8_t* done_out, int H,
+                             int W, int axis, int reverse, int lines_a_block, int vec,
+                             cudaStream_t stream) {
+  const int n = axis == 1 ? W : H, lines = axis == 1 ? H : W;
+  const int T = wavefront_threads<K>(n), threads = T * lines_a_block;
+  const int cells = lines_a_block * K * (T + 1);
+  const size_t smem = sizeof(float) * (axis == 0 ? (size_t)box_offset<K>(threads, cells) + cells
+                                                 : (size_t)threads * (2 * K + 1));
+  const void* kernel = reverse ? (const void*)wavefront_pass_kernel<K, true>
+                               : (const void*)wavefront_pass_kernel<K, false>;
+  cudaError_t err = shared_memory(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (lines + lines_a_block - 1) / lines_a_block;
+  if (reverse)
+    wavefront_pass_kernel<K, true><<<blocks, threads, smem, stream>>>(
+        phi, elig, Phi, done, Phi_out, done_out, H, W, axis, lines_a_block, vec);
+  else
+    wavefront_pass_kernel<K, false><<<blocks, threads, smem, stream>>>(
+        phi, elig, Phi, done, Phi_out, done_out, H, W, axis, lines_a_block, vec);
+  return cudaGetLastError();
+}
+
+// Over every float32 bit pattern x, whether cycles_recip(x) and cycles(x)
+// differ in any bit; counts into mismatches[0].
+__global__ void cycles_check_kernel(unsigned long long* mismatches) {
+  const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
+  unsigned long long n = 0;
+  for (uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; i < (1ull << 32);
+       i += stride) {
+    const float x = __uint_as_float((uint32_t)i);
+    const float a = cycles(x), b = cycles_recip(x);
+    n += !(isnan(a) && isnan(b)) && __float_as_uint(a) != __float_as_uint(b);
+  }
+  if (n) atomicAdd(mismatches, n);
 }
 
 // Opt in to more than 48 KB of dynamic shared memory where needed.
@@ -295,19 +711,48 @@ int slr_vote_tiled(const float* phi, const uint8_t* mask, float* out, int H, int
 }
 
 // K5: one pass along axis (1: rows, 0: columns), reversed when reverse = 1.
-// phi, Phi float; elig, done 0/1 bytes; writes Phi_out and done_out.
+// phi, Phi float; elig, done 0/1 bytes; writes Phi_out and done_out. Lines
+// of up to 8,192 elements take the 8-element build, up to 10,240 the
+// 16-element one.
 int slr_wavefront_pass(const float* phi, const uint8_t* elig, const float* Phi,
                        const uint8_t* done, float* Phi_out, uint8_t* done_out, int H,
                        int W, int axis, int reverse, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (H < 1 || W < 1 || (axis != 0 && axis != 1)) return (int)cudaErrorInvalidValue;
-  const int n = axis == 1 ? W : H, lines = axis == 1 ? H : W;
-  const size_t smem = (size_t)6 * n * sizeof(float);
-  err = shared_memory((const void*)wavefront_pass_kernel, smem);
+  const int n = axis == 1 ? W : H;
+  const uintptr_t any = (uintptr_t)phi | (uintptr_t)elig | (uintptr_t)Phi | (uintptr_t)done |
+                        (uintptr_t)Phi_out | (uintptr_t)done_out;
+  const int vec = axis == 1 && n % 16 == 0 && (any & 15) == 0;
+  // rows: one a block; columns: the most adjacent columns a block holds,
+  // up to K5_MAX_COLUMNS
+  const int widest = axis == 0 ? K5_MAX_COLUMNS : 1;
+  if (wavefront_threads<8>(n) <= K5Build<8>::threads) {
+    int c = widest;
+    while (c > 1 && c * wavefront_threads<8>(n) > K5Build<8>::threads) --c;
+    return (int)launch_wavefront<8>(phi, elig, Phi, done, Phi_out, done_out, H, W, axis,
+                                    reverse, c, vec, stream);
+  }
+  if (wavefront_threads<16>(n) <= K5Build<16>::threads) {
+    int c = widest;
+    while (c > 1 && c * wavefront_threads<16>(n) > K5Build<16>::threads) --c;
+    return (int)launch_wavefront<16>(phi, elig, Phi, done, Phi_out, done_out, H, W, axis,
+                                     reverse, c, vec, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The count of float32 inputs on which K5's reciprocal rounding differs
+// from the IEEE division's, into *mismatches (one unsigned 64-bit int,
+// zeroed by the caller).
+int slr_wavefront_cycles_check(unsigned long long* mismatches, int device,
+                               cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  wavefront_pass_kernel<<<lines, SLR_BLOCK, smem, stream>>>(
-      phi, elig, Phi, done, Phi_out, done_out, H, W, axis, reverse);
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  cycles_check_kernel<<<sms * 8, 256, 0, stream>>>(mismatches);
   return (int)cudaGetLastError();
 }
 

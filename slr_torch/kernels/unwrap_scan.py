@@ -52,7 +52,9 @@ def library() -> ctypes.CDLL:
     lib.slr_vote_resident.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     lib.slr_vote_tiled.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
     lib.slr_wavefront_pass.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    for fn in (lib.slr_vote_resident, lib.slr_vote_tiled, lib.slr_wavefront_pass):
+    lib.slr_wavefront_cycles_check.argtypes = [ptr, i32, ptr]
+    for fn in (lib.slr_vote_resident, lib.slr_vote_tiled, lib.slr_wavefront_pass,
+               lib.slr_wavefront_cycles_check):
         fn.restype = ctypes.c_int
     lib.slr_cuda_error_string.argtypes = [i32]
     lib.slr_cuda_error_string.restype = ctypes.c_char_p

@@ -1,12 +1,17 @@
 """Quality-guided wavefront repair on the card: kernel K5.
 
 Port of ``slr/kernels/wavefront.py``. K5, ``launch_wavefront_pass``
-(``_pass_rows``), is one directional growth pass: a block per scan line
-loads the line's (tag, ps, pv) monoid elements into shared memory, runs a
-Hillis-Steele scan there, in the association of the plain version
-``slr_torch.codec.unwrap.directional_pass``, and writes the wavefront
-update. The axis and the direction are arguments of the kernel: no
-transposes or flips around it.
+(``_pass_rows``), is one directional growth pass: a Hillis-Steele scan of
+each line's (tag, ps, pv) monoid elements in the association of the plain
+version ``slr_torch.codec.unwrap.directional_pass``, held in registers (8
+elements a thread, 16 for lines past 8,192) with warp shuffles and, across
+warps, shared memory; then the wavefront update. A row pass takes a row a
+block; a column pass up to 8 adjacent columns a block, staged through
+shared memory so that its reads and writes go a map row at a time. The axis
+and the direction are arguments of the kernel: no transposes or flips
+around it. The kernel rounds (x - ps) / 2pi by a reciprocal and one FMA
+correction; ``cycles_mismatches`` counts, on the card, the float32 inputs
+where that differs from the plain version's division: none of 2^32.
 
 ``wavefront_unwrap`` and ``wavefront_repair`` are the reference's entry points
 (levels x rounds x four directions) with K5 as their pass; they share the
@@ -21,7 +26,7 @@ import torch
 from slr_torch.codec.unwrap import directional_pass, repair_trust, wavefront
 from slr_torch.kernels.unwrap_scan import check_launch, check_maps, library
 
-MAX_LINE = 9685   # 24 B of shared memory per element: 227 KB a block
+MAX_LINE = 10240  # K5's 16-element build: 640 threads a block
 
 
 def launch_wavefront_pass(phi, elig, Phi, done, axis: int, reverse: bool):
@@ -42,6 +47,19 @@ def launch_wavefront_pass(phi, elig, Phi, done, axis: int, reverse: bool):
         phi.device.index, torch.cuda.current_stream(phi.device).cuda_stream))
     wavefront_pass.launches += 1
     return Phi_out, done_out
+
+
+def cycles_mismatches(device) -> int:
+    """K5 rounds (x - ps) / 2pi by a reciprocal and one FMA correction, not
+    by a division: the number of float32 inputs x, of all 2^32, on which
+    that rounding differs in any bit from the IEEE division's (the plain
+    version's). Runs on the card."""
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    lib = library()
+    check_launch(lib, "K5 cycles_check", lib.slr_wavefront_cycles_check(
+        count.data_ptr(), count.device.index,
+        torch.cuda.current_stream(count.device).cuda_stream))
+    return int(count.item())
 
 
 def wavefront_pass(phi, elig, Phi, done, axis: int, reverse: bool):

@@ -2,9 +2,10 @@
 
 Coarse: FPFH descriptors and batched RANSAC. Fine: point-to-plane ICP,
 whose correspondence search is the tiled exact search or, for dense clouds,
-the sorted-band search (kernel K8); and projective-association ICP on
-organized grids. Pose graph: Gauss-Newton over SE(3). The voxel hash and
-the outlier filters are ROADMAP slice 6.
+the voxel hash (on the CPU) or the sorted-band search (kernel K8, on the
+card); and projective-association ICP on organized grids. Pose graph:
+Gauss-Newton over SE(3). ``voxel_downsample`` and the outlier filters are
+ROADMAP slice 6.
 """
 
 from slr_torch.registration.band import (
@@ -16,3 +17,4 @@ from slr_torch.registration.nn import nearest_neighbors
 from slr_torch.registration.normals import grid_normals
 from slr_torch.registration.posegraph import PoseGraphResult, pose_graph_optimize
 from slr_torch.registration.projective import icp_projective
+from slr_torch.registration.voxel import build_voxel_hash, voxel_hash_nn

@@ -1,7 +1,8 @@
 """Point-to-plane ICP (port of ``slr/registration/icp.py``).
 
 Each iteration: move the source by the current pose, find each point's
-nearest target (the tiled exact search, or the sorted-band search K8),
+nearest target (the tiled exact search, the voxel hash, or the sorted-band
+search K8),
 gate correspondences by distance, reweight them (Huber), and take one
 closed-form 6-dof Gauss-Newton step from the 6x6 normal equations. The
 iterations are a Python loop with no host sync inside: the 6x6 system is
@@ -18,6 +19,7 @@ import torch
 from slr_torch.geom.se3 import se3_compose, so3_exp
 from slr_torch.registration.band import BIG, band_nn_sorted, build_band_target
 from slr_torch.registration.nn import nearest_neighbors
+from slr_torch.registration.voxel import build_voxel_hash, voxel_hash_nn
 
 
 class ICPResult(NamedTuple):
@@ -42,23 +44,20 @@ def _solve_point_to_plane(src, tgt, nrm, w):
 
 
 # Above this many query x target pairs the exact tiled search gives way to
-# the sorted-band search (the reference's accelerator crossover).
+# the voxel hash on the CPU and to the sorted-band search on the card (the
+# reference's CPU and accelerator crossovers).
 _EXACT_NN_MAX_PAIRS = 24_000 ** 2
-NN_METHODS = ("exact", "band")
+NN_METHODS = ("exact", "voxel", "band")
 
 
-def _resolve_nn_method(nn_method: str, N: int, M: int) -> str:
-    """"auto": exact up to the crossover, band above it, on every device.
-
-    On a CUDA device that is the reference's accelerator rule. On the CPU
-    the reference takes its voxel hash above the crossover; the voxel hash
-    is not ported yet (ROADMAP slice 6), so the port takes the band search
-    through K8's plain version there."""
-    if nn_method == "voxel":
-        raise NotImplementedError(
-            "nn_method='voxel' (slr/registration/voxel.py) is ROADMAP slice 6")
+def _resolve_nn_method(nn_method: str, N: int, M: int, device) -> str:
+    """"auto": exact up to the crossover; above it the voxel hash for a CPU
+    tensor and the band search (K8) for a CUDA one, the reference's CPU and
+    accelerator rules."""
     if nn_method == "auto":
-        return "band" if N * M > _EXACT_NN_MAX_PAIRS else "exact"
+        if N * M <= _EXACT_NN_MAX_PAIRS:
+            return "exact"
+        return "voxel" if torch.device(device).type == "cpu" else "band"
     if nn_method not in NN_METHODS:
         raise ValueError(f"nn_method must be 'auto' or one of {NN_METHODS}, "
                          f"got {nn_method!r}")
@@ -81,18 +80,20 @@ def icp_point_to_plane(
 ) -> ICPResult:
     """Align ``src`` onto ``tgt``; returns the source -> target pose.
 
-    ``nn_method``: "exact" (tiled brute force), "band" (sorted-band search,
-    exact within ``max_corr_dist``: K8 on a CUDA tensor) or "auto" (exact up
-    to ~24k^2 source x target pairs, band above; resolved from the tensors'
-    sizes on every call). ``band_b_max`` is accepted for signature parity
-    and ignored: the band search never truncates.
+    ``nn_method``: "exact" (tiled brute force), "voxel" (the voxel hash's
+    27-neighbourhood, voxel edge ``max_corr_dist``), "band" (sorted-band
+    search, exact within ``max_corr_dist``: K8 on a CUDA tensor) or "auto"
+    (exact up to ~24k^2 source x target pairs; above, voxel on the CPU and
+    band on the card; resolved from the tensors' sizes and device on every
+    call). ``band_b_max`` is accepted for signature parity and ignored: the
+    band search never truncates.
 
     The band route builds the sorted target once and sorts the source once
     by its key at the initial pose; the Gauss-Newton sums do not depend on
     the order, so nothing is unsorted, and each iteration takes the
     correspondence point and normal straight from the search.
     """
-    nn_method = _resolve_nn_method(nn_method, src.shape[0], tgt.shape[0])
+    nn_method = _resolve_nn_method(nn_method, src.shape[0], tgt.shape[0], src.device)
     dev = src.device
     N = src.shape[0]
     if src_valid is None:
@@ -107,6 +108,12 @@ def icp_point_to_plane(
         order = torch.sort(skey, stable=True).indices
         src = src[order]
         src_valid = src_valid[order]
+    elif nn_method == "voxel":
+        # voxel edge = correspondence radius: every target within
+        # max_corr_dist lies in the query's 27-neighbourhood
+        tv = (torch.ones(tgt.shape[0], dtype=torch.bool, device=dev)
+              if tgt_valid is None else tgt_valid)
+        table, row_ids, lo = build_voxel_hash(tgt, tv, max_corr_dist)
 
     n_valid = torch.sum(src_valid.to(torch.float32))
     for _ in range(iters):
@@ -116,7 +123,11 @@ def icp_point_to_plane(
                 torch.where(src_valid[:, None], moved, BIG).T.contiguous(),
                 src_valid, bt, max_corr_dist)
         else:
-            idx, d2 = nearest_neighbors(moved, tgt, tgt_valid, tile=nn_tile)
+            if nn_method == "voxel":
+                idx, d2 = voxel_hash_nn(moved, tgt, table, row_ids, lo, max_corr_dist)
+                idx = idx.clamp(min=0)   # a miss carries d2 = inf (gated)
+            else:
+                idx, d2 = nearest_neighbors(moved, tgt, tgt_valid, tile=nn_tile)
             q, n = tgt[idx], tgt_normals[idx]
         w = (src_valid & (d2 < max_d2)).to(torch.float32)
         # robust (Huber/IRLS) reweighting; delta = 1.3 x the weighted mean

@@ -177,6 +177,39 @@ def test_kernel_branch_matches_plain_version(cuda, branch):
         assert float(k.points.abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("dtype,w,h,offset", [
+    ("uint8", 299, 215, 0), ("uint8", 301, 215, 0), ("uint16", 299, 215, 0),
+    ("uint16", 301, 215, 0), ("uint8", 1296, 215, 0), ("uint16", 1296, 215, 0),
+    ("uint8", 320, 256, 3), ("uint16", 1280, 1024, 0)])
+def test_integer_kernel_layouts_match_plain_version(cuda, dtype, w, h, offset):
+    """The kernel stages 128 x 2 boxes by 16-byte copies where the rows are
+    16-byte aligned and the box lies whole inside the map, and decodes from
+    device memory elsewhere: rows of 299 and 301 pixels (not a multiple of
+    16 bytes), 1296 = 10 * 128 + 16 columns (aligned, a partial last box),
+    215 rows (a partial last box row), a uint8 stack 3 bytes into its
+    buffer, and 12-bit data at full size, each held to the plain version
+    with the float32 tolerances."""
+    cam, proj, cfg, scan = _scan(cuda, w, h, 0.005)
+    kw = {}
+    if dtype == "uint8":
+        frames = quantize_frames(scan.frames)
+    else:
+        frames = torch.clamp(torch.round(scan.frames * 4095), 0, 4095).to(torch.uint16)
+        kw = dict(bit_depth=12)
+    if offset:
+        buf = torch.empty(frames.numel() + offset, dtype=frames.dtype, device=cuda)
+        buf[offset:] = frames.reshape(-1)
+        frames = buf[offset:].view(frames.shape)
+        assert frames.is_contiguous() and frames.data_ptr() % 4 == offset
+    dec = DecodeConfig()
+    before = fs.fused_decode_triangulate.launches
+    k = fs.fused_decode_triangulate(frames, cam, proj, cfg, dec, **kw)
+    assert fs.fused_decode_triangulate.launches == before + 1
+    p = fs.fused_decode_triangulate_reference(frames, cam, proj, cfg, dec, **kw)
+    torch.cuda.synchronize()
+    _agrees(k, p, rows=False)
+
+
 def _bracket(device, gains=(1.0, 3.2, 10.0)):
     cam, proj = default_rig(cam_w=320, cam_h=256, proj_w=256, proj_h=192,
                             device=device)
@@ -295,8 +328,52 @@ def test_wavefront_pass_matches_plain_version(cuda, H, W):
             Pp, dp = pu.directional_pass(*args, axis, reverse)
             torch.cuda.synchronize()
             assert dk.dtype == torch.bool and torch.equal(dk, dp)
-            assert float((Pk - Pp).abs().max()) <= 1e-3
+            assert torch.equal(Pk, Pp)
             assert int(dk.sum()) > int(args[3].sum())
+
+
+def _wave_maps(device, H, W, seed, offset=0):
+    """(phi, elig, Phi, done) for one pass: 2 % done, 85 % eligible;
+    ``offset``: each map starts that many elements into a larger buffer."""
+    rng = np.random.default_rng(seed)
+    Phi = np.cumsum(rng.normal(0.6, 0.8, size=(H, W)), axis=1).astype(np.float32)
+    phi = np.mod(Phi, 2 * np.pi).astype(np.float32)
+    done = rng.random((H, W)) < 0.02
+    elig = rng.random((H, W)) < 0.85
+    out = []
+    for a in (phi, elig, np.where(done, Phi, phi).astype(np.float32), done):
+        t = torch.from_numpy(a).to(device)
+        buf = torch.empty(H * W + offset, dtype=t.dtype, device=device)
+        buf[offset:] = t.reshape(-1)
+        out.append(buf[offset:].view(H, W))
+    return out
+
+
+def test_wavefront_rounding_equals_the_division(cuda):
+    """K5 rounds (x - ps) / 2pi by a reciprocal and one FMA correction; on
+    every one of the 2^32 float32 inputs it gives the IEEE division's bits
+    (the plain version's)."""
+    assert wf.cycles_mismatches(cuda) == 0
+
+
+@pytest.mark.parametrize("H,W,offset", [
+    (2048, 2448, 0), (215, 300, 0), (1037, 1283, 0), (9000, 40, 0), (3, 10240, 0),
+    (64, 1280, 1)])
+def test_wavefront_pass_bit_equal_on_every_layout(cuda, H, W, offset):
+    """K5 equals the plain pass bit for bit on both axes and directions:
+    columns of 2048 (4 a block) and 1037 (6 a block; not a multiple of 8 or
+    16), columns of 9000 and rows of the longest line it takes (the
+    16-element build), ragged rows, and rows whose maps are not 16-byte
+    aligned."""
+    args = _wave_maps(cuda, H, W, H + W, offset)
+    for axis in (1, 0):
+        for reverse in (False, True):
+            Pk, dk = wf.launch_wavefront_pass(*args, axis, reverse)
+            Pp, dp = pu.directional_pass(*args, axis, reverse)
+            torch.cuda.synchronize()
+            assert torch.equal(Pk, Pp) and torch.equal(dk, dp), (axis, reverse)
+    with pytest.raises(ValueError, match="at most"):
+        wf.launch_wavefront_pass(*_wave_maps(cuda, 2, wf.MAX_LINE + 1, 0), 1, False)
 
 
 @pytest.mark.parametrize("H,W", [(96, 160), (215, 300)])
@@ -462,7 +539,8 @@ def test_band_kernel_rejects_bad_input(cuda):
 def test_band_icp_launches_once_per_iteration_without_host_sync(cuda):
     """``nn_method="auto"`` above the crossover takes the band route on the
     card: one K8 launch per iteration, no host sync in the whole call, and
-    the pose of the same ICP on the CPU (K8's plain version)."""
+    the pose of the band ICP on the CPU (K8's plain version; "auto" takes
+    the voxel hash there)."""
     rng = np.random.default_rng(13)
     n = 32768            # 32768^2 pairs > the 24000^2 crossover
     xy = rng.uniform(-150, 150, (n, 2))
@@ -490,7 +568,7 @@ def test_band_icp_launches_once_per_iteration_without_host_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert rb.band_nn_sorted.launches == 6
-    ref = icp_point_to_plane(*args, iters=6, max_corr_dist=8.0)
+    ref = icp_point_to_plane(*args, iters=6, max_corr_dist=8.0, nn_method="band")
     np.testing.assert_allclose(res.R.cpu().numpy(), ref.R.numpy(), atol=1e-5)
     np.testing.assert_allclose(res.t.cpu().numpy(), ref.t.numpy(), atol=1e-3)
     np.testing.assert_allclose(res.R.cpu().numpy(), R_true, atol=1e-4)

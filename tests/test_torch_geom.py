@@ -116,7 +116,8 @@ def test_port_imports_neither_jax_nor_slr():
         "slr_torch.kernels.band_nn, slr_torch.geom.se3, slr_torch.registration, "
         "slr_torch.registration.band, slr_torch.registration.features, "
         "slr_torch.registration.icp, slr_torch.registration.posegraph, "
-        "slr_torch.registration.projective, slr_torch.pipeline.registerfuse, "
+        "slr_torch.registration.projective, slr_torch.registration.voxel, "
+        "slr_torch.pipeline.registerfuse, "
         "slr_torch.synth.scene, slr_torch.kernels.crossing, slr_torch.pipeline.twocam\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'slr' or m.startswith('slr.'))\n"

@@ -412,13 +412,105 @@ def test_icp_band_route_matches_reference():
 
 
 def test_icp_nn_method_resolution():
-    assert ticp._resolve_nn_method("auto", 4096, 4096) == "exact"
-    assert ticp._resolve_nn_method("auto", 262144, 262144) == "band"
-    assert ticp._resolve_nn_method("exact", 262144, 262144) == "exact"
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        ticp._resolve_nn_method("voxel", 10, 10)
+    """"auto" takes exact up to the crossover; above it the voxel hash on
+    a CPU tensor (the reference's CPU rule) and the band search on a CUDA
+    one (its accelerator rule)."""
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    assert ticp._resolve_nn_method("auto", 4096, 4096, cpu) == "exact"
+    assert ticp._resolve_nn_method("auto", 4096, 4096, card) == "exact"
+    assert ticp._resolve_nn_method("auto", 262144, 262144, cpu) == "voxel"
+    assert ticp._resolve_nn_method("auto", 262144, 262144, card) == "band"
+    assert ticp._resolve_nn_method("exact", 262144, 262144, cpu) == "exact"
+    assert ticp._resolve_nn_method("voxel", 10, 10, card) == "voxel"
+    assert ticp._resolve_nn_method("band", 10, 10, cpu) == "band"
     with pytest.raises(ValueError):
-        ticp._resolve_nn_method("kdtree", 10, 10)
+        ticp._resolve_nn_method("kdtree", 10, 10, cpu)
+
+
+# ---------------------------------------------------------------- voxel hash
+
+def _voxel_case(seed):
+    """Targets: a dense 30 mm cube (~55 points a 10 mm voxel, far over the
+    buckets), a sparse 2 m box (mostly empty neighbourhoods) and a far
+    cluster beyond the 1024-voxel window; 10 % masked. Queries near the
+    dense points, in the sparse box, below the window's anchor and past
+    its far end."""
+    rng = np.random.default_rng(seed)
+    tgt = np.concatenate([rng.uniform(0, 30, (1500, 3)), rng.uniform(0, 2000, (500, 3)),
+                          rng.uniform(20000, 20100, (20, 3))]).astype(np.float32)
+    valid = rng.random(len(tgt)) > 0.1
+    qry = np.concatenate([tgt[:1500:3] + rng.normal(0, 2.0, (500, 3)),
+                          rng.uniform(0, 2000, (300, 3)),
+                          rng.uniform(-600, -400, (20, 3)),
+                          rng.uniform(11000, 12000, (20, 3))]).astype(np.float32)
+    return tgt, valid, qry
+
+
+@pytest.mark.parametrize("seed,bucket_cap", [(21, 8), (22, 4), (23, 16)])
+def test_voxel_hash_matches_reference(seed, bucket_cap):
+    """The table, its row ids and anchor equal JAX's; every query's index
+    equal and d2 within 1e-5 relative; masked and out-of-window points never
+    found, out-of-window queries and empty neighbourhoods missed."""
+    from slr.registration import voxel as jvox
+    from slr_torch.registration import voxel as tvox
+
+    tgt, valid, qry = _voxel_case(seed)
+    size = 10.0
+    tj = jvox.build_voxel_hash(jnp.asarray(tgt), jnp.asarray(valid), size,
+                               bucket_cap=bucket_cap)
+    tt = tvox.build_voxel_hash(_t(tgt), torch.from_numpy(valid), size,
+                               bucket_cap=bucket_cap)
+    for a, b in zip(tt, tj):
+        np.testing.assert_array_equal(_np(a), np.asarray(b))
+    kept, row_ids = _np(tt[0]), _np(tt[1])
+    assert (kept >= 0).sum(axis=1).max() == bucket_cap       # buckets overflowed
+    # masked and out-of-window points share the sentinel's row only
+    outside = np.concatenate([np.flatnonzero(~valid), np.arange(2000, len(tgt))])
+    assert not np.isin(outside, kept[row_ids != tvox._INVALID_VID]).any()
+    ij, dj = jvox.voxel_hash_nn(jnp.asarray(qry), jnp.asarray(tgt), *tj, size,
+                                bucket_cap=bucket_cap)
+    it, dt = tvox.voxel_hash_nn(_t(qry), _t(tgt), *tt, size, bucket_cap=bucket_cap)
+    ij, dj, it, dt = np.asarray(ij), np.asarray(dj), _np(it), _np(dt)
+    np.testing.assert_array_equal(it, ij)
+    hit = ij >= 0
+    np.testing.assert_allclose(dt[hit], dj[hit], rtol=1e-5)
+    assert np.isinf(dt[~hit]).all() and np.isinf(dj[~hit]).all()
+    assert (it[-40:] == -1).all()                            # outside the window
+    assert (it[:500] >= 0).all() and (it[500:800] == -1).any()
+    assert valid[it[hit]].all() and (it[hit] < 2000).all()
+
+
+def test_icp_voxel_route_matches_reference():
+    """The voxel route against JAX's, with a masked target and an initial
+    pose: the same correspondences from the same buckets."""
+    src, tgt, n_tgt, R_true, t_true = _icp_case(2000, 9)
+    rng = np.random.default_rng(4)
+    tv = rng.random(len(tgt)) > 0.05
+    sv = rng.random(len(src)) > 0.05
+    R0 = _rot([0.005, -0.01, 0.01])
+    t0 = np.array([2.0, -1.0, 3.0], np.float32)
+    rj = jicp.icp_point_to_plane(
+        jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(n_tgt), jnp.asarray(sv),
+        jnp.asarray(tv), jnp.asarray(R0), jnp.asarray(t0), iters=8,
+        max_corr_dist=15.0, nn_method="voxel")
+    rt = ticp.icp_point_to_plane(
+        _t(src), _t(tgt), _t(n_tgt), torch.from_numpy(sv), torch.from_numpy(tv),
+        _t(R0), _t(t0), iters=8, max_corr_dist=15.0, nn_method="voxel")
+    np.testing.assert_allclose(_np(rt.R), np.asarray(rj.R), atol=5e-4)
+    np.testing.assert_allclose(_np(rt.t), np.asarray(rj.t), atol=2e-2)
+    np.testing.assert_allclose(float(rt.inlier_frac), float(rj.inlier_frac), atol=1e-3)
+    np.testing.assert_allclose(_np(rt.R), R_true, atol=2e-3)
+    np.testing.assert_allclose(_np(rt.t), t_true, atol=0.5)
+
+
+def test_icp_auto_above_crossover_on_cpu_is_the_voxel_route():
+    """Just above 24000^2 pairs "auto" on CPU tensors gives the voxel
+    route's pose, bit for bit."""
+    src, tgt, n_tgt, _, _ = _icp_case(24_001, 10)
+    args = (_t(src), _t(tgt), _t(n_tgt))
+    ra = ticp.icp_point_to_plane(*args, iters=3, max_corr_dist=10.0)
+    rv = ticp.icp_point_to_plane(*args, iters=3, max_corr_dist=10.0, nn_method="voxel")
+    assert torch.equal(ra.R, rv.R) and torch.equal(ra.t, rv.t)
 
 
 def test_icp_projective_matches_reference():
