@@ -13,9 +13,13 @@ point a user calls (``DenseReconstructor``, ``slr_torch.entry``) on the
 config-3 rig (1280x1024 camera, 1024x768 projector): float32, uint8 and
 uint16 ingest, Gray only, row+column midpoint with and without row phase,
 multifreq, ``decode_only`` on a posed camera, the HDR exposure bracket (K2,
-both fusions), and the spatial repair (``spatial_iters=4``: voting, K4 at
-this size and K3 on a smaller camera; wavefront, K5, held to its plain pass
-bit for bit on every case). Then registration (config 4): the sorted-band
+both fusions; and on brackets whose chosen exposure changes inside most
+staged boxes, uint16, float32, ragged and unaligned ones), and the spatial
+repair (``spatial_iters=4``: voting, K4 at this size and K3 on a smaller
+camera, both held to the plain sweep bit for bit also on ragged and
+unaligned maps, float32 ties of the rounding, signed zeros, |Phi| ~ 1e6 and
+masks holed along K4's tile and warp edges, at 1 to 17 sweeps; wavefront,
+K5, held to its plain pass bit for bit on every case). Then registration (config 4): the sorted-band
 search K8 at 256k points, point-to-plane ICP on its band route
 (``icp_point_to_plane``) at 256k (and the same case on the voxel route) and
 between two dense scans,
@@ -41,10 +45,12 @@ exit, as does a machine without a CUDA device. Imports nothing of JAX."""
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -79,6 +85,7 @@ K5_CASES = ((2048, 2448, 0), (215, 300, 0), (1037, 1283, 0), (9000, 40, 0),
             (3, 10240, 0), (64, 1280, 1))
 BLOB_TOL = 1e-3            # rad, a repaired map against the clean phase
 SPATIAL_ITERS = 4
+VOTE_ITERS = (1, 4, 8, 9, 17)   # sweeps of the voting kernels' layout cases
 # registration (config 4): the reference's dense band case
 # (benchmarks/tpu_matrix.py:836-845, 876-897) and its config-4 orbit (:985-995)
 N_BIG = 262144             # points per cloud
@@ -94,10 +101,20 @@ ROT_GATE_DEG, T_GATE_MM = 0.5, 2.0    # tests/test_pipeline.py:124-125
 # a pair costs K8 8 fp32 instructions (3 sub, 3 mul, 2 add; no FMA); the
 # card issues 33.5e12 a second, half its 67 TFLOP/s (an FMA counts 2)
 FP32_ISSUE_PER_S = 33.5e12
-# bounds: fp32 instructions of one voting sweep per pixel (4 neighbour
-# votes of a subtraction, an IEEE division of ~8 instructions, a rint and a
-# compare, then the consensus); K3 and K4 are bound by these, not by bytes
-VOTE_INSTR_PER_PX_SWEEP = 50
+# bounds: instructions of one strict-consensus sweep a pixel, the least
+# work of the function (the operations of csrc/unwrap.cu's edge_vote,
+# vote_round and vote_consensus). A sweep rounds 2 edges a pixel, the one
+# below it and the one to its right, each negated for the edge's other end
+# (a negation folds into the compare that reads it). An edge's vote, 9: the
+# subtraction, the edge's mask test, the NaN select, the reciprocal product
+# and two FMAs, the inf guard, its select and the rint. The consensus, 12: 5
+# equality compares, the 2-of-3 logic, the select of the vote, its != 0
+# test, the take logic, the multiply, the add and the select of the new Phi.
+# 30 in all, one bound for K3 and K4, which compute the same sweep; what a
+# design adds is not counted (K4: 2 shuffles, 32; K3: 4 roundings, not 2, 48,
+# and its index arithmetic and loads). Both are bound by these, not by their
+# bytes
+VOTE_INSTR_PER_PX_SWEEP = 2 * 9 + 12
 # K5's scan: instructions of a compose whose y is CHAIN, counted from the
 # source's operations: with an upstream x that is not KILL, 19 (the two
 # tags' extraction and tests, a subtraction, the reciprocal product and two
@@ -268,6 +285,124 @@ def wave_tree_composes(elig, done, axis):
         tag = torch.cat([tag.narrow(axis, 0, s), torch.where(chain, x, y)], axis)
         s <<= 1
     return arith, kill, every
+
+
+def tie_values(a, quotients=(0.5, 1.5, 2.5, 3.5, -0.5, -1.5, -2.5)):
+    """float32 values y near a + q 2pi whose difference from a, divided by
+    2pi in float32, is exactly q: ties that rounding half to even breaks
+    (0.5 -> 0, 1.5 -> 2, 2.5 -> 2). Some q have no such y near a."""
+    tp, a = np.float32(2 * np.pi), np.float32(a)
+    out = []
+    for q in quotients:
+        y0 = np.array([a + np.float32(q) * tp], np.float32)
+        cands = (y0.view(np.int32) + np.arange(-64, 65, dtype=np.int32)).view(np.float32)
+        out += list(cands[(cands - a) / tp == np.float32(q)][:1])
+    return np.array(out, np.float32)
+
+
+def vote_maps(dev, phase_scene, run, warps, seed=21):
+    """Maps for the voting kernels, name -> (Phi, mask) on ``dev``: rows of
+    299, 301 and 1281 floats (not a multiple of 16 bytes) with holed masks;
+    at 1280x1024 (from numpy's generator): holes along every tile and warp
+    edge of K4 at 1, 4 and 8 sweeps, the same map one float (and byte) off
+    16-byte alignment, a checkerboard of values a float32 tie away from
+    their neighbours, +-0 with +-2pi and denormals, and |Phi| ~ 1e6. K4's
+    thread holds ``run`` rows, its block ``warps`` warps."""
+    rng = np.random.default_rng(seed)
+    maps = {}
+    for H, W in ((215, 299), (215, 301), (1024, 1281)):
+        _, Phi_n, _, mask, _ = phase_scene(H, W, W, H * W // 500, partial=True)
+        maps[f"{W}x{H}"] = (Phi_n, mask)
+    H, W = CAM_H, CAM_W
+    _, Phi_n, _, mask, _ = phase_scene(H, W, 5, 400, partial=True)
+    lines = np.zeros((H, W), bool)
+    for h in (1, 4, 8):
+        ow, oh = 30 * warps + 2 - 2 * h, run - 2 * h
+        for bx in range(-(-W // ow)):
+            c0 = bx * ow - h
+            for c in [bx * ow, bx * ow - 1] + [c0 + 30 * wx + lane for wx in range(warps)
+                                               for lane in (0, 1, 30, 31)]:
+                if 0 <= c < W:
+                    lines[:, c] = True
+        for by in range(-(-H // oh)):
+            lines[max(by * oh - 1, 0):by * oh + 1, :] = True
+    holes = torch.from_numpy(lines & (rng.random((H, W)) < 0.5)).to(dev)
+    maps["tile_warp_edge_holes"] = (Phi_n, mask & ~holes)
+    off = [torch.empty(H * W + 1, dtype=t.dtype, device=dev) for t in maps["tile_warp_edge_holes"]]
+    for b, t in zip(off, maps["tile_warp_edge_holes"]):
+        b[1:] = t.reshape(-1)
+    maps["offset1"] = tuple(b[1:].view(H, W) for b in off)
+    even = (np.add.outer(np.arange(H), np.arange(W)) % 2) == 0
+    ties = np.zeros((H, W), np.float32)
+    for cols, a in ((slice(0, W // 2), 0.0), (slice(W // 2, W), 1.25)):
+        ties[:, cols] = np.where(even[:, cols], np.float32(a),
+                                 rng.choice(tie_values(a), size=(H, W // 2)))
+    zeros = rng.choice(np.float32([0.0, -0.0, 2 * np.pi, -2 * np.pi, 4 * np.pi, 1e-40,
+                                   -1e-40, np.pi]), size=(H, W))
+    large = (np.where(np.arange(W) < W // 2, 1e6, -1e6)[None, :] + np.linspace(0, 60, W)[None, :]
+             + 0.1 * rng.normal(size=(H, W)))
+    large = np.where(rng.random((H, W)) < 0.01, large + 6 * np.pi, large)
+    for name, Phi in (("ties", ties), ("zeros", zeros), ("large_1e6", large)):
+        maps[name] = (torch.from_numpy(Phi.astype(np.float32)).to(dev),
+                      torch.from_numpy(rng.random((H, W)) > 0.1).to(dev))
+    return maps
+
+
+def cu_constant(source, name):
+    """The integer constant ``name`` (a #define or a constexpr int) of
+    slr_torch/kernels/csrc/<source>.cu: the kernels' geometry, read where
+    it is set."""
+    text = (Path(__file__).resolve().parent / "slr_torch" / "kernels" / "csrc"
+            / f"{source}.cu").read_text()
+    return int(re.search(rf"(?:#define {name}|constexpr int {name} =) (\d+)", text)[1])
+
+
+def hdr_best_exposure(stacks, cfg, dec, saturation=0.98, bit_depth=None):
+    """The exposure whose Gray frames K2 and its plain version decode at
+    each pixel: the first of the largest scores, a score being the phase
+    modulation B where the exposure is usable and -1 elsewhere. (H, W)
+    int64, by ``argmax`` over all scores at once rather than the plain
+    version's running best."""
+    from slr_torch.kernels import fused_scan as fs
+    E, _, H, W = stacks.shape
+    c = fs._constants(cfg, dec, stacks.dtype, bit_depth, saturation)
+    base = 2 + 2 * cfg.gray_bits + 2 * cfg.row_gray_bits
+    scores = []
+    for e in range(E):
+        raw, rawf = fs._loaders(stacks[e])
+        S, C = fs._phase_sums(rawf, base, c["sin_d"], c["cos_d"], (H, W), stacks.device)
+        white = raw(0)
+        usable = ((white - raw(1)) > c["tau_black"]) & (white < c["tau_sat"])
+        scores.append(torch.where(usable, c["mod_scale"] * torch.sqrt(S * S + C * C), -1.0))
+    return torch.argmax(torch.stack(scores), dim=0)
+
+
+def box_exposures(best, exposures, box):
+    """For each whole ``box`` (rows, columns) of a best-exposure map, the
+    number of distinct exposures its pixels chose: for K2's staged box,
+    (BOX_H, BOX_W) of csrc/fused_scan.cu; for (1, 32), the exposures whose
+    Gray frames K2 stages for a warp. (H // rows, W // columns) int64."""
+    (H, W), (h, w) = best.shape, box
+    b = best[:H - H % h, :W - W % w].reshape(H // h, h, W // w, w)
+    return sum((b == e).any(dim=3).any(dim=1).long() for e in range(exposures))
+
+
+def k2_box():
+    """K2's staged box, (rows, columns)."""
+    return cu_constant("fused_scan", "BOX_H"), cu_constant("fused_scan", "BOX_W")
+
+
+def k4_design_bytes(H, W, h, run, warps):
+    """Bytes K4 moves in one launch of h sweeps on an (H, W) map: phi and the
+    mask (5 B) of every loaded cell inside the map, each tile with its halo,
+    and 4 B a pixel out."""
+    ow, oh = 30 * warps + 2 - 2 * h, run - 2 * h
+
+    def inside(n, step, width):
+        return sum(min(b * step - h + width, n) - max(b * step - h, 0)
+                   for b in range(-(-n // step)))
+
+    return 5 * inside(W, ow, 30 * warps + 2) * inside(H, oh, run) + 4 * H * W
 
 
 def host_ms(fn, runs=TIMED_RUNS):
@@ -1155,10 +1290,13 @@ def two_camera_phases(dev, counts_of, card, ptxas):
     torch.cuda.empty_cache()
     ms = {k: statistics.median(v) for k, v in times.items()}
     dev_ms = {k: statistics.median(v) for k, v in device.items()}
-    regs = {"k7_merge_layout": next(v for k, v in ptxas.items()
-                                    if "interp_fused_kernelILi4ELi3" in k),
-            "k7_any_layout": next(v for k, v in ptxas.items() if "interp_fused_kernelILi8" in k),
-            "k6": next(v for k, v in ptxas.items() if "bin_sum_kernel" in k)}
+    # ptxas reports only on a fresh build: a rerun in the same checkout
+    # loads the library built before
+    regs = {name: next((v for k, v in ptxas.items() if pattern in k),
+                       "built before this run: not reported")
+            for name, pattern in (("k7_merge_layout", "interp_fused_kernelILi4ELi3"),
+                                  ("k7_any_layout", "interp_fused_kernelILi8"),
+                                  ("k6", "bin_sum_kernel"))}
     (a1, _), (a2, _) = k7_calls[0], k7_calls[1]
     def k7_needed(i):
         code, valid, ch, K, _, gates, dmin, dmax = k7_args(i)
@@ -1552,11 +1690,60 @@ def main():
     check(coverage > 1.3, f"bracket coverage {coverage}x the best single exposure")
     hdr_bytes = (len(HDR_GAINS) * (2 + cfg.phase_steps) + 2 * cfg.gray_bits
                  + 7 * 4) * CAM_H * CAM_W
+    # K2's layouts against its plain version, both fusions, each RMS against
+    # the truth: a bracket whose chosen exposure changes inside most 128 x 2
+    # boxes (squares ~3 px wide), 12-bit data in uint16, float32, 215 rows of
+    # 299 and 301 pixels (rows no 16-byte copy takes), and the bracket 3 bytes
+    # off 16-byte alignment
+    def make_bracket(b_scan, gen_seed=9):
+        g = torch.Generator(device="cuda").manual_seed(gen_seed)
+        return torch.stack([torch.clamp(b_scan.frames * gain + 0.003 * torch.randn(
+            b_scan.frames.shape, generator=g, device=dev), 0.0, 1.0) for gain in HDR_GAINS])
+
+    scan_mix = render_scan(cam_d, proj_d, depth, cfg, albedo=checker_albedo(
+        CAM_H, CAM_W, cells=CAM_W // 3, lo=0.035, hi=0.75, device=dev))
+    bracket_mix = quantize_frames(make_bracket(scan_mix))
+    float_h = make_bracket(scan_h)
+    buf = torch.empty(bracket.numel() + 3, dtype=torch.uint8, device=dev)
+    buf[3:] = bracket.reshape(-1)
+    bracket_off = buf[3:].view(bracket.shape)
+    check(bracket_off.is_contiguous() and bracket_off.data_ptr() % 4 == 3, "offset bracket")
+    hdr_cases = [("mixed_boxes", bracket_mix, cam_d, proj_d, cfg, scan_mix, {}),
+                 ("uint16_bit_depth_12", torch.clamp(torch.round(float_h * m12), 0, m12).to(
+                     torch.uint16), cam_d, proj_d, cfg, scan_h, dict(bit_depth=12)),
+                 ("float32", float_h, cam_d, proj_d, cfg, scan_h, {}),
+                 ("uint8_offset3", bracket_off, cam_d, proj_d, cfg, scan_h, {})]
+    for w in K1_LAYOUT_WIDTHS[:2]:
+        lcam, lproj = default_rig(cam_w=w, cam_h=215, proj_w=256, proj_h=192,
+                                  baseline=150.0, toe_in_deg=14.0, device=dev)
+        lscan = render_scan(lcam, lproj, bumps_depth(215, w, base=480.0, amp=20.0, device=dev),
+                            rcfg, albedo=checker_albedo(215, w, cells=6, lo=0.035, hi=0.75,
+                                                        device=dev))
+        hdr_cases.append((f"uint8_{w}x215", quantize_frames(make_bracket(lscan)), lcam, lproj,
+                          rcfg, lscan, {}))
+    hdr_layouts = {}
+    for name, b, hcam, hproj, hcfg, hscan, kw in hdr_cases:
+        case = {"bracket": list(b.shape), "dtype": str(b.dtype)}
+        for fuse in ("sum", "select"):
+            (o, n1, n2) = counted(lambda: kernel_hdr(b, hcam, hproj, hcfg, dec, fuse=fuse, **kw))
+            check((n1, n2) == (0, 1), f"hdr {name} {fuse}: K1/K2 launched {n1}/{n2} times")
+            a = agreement(o, fs.fused_decode_triangulate_hdr_reference(
+                b, hcam, hproj, hcfg, dec, fuse=fuse, **kw))
+            check_agreement(a, f"hdr {name} {fuse}")
+            errs["k2"].append(a["points_max_abs_err"])
+            rms_c, n_c = rms_vs_truth(o.points.movedim(0, -1), o.mask > 0.5, hscan)
+            check(rms_c <= RMS_GATE_MM, f"hdr {name} {fuse}: RMS {rms_c} mm")
+            case[fuse] = dict(kernel_vs_plain=a, rms_mm=rms_c, valid_points=n_c)
+        chosen = box_exposures(hdr_best_exposure(b, hcfg, dec, **kw), len(HDR_GAINS), k2_box())
+        case["boxes_mixed_share"] = float((chosen >= 2).float().mean())
+        hdr_layouts[name] = case
+    check(hdr_layouts["mixed_boxes"]["boxes_mixed_share"] > 0.5,
+          "the mixed bracket's boxes agree")
     emit("k2_hdr_bracket", launches=launches_hdr, rms_mm=rms_h, valid_points=n_h,
          coverage_vs_best_single=coverage, best_single_valid=best_single,
          coverage_vs_best_single_k1=int(cloud_h.mask.sum()) / best_single_k1,
          bracket=list(bracket.shape), dtype=str(bracket.dtype),
-         fuse=hdr, bytes=hdr_bytes)
+         fuse=hdr, bytes=hdr_bytes, layouts=hdr_layouts)
 
     # phase 15: the voting kernels K3 and K4 against the plain sweep, bit for
     # bit: the reference's 400-error scene at 1280x1024 (as
@@ -1600,6 +1787,23 @@ def main():
             voting[f"{name}_iters{iters}"] = dict(
                 bit_equal=True, seeded_max_abs_err=fixed_err,
                 repaired=int(((k4 - Phi_n).abs() > 1.0).sum()), seeded=int(bad.sum()))
+    # the layouts and values K4's design has to take, K3 and K4 each against
+    # the plain sweep bit for bit (the signs of zeros included) at 1 to 17
+    # sweeps (9 and 17 take more than one K4 launch)
+    k4_geometry = cu_constant("unwrap", "K4_RUN"), cu_constant("unwrap", "K4_WARPS")
+    for name, (Phi_v, mask_v) in vote_maps(dev, phase_scene, *k4_geometry).items():
+        q_v = torch.ones_like(Phi_v)
+        for iters in VOTE_ITERS:
+            plain = pu.spatial_quality_unwrap(Phi_v, q_v, mask_v, iters)
+            k3 = us.launch_vote_resident(Phi_v, mask_v, iters)
+            k4, n = counts_of(lambda: us.quality_unwrap_tiled(Phi_v, q_v, mask_v, iters))
+            check(n["k4"] == -(-iters // us.MAX_HALO), f"K4 {name} iters {iters}: launches {n}")
+            for k, got in (("k3", k3), ("k4", k4)):
+                check(torch.equal(got.view(torch.int32), plain.view(torch.int32)),
+                      f"{k.upper()} {name} iters {iters}: not bit-equal")
+                errs[k].append(float((got - plain).abs().max()))
+            voting[f"{name}_iters{iters}"] = dict(bit_equal=True, k4_launches=n["k4"],
+                                                  moved=int((plain != Phi_v).sum()))
     emit("k3_k4_voting", **voting)
 
     # phase 16: K5 against its plain pass: the light repair (8 launches),
@@ -1657,9 +1861,13 @@ def main():
         wave[f"alone_{H}x{W}" + (f"_offset{off}" if off else "")] = dict(
             bit_equal=True, passes=4, done_after=float(got[1].float().mean()))
     # K5 rounds (x - ps) / 2pi by a reciprocal and one FMA correction: the
-    # same bits as the IEEE division on every float32 input
-    wave["cycles_mismatches_of_2e32"] = wf.cycles_mismatches(dev)
-    check(wave["cycles_mismatches_of_2e32"] == 0, "K5's rounding differs from the division")
+    # same bits as the IEEE division on every float32 input; the voting
+    # kernels' rounding too, but for the sign of a zero
+    k5_round, vote_round = wf.cycles_mismatches(dev)
+    wave["cycles_mismatches_of_2e32"] = k5_round
+    wave["vote_round_mismatches_of_2e32"] = vote_round
+    check(k5_round == 0, "K5's rounding differs from the division")
+    check(vote_round == 0, "K3's and K4's rounding differs from the division")
     emit("k5_wavefront", **wave)
 
     # phase 17: the spatial repair on the main path: DenseReconstructor with
@@ -1796,24 +2004,41 @@ def main():
     ms = {k: statistics.median(v) for k, v in times.items()}
     spread = {f"{k}_ms_spread": [min(v), max(v)] for k, v in times.items()}
     px = CAM_H * CAM_W
-    tiles = -(-CAM_W // us.TILE_W) * -(-CAM_H // 64)
     moved = {"kernel": (4 * cfg.num_frames + 7 * 4) * px,
              "kernel_uint8": (cfg.num_frames + 7 * 4) * px,
              "kernel_uint16": (2 * cfg.num_frames + 7 * 4) * px,
              "kernel_hdr": hdr_bytes,
-             # K3: phi and mask in, out (and scratch) written once; the
-             # sweeps between run in L2
-             **{f"k3_{it}": (4 + 1 + 4 + 4) * px for it in (SPATIAL_ITERS, 8)},
-             # K4: phi and mask of every tile with its halo in, the map out
-             **{f"k4_{it}": tiles * (64 + 2 * it) ** 2 * 5 + 4 * px
-                for it in (SPATIAL_ITERS, 8)},
+             # K3 and K4, the same sweeps: phi and mask in, the map out, each
+             # once (K3's scratch map, whose sweeps between run in L2, and
+             # K4's tiles' halo re-reads are the designs', K4's in
+             # design_bytes)
+             **{f"k{n}_{it}": (4 + 1 + 4) * px for n in (3, 4) for it in (SPATIAL_ITERS, 8)},
              # K5: phi, Phi (4 B), elig, done (1 B) in; Phi, done out
              "k5_rows": 15 * px, "k5_cols": 15 * px}
     gbs = {f"{k}_gb_s": b / (ms[k] * 1e-3) / 1e9 for k, b in moved.items()}
+    # what the designs read and write: K4 its tiles with their halos; K2
+    # the frames every pixel reads, then the Gray frames of the exposures
+    # each warp's 32-pixel row segment chose (whole boxes; config 3 has no
+    # other); K2's boxes (128 x 2) and warp segments that chose more than one
+    best = {k: hdr_best_exposure(b, cfg, dec)
+            for k, b in (("kernel_hdr", bracket), ("kernel_hdr_mixed", bracket_mix))}
+    design_bytes = {**{f"k4_{it}": k4_design_bytes(CAM_H, CAM_W, it, *k4_geometry)
+                       for it in (SPATIAL_ITERS, 8)},
+                    **{k: (len(HDR_GAINS) * (2 + cfg.phase_steps) + 7 * 4) * px
+                       + int(box_exposures(m, len(HDR_GAINS), (1, 32)).sum())
+                       * 2 * cfg.gray_bits * 32 for k, m in best.items()}}
+    mixed_share = {f"{k}_{unit}": float((box_exposures(m, len(HDR_GAINS), box) >= 2)
+                                        .float().mean())
+                   for k, m in best.items()
+                   for unit, box in (("boxes", k2_box()), ("warps", (1, 32)))}
     # the kernels alone on the device: CUDA-graph replays (K3: back-to-back
     # launches), median per launch, in turns
-    device_runs = ("kernel", "kernel_uint8", "kernel_uint16", "kernel_hdr",
-                   f"k4_{SPATIAL_ITERS}", "k5_rows", "k5_cols")
+    runs["kernel_hdr_mixed"] = lambda: fs.launch_fused_scan_hdr(bracket_mix, params_h)
+    params_hf = fs.scan_params(cam_d, proj_d, cfg, dec, (1.0, 1e4), 8, CAM_H, CAM_W,
+                               exposures=len(HDR_GAINS))
+    runs["kernel_hdr_float32"] = lambda: fs.launch_fused_scan_hdr(float_h, params_hf)
+    device_runs = ("kernel", "kernel_uint8", "kernel_uint16", "kernel_hdr", "kernel_hdr_mixed",
+                   "kernel_hdr_float32", f"k4_{SPATIAL_ITERS}", "k5_rows", "k5_cols")
     device_times = {k: [] for k in (*device_runs, f"k3_{SPATIAL_ITERS}")}
     for _ in range(2):
         for k in device_runs:
@@ -1829,6 +2054,8 @@ def main():
          **{f"{k}_device_ms": v for k, v in device_ms.items()},
          **{f"{k}_device_ms_spread": [min(v), max(v)] for k, v in device_times.items()},
          **{f"{k}_bytes": b for k, b in moved.items()}, **gbs,
+         **{f"{k}_design_bytes": b for k, b in design_bytes.items()},
+         **{f"{k}_mixed_share": v for k, v in mixed_share.items()},
          hbm_peak_gb_s=HBM_PEAK_TBS * 1e3,
          **{k.replace("gb_s", "hbm_share"): v / (HBM_PEAK_TBS * 1e3)
             for k, v in gbs.items()},
@@ -1891,7 +2118,16 @@ def main():
         "ms": ms["kernel_hdr"],
         "plain_ms": ms["plain_hdr"],
         **bound(moved["kernel_hdr"]), "library_ms": None,
+        "bytes": moved["kernel_hdr"],
+        "design_bytes": design_bytes["kernel_hdr"],
+        "boxes_mixed_share": mixed_share["kernel_hdr_boxes"],
+        "warps_mixed_share": mixed_share["kernel_hdr_warps"],
         "device_ms": device_ms["kernel_hdr"],
+        "device_ms_mixed_boxes": device_ms["kernel_hdr_mixed"],
+        "device_ms_float32": device_ms["kernel_hdr_float32"],
+        "bound_ms_float32": bound(4 * (moved["kernel_hdr"] - 7 * 4 * px) + 7 * 4 * px)["bound_ms"],
+        "design_bytes_mixed_boxes": design_bytes["kernel_hdr_mixed"],
+        "boxes_mixed_share_mixed_boxes": mixed_share["kernel_hdr_mixed_boxes"],
     }, {
         "name": "quality_unwrap",
         "route": "cuda",
@@ -1918,6 +2154,8 @@ def main():
         "ms_iters8": ms["k4_8"],
         "plain_ms_iters8": ms["plain_vote8"],
         **bound(moved[f"k4_{SPATIAL_ITERS}"], vote_instr), "library_ms": None,
+        "bytes": moved[f"k4_{SPATIAL_ITERS}"],
+        "design_bytes": design_bytes[f"k4_{SPATIAL_ITERS}"],
         "device_ms": device_ms[f"k4_{SPATIAL_ITERS}"],
     }, {
         "name": "wavefront_pass",

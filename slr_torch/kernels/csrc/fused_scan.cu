@@ -25,9 +25,10 @@
 // shared memory by 16-byte asynchronous copies, all in flight at once, then
 // decodes and triangulates one pixel a thread from there; a box those
 // copies cannot take whole decodes from device memory (see
-// fused_scan_kernel). K2 reads its frames straight from device memory, one
-// thread per camera pixel on a 2-D grid, a warp on 32 neighbouring pixels
-// of one row, frames H*W apart. Integer frames are widened to int: the
+// fused_scan_kernel). K2 stages its bracket the same way in two rounds: the
+// frames every pixel reads, then, a warp at a time, the Gray frames of only
+// the exposures the warp's pixels chose (see fused_scan_hdr_kernel).
+// Integer frames are widened to int: the
 // Gray bits and the contrast, certainty and saturation gates compare raw
 // counts against integer thresholds (as the TPU kernel does); only phase
 // frames are converted to float. Every intermediate lives in registers and
@@ -42,6 +43,8 @@
 
 #define SLR_MAX_STEPS 32
 #define SLR_MAX_LEVELS 8
+#define SLR_MAX_SMEM 232448  // bytes of shared memory a block may opt in to
+#define SLR_SM_SMEM 233472   // bytes of shared memory an SM has
 
 // Mirrored field for field by _ScanParams in slr_torch/kernels/fused_scan.py;
 // slr_fused_scan_params_size() lets the loader check the two agree. Float
@@ -255,19 +258,25 @@ __device__ __forceinline__ void undistort(float xd, float yd, float k1, float k2
   }
 }
 
-// Camera ray, plane or midpoint triangulation, depth bounds and the seven
-// output planes of `out` (points x3, mask, quality, x_p, y_p).
+// The camera ray d = (xn, yn, 1) of pixel (u, v), unnormalized: its
+// parameter is depth z. It needs no frame, so K2 computes it while its
+// copies are in flight.
+__device__ __forceinline__ void camera_ray(const SlrScanParams& p, int u, int v, float& xn,
+                                           float& yn) {
+  undistort(((float)u - p.cx) / p.fx, ((float)v + p.row_offset - p.cy) / p.fy, p.k1, p.k2, p.p1,
+            p.p2, p.k3, p.undistort_iters, xn, yn);
+}
+
+// Plane or midpoint triangulation of the camera ray (xn, yn, 1) (unread by
+// decode only), depth bounds and the seven output planes of `out` (points
+// x3, mask, quality, x_p, y_p).
 template <int G>
-__device__ __forceinline__ void triangulate_write(const SlrScanParams& p, int u, int v,
+__device__ __forceinline__ void triangulate_write(const SlrScanParams& p, float xn, float yn,
                                                   size_t pix, size_t hw, const Decoded& d,
                                                   float* __restrict__ out) {
   bool valid = d.valid;
   float X = 0.0f, Y = 0.0f, Z = 0.0f;
   if (G != kDecodeOnly) {
-    // camera ray d = (xn, yn, 1), unnormalized: its parameter is depth z
-    float xn, yn;
-    undistort(((float)u - p.cx) / p.fx, ((float)v + p.row_offset - p.cy) / p.fy, p.k1, p.k2,
-              p.p1, p.p2, p.k3, p.undistort_iters, xn, yn);
     float lam;
     if (G == kPlane) {
       // ray x projector column plane: n_p = (1, 0, -xnp), n_w = R^T n_p
@@ -384,49 +393,42 @@ fused_scan_kernel(const T* __restrict__ frames, float* __restrict__ out,
   const Decoded d =
       staged ? decode_pixel<T, MF, true>(box + threadIdx.y * BOX_W + threadIdx.x, AREA, p)
              : decode_pixel<T, MF, false>(frames + pix, hw, p);
-  triangulate_write<G>(p, u, v, pix, hw, d, out);
+  float xn = 0.0f, yn = 0.0f;
+  if (G != kDecodeOnly) camera_ray(p, u, v, xn, yn);
+  triangulate_write<G>(p, xn, yn, pix, hw, d, out);
 }
 
-// K2. One pass over the exposures: each one's phase sums, modulation B and
-// usability (contrast above tau_black, white below saturation); the running
-// best (score = B if usable else -1, replaced only by a larger score, so the
-// first exposure wins ties) with its sums, and the running sums of B*S, B*C
-// and B over the usable ones. Then the Gray frames of the best exposure only.
-template <typename T, int G>
-__global__ void __launch_bounds__(256)
-fused_scan_hdr_kernel(const T* __restrict__ stacks, float* __restrict__ out,
-                      const __grid_constant__ SlrScanParams p) {
-  const int u = blockIdx.x * blockDim.x + threadIdx.x;
-  const int v = blockIdx.y * blockDim.y + threadIdx.y;
-  if (u >= p.width || v >= p.height) return;
-  const size_t hw = (size_t)p.height * p.width;
-  const size_t pix = (size_t)v * p.width + u;
-  const int base = 2 + 2 * p.bits + 2 * p.row_bits;
-  const size_t stride = (size_t)(base + p.steps + p.row_steps) * hw;  // one exposure
+// K2's choice for one pixel: the best exposure (the first of the largest
+// scores), its score, and the phase sums the decode takes.
+struct HdrChoice {
+  int best;
+  float score, S, C, Sr, Cr;
+};
 
-  int best = 0;
-  float best_score = -1.0f;
-  float bS = 0.0f, bC = 0.0f, bSr = 0.0f, bCr = 0.0f;             // select
+// One pass over the exposures, exposure e's frames at f + e stride, f + e
+// stride + hw, ...: each one's phase sums, modulation B and usability
+// (contrast above tau_black, white below saturation); the running best
+// (score = B if usable else -1, replaced only by a larger score, so the
+// first exposure wins ties) with its sums, and the running sums of B*S, B*C
+// and B over the usable ones.
+template <typename T, bool SH>
+__device__ __forceinline__ HdrChoice hdr_choose(const T* f, size_t hw, size_t stride,
+                                                const SlrScanParams& p) {
+  const int base = 2 + 2 * p.bits + 2 * p.row_bits;
+  HdrChoice b{0, -1.0f, 0.0f, 0.0f, 0.0f, 0.0f};                  // select
   float sw = 0.0f, sS = 0.0f, sC = 0.0f, sSr = 0.0f, sCr = 0.0f;  // sum
   for (int e = 0; e < p.exposures; ++e) {
-    const T* f = stacks + e * stride + pix;
+    const T* fe = f + e * stride;
     float S, C, Sr = 0.0f, Cr = 0.0f;
-    phase_sums(f, hw, base, p.steps, p.sin_d, p.cos_d, S, C);
+    phase_sums<T, SH>(fe, hw, base, p.steps, p.sin_d, p.cos_d, S, C);
     if (p.row_steps)
-      phase_sums(f, hw, base + p.steps, p.row_steps, p.row_sin_d, p.row_cos_d, Sr, Cr);
+      phase_sums<T, SH>(fe, hw, base + p.steps, p.row_steps, p.row_sin_d, p.row_cos_d, Sr, Cr);
     const float B = p.mod_scale * sqrtf(S * S + C * C);
-    const auto white = Frame<T>::load(f);
-    const bool usable = (white - Frame<T>::load(f + hw)) > Frame<T>::tau_black(p) &&
+    const auto white = Frame<T, SH>::load(fe);
+    const bool usable = (white - Frame<T, SH>::load(fe + hw)) > Frame<T>::tau_black(p) &&
                         white < Frame<T>::tau_sat(p);
     const float score = usable ? B : -1.0f;
-    if (e == 0 || score > best_score) {
-      best = e;
-      best_score = score;
-      bS = S;
-      bC = C;
-      bSr = Sr;
-      bCr = Cr;
-    }
+    if (e == 0 || score > b.score) b = HdrChoice{e, score, S, C, Sr, Cr};
     const float w = usable ? B : 0.0f;
     sw = sw + w;
     sS = sS + w * S;
@@ -436,15 +438,117 @@ fused_scan_hdr_kernel(const T* __restrict__ stacks, float* __restrict__ out,
   }
   if (p.fuse == kSum) {
     const float norm = fmaxf(sw, 1e-20f);
-    bS = sS / norm;
-    bC = sC / norm;
-    bSr = sSr / norm;
-    bCr = sCr / norm;
+    b.S = sS / norm;
+    b.C = sC / norm;
+    b.Sr = sSr / norm;
+    b.Cr = sCr / norm;
   }
-  const T* f = stacks + best * stride + pix;
-  const Decoded d =
-      gray_phase_decode(f, hw, p, best_score >= 0.0f, (typename Frame<T>::Raw)0, bS, bC, bSr, bCr);
-  triangulate_write<G>(p, u, v, pix, hw, d, out);
+  return b;
+}
+
+// K2: a block of BOX_W x BOX_H pixels, as K1's. Bound: bytes, 60 B a pixel
+// at config 3 (white, black and the 4 phase frames of 3 exposures, the 14
+// Gray frames of one, 28 B out). Read one frame at a time by each thread, a
+// warp load of a uint8 frame is one 32-byte sector and a thread has about
+// one in flight, behind its phase sums' FMA chain; and a warp's Gray reads
+// split over the exposures its pixels chose. So the box is staged as K1's:
+// (1) white, black and the phase frames of every exposure, E (2 + steps +
+// row_steps) frames, by 16-byte cp.async copies, all in flight before any is
+// awaited, while each thread computes its camera ray (the 8-step
+// undistortion needs no frame); (2) each pixel's choice from shared memory;
+// (3) each warp votes (__any_sync per exposure) on the exposures its 32
+// pixels chose and copies those exposures' Gray frames of its own row
+// segment, 32 pixels a frame, so that a warp whose pixels agree reads the
+// least bytes and no warp waits on another's copies or on a block barrier;
+// (4) the decode and the triangulation from shared memory. Round (3) waits
+// on round (2)'s choice, so a warp has two memory latencies in series; as
+// many resident blocks as the SM holds overlap them (K2Occupancy). The
+// staged box keeps the stack's layout [exposure][frame][row][column], so
+// the decode functions read it as they read device memory, with the box's
+// area for the frame stride; the launch reserves the whole bracket's box,
+// E F BOX_W BOX_H elements (15.4 KB for a uint8 bracket of 3 x 20 frames;
+// 61.4 KB as float32, past the 48 KB default). A box no 16-byte copy takes
+// whole (rows not a multiple of 16 bytes, a base off 16-byte alignment, the
+// ragged edge), or a bracket whose box would not fit in shared memory,
+// decodes from device memory. TMA would need a tensor map built on the host
+// for every bracket shape and type; a box is 2 rows of 128 to 512 bytes a
+// frame, which 16-byte copies move in one or two instructions a thread, so
+// cp.async serves as well.
+//
+// The resident blocks an SM that K2's register budget is cut for: 6 (at
+// most 40 registers a thread), or fewer where config 3's staged box (3
+// exposures of 20 frames, and the 1 KB an SM reserves a block) lets fewer
+// fit in an SM's shared memory: 6 for uint8 and uint16, 3 for float32,
+// whose threads then keep up to 80 registers.
+template <typename T>
+struct K2Occupancy {
+  static constexpr int kBox = 3 * 20 * BOX_W * BOX_H * (int)sizeof(T) + 1024;
+  static constexpr int kBlocks = SLR_SM_SMEM / kBox < 6 ? SLR_SM_SMEM / kBox : 6;
+};
+
+template <typename T, int G>
+__global__ void __launch_bounds__(BOX_W * BOX_H, K2Occupancy<T>::kBlocks)
+fused_scan_hdr_kernel(const T* __restrict__ stacks, float* __restrict__ out,
+                      const __grid_constant__ SlrScanParams p, int nframes, int aligned) {
+  extern __shared__ __align__(16) unsigned char k2_box[];
+  T* box = reinterpret_cast<T*>(k2_box);  // [exposure][frame][row][column] of the box
+  constexpr int AREA = BOX_W * BOX_H;
+  constexpr int PER = 16 / (int)sizeof(T);  // pixels a 16-byte copy
+  constexpr int CHUNKS = BOX_W / PER;       // copies a box row
+  const int tid = threadIdx.y * BOX_W + threadIdx.x;
+  const int u0 = blockIdx.x * BOX_W, v0 = blockIdx.y * BOX_H;
+  const int u = u0 + threadIdx.x, v = v0 + threadIdx.y;
+  const size_t hw = (size_t)p.height * p.width;
+  const size_t pix = (size_t)v * p.width + u;
+  // the same for every thread of the block
+  const bool staged = aligned && u0 + BOX_W <= p.width && v0 + BOX_H <= p.height;
+  if (!staged) {
+    if (u >= p.width || v >= p.height) return;
+    const HdrChoice b = hdr_choose<T, false>(stacks + pix, hw, nframes * hw, p);
+    const Decoded d = gray_phase_decode<T, false>(stacks + b.best * nframes * hw + pix, hw, p,
+                                                  b.score >= 0.0f, (typename Frame<T>::Raw)0,
+                                                  b.S, b.C, b.Sr, b.Cr);
+    float xn, yn;
+    camera_ray(p, u, v, xn, yn);
+    triangulate_write<G>(p, xn, yn, pix, hw, d, out);
+    return;
+  }
+  // (1) white, black and the phase frames of every exposure, by the block
+  const int gray = 2 * p.bits + 2 * p.row_bits, base = 2 + gray;
+  const int first = 2 + p.steps + p.row_steps;  // frames a pixel reads of every exposure
+  for (int c = tid; c < p.exposures * first * BOX_H * CHUNKS; c += AREA) {
+    const int j = c / (CHUNKS * BOX_H), e = j / first, k = j % first;
+    const int slot = e * nframes + (k < 2 ? k : base + k - 2);  // e * nframes + frame
+    const int q = c % CHUNKS, r = (c / CHUNKS) % BOX_H;
+    cp_async16(box + (slot * BOX_H + r) * BOX_W + q * PER,
+               stacks + slot * hw + (size_t)(v0 + r) * p.width + u0 + q * PER);
+  }
+  float xn, yn;
+  camera_ray(p, u, v, xn, yn);  // while the copies fly
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  // (2) the choice
+  const T* f = box + threadIdx.y * BOX_W + threadIdx.x;
+  const HdrChoice b = hdr_choose<T, true>(f, AREA, nframes * AREA, p);
+  // (3) the Gray frames of the exposures the warp's 32 pixels chose, by
+  // the warp alone: a warp's row of the box, WCH 16-byte copies a frame
+  constexpr int WCH = 32 / PER;
+  const int lane = threadIdx.x % 32, w0 = threadIdx.x - lane;  // the warp's first column
+  for (int e = 0; e < p.exposures; ++e) {
+    if (!__any_sync(0xffffffffu, b.best == e)) continue;
+    for (int c = lane; c < gray * WCH; c += 32) {
+      const int slot = e * nframes + 2 + c / WCH, q = c % WCH;
+      cp_async16(box + (slot * BOX_H + threadIdx.y) * BOX_W + w0 + q * PER,
+                 stacks + slot * hw + (size_t)v * p.width + u0 + w0 + q * PER);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncwarp();
+  // (4) decode and triangulate
+  const Decoded d = gray_phase_decode<T, true>(f + b.best * nframes * AREA, AREA, p,
+                                               b.score >= 0.0f, (typename Frame<T>::Raw)0,
+                                               b.S, b.C, b.Sr, b.Cr);
+  triangulate_write<G>(p, xn, yn, pix, hw, d, out);
 }
 
 template <typename T, int G, bool MF>
@@ -483,18 +587,33 @@ cudaError_t launch_k1(const void* frames, float* out, const SlrScanParams& p,
   return cudaErrorInvalidValue;
 }
 
+template <typename T, int G>
+cudaError_t launch_k2_kernel(const T* s, float* out, const SlrScanParams& p,
+                             cudaStream_t stream) {
+  const int nframes = 2 + 2 * p.bits + 2 * p.row_bits + p.steps + p.row_steps;
+  size_t smem = (size_t)p.exposures * nframes * BOX_W * BOX_H * sizeof(T);
+  const int aligned = reinterpret_cast<uintptr_t>(s) % 16 == 0 &&
+                      (p.width * sizeof(T)) % 16 == 0 && smem <= SLR_MAX_SMEM;
+  if (!aligned) smem = 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_scan_hdr_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((p.width + BOX_W - 1) / BOX_W, (p.height + BOX_H - 1) / BOX_H);
+  fused_scan_hdr_kernel<T, G><<<grid, dim3(BOX_W, BOX_H), smem, stream>>>(s, out, p, nframes,
+                                                                         aligned);
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t launch_k2(const void* stacks, float* out, const SlrScanParams& p, dim3 grid,
-                      dim3 block, cudaStream_t stream) {
+cudaError_t launch_k2(const void* stacks, float* out, const SlrScanParams& p,
+                      cudaStream_t stream) {
   const T* s = static_cast<const T*>(stacks);
   if (p.multifreq || p.steps <= 0 || p.exposures <= 0) return cudaErrorInvalidValue;
-  if (p.geometry == kPlane)
-    fused_scan_hdr_kernel<T, kPlane><<<grid, block, 0, stream>>>(s, out, p);
-  else if (p.geometry == kMidpoint)
-    fused_scan_hdr_kernel<T, kMidpoint><<<grid, block, 0, stream>>>(s, out, p);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  if (p.geometry == kPlane) return launch_k2_kernel<T, kPlane>(s, out, p, stream);
+  if (p.geometry == kMidpoint) return launch_k2_kernel<T, kMidpoint>(s, out, p, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -529,12 +648,10 @@ int slr_fused_scan_hdr(const void* stacks, float* out, const SlrScanParams* para
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const SlrScanParams& p = *params;
-  const dim3 block(32, 8);
-  const dim3 grid((p.width + block.x - 1) / block.x, (p.height + block.y - 1) / block.y);
   switch (p.dtype) {
-    case 0: return (int)launch_k2<float>(stacks, out, p, grid, block, stream);
-    case 1: return (int)launch_k2<uint8_t>(stacks, out, p, grid, block, stream);
-    case 2: return (int)launch_k2<uint16_t>(stacks, out, p, grid, block, stream);
+    case 0: return (int)launch_k2<float>(stacks, out, p, stream);
+    case 1: return (int)launch_k2<uint8_t>(stacks, out, p, stream);
+    case 2: return (int)launch_k2<uint16_t>(stacks, out, p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -11,28 +11,69 @@
 // spatial_quality_unwrap (propagation_step) and ::directional_pass.
 //
 // Numerics: K3 and K4 equal the plain version bit for bit, and K5 does
-// where the plain version's divisions do. So every vote is
-// rintf(__fdiv_rn(d, 2pi)): an IEEE division (no fast math), rounded half
-// to even as torch.round; every Phi + 2pi k is __fadd_rn(Phi,
-// __fmul_rn(2pi, k)), two roundings as in the two torch ops, which nvcc
-// would otherwise contract into one FMA. A vote stays a float: on a
-// neighbour outside the mask it may be huge, and is never converted.
+// where the plain version's divisions do. Every vote is round(d / 2pi) as
+// the plain version's IEEE division and torch.round (half to even) give
+// it; the kernels take it as a reciprocal product and one FMA correction
+// (K5: cycles_recip, equal to rintf(__fdiv_rn(d, 2pi)) in every bit on all
+// 2^32 float32 inputs; K3, K4: vote_round, equal to it but for the sign of
+// a zero, which a vote never shows; slr_wavefront_cycles_check, run by the
+// tests and chip_smoke.py), without the division's slow path. Every Phi + 2pi k is
+// __fadd_rn(Phi, __fmul_rn(2pi, k)), two roundings as in the two torch
+// ops, which nvcc would otherwise contract into one FMA. A vote stays a
+// float: on a neighbour outside the mask it may be huge, and is never
+// converted.
+//
+// The vote (vote_consensus, shared by K3 and K4). A pixel moves by the vote
+// that at least 3 of its valid neighbours share when it is not 0. Of 4
+// votes at most one value can be shared by 3, so the reference's "first
+// best in the order above, below, left, right" never decides anything the
+// count does not: the consensus is "vote 0 and two others agree, or votes
+// 1, 2 and 3 agree", 5 compares in place of the reference's 16. And the
+// vote across an edge whose two pixels are both in the mask is one
+// rounding seen from both ends: IEEE subtraction and division and rounding
+// half to even are sign-symmetric, so round((Phi_j - Phi_i) / 2pi) is
+// -round((Phi_i - Phi_j) / 2pi), up to the sign of a zero vote, which is
+// never counted (a vote is compared with == and != 0 only). A vote from a
+// neighbour outside the mask is never counted, and a pixel outside the mask
+// never moves: so the vote across an edge with an end outside the mask is
+// NaN, which equals nothing, and the consensus needs no mask at all. So K4
+// rounds each edge once (a vertical and a horizontal edge a pixel and
+// sweep, not 4 votes), and K3, which sweeps the map pixel by pixel, rounds
+// each of its 4 votes.
 //
 // Bounds and design:
-// - A sweep reads 5 values per pixel and does ~4 divisions, so a sweep out
-//   of device memory would be bound by bandwidth (5 B in, 4 B out per pixel
-//   and sweep). The TPU kept the map in VMEM for all sweeps; here K4 keeps
-//   a tile in shared memory (temporal blocking): a block loads a
-//   TILE_H x 64 tile with a halo of h cells on every side, runs h sweeps in
-//   shared memory (ping-pong buffers, one barrier per sweep), and writes
-//   the interior. Sweep t updates only the cells at depth >= t from the
-//   loaded region's edge, which read cells at depth >= t - 1: every value
-//   read is exact, so h sweeps with a halo of h are exact (the reference's
-//   halo >= iters argument). Cells outside the image load as mask 0, phi 0:
-//   the reference's zero fill. Device traffic per launch: (4 + 1) B per
-//   loaded cell (tile plus halo: 1.56x the tile at h = 8, TILE_H = 64) and
-//   4 B per pixel out. More sweeps than SLR_MAX_HALO take one launch per
+// - A sweep reads 5 values per pixel, so sweeps out of device memory would
+//   be bound by bandwidth (5 B in, 4 B out per pixel and sweep). The TPU
+//   kept the map in VMEM for all sweeps; K4 keeps a tile in registers
+//   (temporal blocking): a launch reads phi and the mask once, runs h
+//   sweeps and writes the map once, so the least time is its arithmetic
+//   (2 roundings and the consensus a pixel and sweep) or its 9 B a pixel.
+//   Sweep t updates only the cells at depth >= t from the loaded region's
+//   edge, which read cells at depth >= t - 1: every value read is exact, so
+//   h sweeps with a halo of h are exact (the reference's halo >= iters
+//   argument). Cells outside the image load as mask 0, phi 0: the
+//   reference's zero fill. More sweeps than SLR_MAX_HALO take one launch per
 //   chunk, each exact.
+// - K4's layout: a thread holds a run of K4_RUN rows of one column in
+//   registers, lanes along a row, K4_WARPS warps side by side. The pixel
+//   above and below is a register, left and right a shuffle; the right
+//   edge's vote is rounded by the left pixel and handed to the right one by
+//   a shuffle. Lanes 1..30 of a warp are its own columns, lanes 0 and 31
+//   copies of the neighbouring warps' edge columns, refreshed through shared
+//   memory after each sweep (double-buffered: one barrier a sweep), so a
+//   block's tile is 30 K4_WARPS + 2 columns wide with a halo of h on its
+//   outer edges only; rows take their halo inside the run. At config 3 (h =
+//   4) a tile computes 1.43 cells for each pixel it writes (122 x 32 loaded
+//   for 114 x 24 out; 1.61 over the grid with its ragged edge). Nothing
+//   waits on shared memory inside a sweep. A thread's mask is a word of
+//   bits, and so are its edges with both ends in the mask. The loads are one
+//   float and one byte a row a thread, coalesced along the warp's row, all
+//   2 K4_RUN of them issued before the first sweep; at most 128 registers a
+//   thread keep the grid (516 blocks of 128 threads at config 3) resident in
+//   one wave, so a launch waits on its loads once. A persistent grid would
+//   give each block about one tile at config 3: there is no second tile to
+//   prefetch. Scalar loads take a map at any alignment and width, so no
+//   separate unaligned path exists.
 // - K3 is the card's form of "whole map resident, one launch": a
 //   cooperative launch of as many blocks as fit on the card at once sweeps
 //   the whole map in global memory, with a grid-wide barrier between
@@ -78,8 +119,13 @@ namespace cg = cooperative_groups;
 extern __shared__ float k5_smem[];
 
 #define SLR_MAX_HALO 8
-#define SLR_TILE_W 64
 #define SLR_BLOCK 256
+// K4: rows a thread holds (the tile's height with its halo), warps a block,
+// and the blocks an SM must hold (at most 128 registers a thread), so that
+// config 3's grid is resident at once
+constexpr int K4_RUN = 32;
+constexpr int K4_WARPS = 4;
+constexpr int K4_BLOCKS_PER_SM = 4;
 #define SLR_MAX_SMEM 232448  // bytes of shared memory a block may opt in to
 // K5's two builds: 8 elements a thread and at most 1,024 threads a block
 // (lines up to 8,192), 16 and 640 (up to 10,240); a column pass takes up to
@@ -97,28 +143,49 @@ __device__ __forceinline__ float cycles(float x) {
   return rintf(__fdiv_rn(x, kTwoPi));
 }
 
-// The new Phi of one pixel (phase pc, mask mc) from its neighbours above,
-// below, left and right (phase nb, mask nm; outside the image: 0, false):
-// the vote that most valid neighbours share, the first best in that order,
-// when at least 3 share it and it is not 0.
-__device__ __forceinline__ float vote(float pc, bool mc, const float nb[4],
-                                      const bool nm[4]) {
-  float k[4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-    k[n] = cycles(__fsub_rn(__fmul_rn(nb[n], nm[n] ? 1.f : 0.f), pc));
-  float best_count = 0.f, best_k = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float count = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) count += (nm[j] && k[j] == k[i]) ? 1.f : 0.f;
-    if (nm[i] && k[i] != 0.f && count > best_count) {
-      best_count = count;
-      best_k = k[i];
-    }
-  }
-  return (mc && best_count >= 3.f) ? __fadd_rn(pc, __fmul_rn(kTwoPi, best_k)) : pc;
+// round(x / 2pi) as cycles(x) gives it, without the division's slow path:
+// q0 = x * RN(1/2pi) and one FMA correction, q0 itself where it is 0, inf
+// or NaN (x = +-0, tiny, or not finite: the rounded quotient is then +-0
+// of x's sign, or q0). slr_wavefront_cycles_check counts the float32
+// inputs on which the two differ: 0 of 2^32.
+constexpr float kInvTwoPi = 1.0f / kTwoPi;
+
+__device__ __forceinline__ float cycles_recip(float x) {
+  const float q0 = __fmul_rn(x, kInvTwoPi);
+  const float q1 = __fmaf_rn(__fmaf_rn(-q0, kTwoPi, x), kInvTwoPi, q0);
+  return rintf(q0 == 0.f || !isfinite(q0) ? q0 : q1);
+}
+
+// The voting kernels' round(x / 2pi): cycles_recip without its guard for
+// q0 = 0 (x = +-0 or tiny, where both give a zero, perhaps of the other
+// sign, and a zero vote is never counted) and NaN (q1 is NaN too).
+// slr_wavefront_cycles_check counts the float32 inputs on which it differs
+// from cycles(x) other than in the sign of a zero: 0 of 2^32.
+__device__ __forceinline__ float vote_round(float x) {
+  const float q0 = __fmul_rn(x, kInvTwoPi);
+  const float q1 = __fmaf_rn(__fmaf_rn(-q0, kTwoPi, x), kInvTwoPi, q0);
+  return rintf(isinf(q0) ? q0 : q1);
+}
+
+// The vote across an edge from a to b, round((b - a) / 2pi), when both are
+// in the mask; NaN, which equals nothing, when either is not.
+__device__ __forceinline__ float edge_vote(float b, float a, bool both) {
+  return vote_round(both ? __fsub_rn(b, a) : __int_as_float(0x7fc00000));
+}
+
+// The new Phi of a pixel pc from the votes k0..k3 of its neighbours above,
+// below, left and right, each NaN where the edge has an end outside the
+// mask (outside the image: not in it): moved by the vote that at least 3
+// share, when it is not 0. A pixel outside the mask has 4 NaN votes and
+// stays. See the header for why this is the reference's first-best
+// consensus.
+__device__ __forceinline__ float vote_consensus(float pc, float k0, float k1, float k2,
+                                                float k3) {
+  const bool e01 = k0 == k1, e02 = k0 == k2, e03 = k0 == k3;
+  const bool first = (e01 && e02) || (e01 && e03) || (e02 && e03);  // vote 0 and two others
+  const float k = first ? k0 : k1;
+  const bool take = (first || (k1 == k2 && k1 == k3)) && k != 0.f;
+  return take ? __fadd_rn(pc, __fmul_rn(kTwoPi, k)) : pc;
 }
 
 // K3. Sweep t reads the previous sweep's buffer and writes out or scratch,
@@ -135,58 +202,86 @@ vote_resident_kernel(const float* phi, const uint8_t* __restrict__ mask, float* 
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += stride) {
       const int r = (int)(i / W), c = (int)(i % W);
-      const bool nm[4] = {r > 0 && mask[i - W], r < H - 1 && mask[i + W],
-                          c > 0 && mask[i - 1], c < W - 1 && mask[i + 1]};
-      const float nb[4] = {r > 0 ? __ldcg(src + i - W) : 0.f,
-                           r < H - 1 ? __ldcg(src + i + W) : 0.f,
-                           c > 0 ? __ldcg(src + i - 1) : 0.f,
-                           c < W - 1 ? __ldcg(src + i + 1) : 0.f};
-      dst[i] = vote(__ldcg(src + i), mask[i] != 0, nb, nm);
+      const float pc = __ldcg(src + i);
+      const bool mc = mask[i] != 0;
+      const bool up = r > 0, down = r < H - 1, left = c > 0, right = c < W - 1;
+      dst[i] = vote_consensus(
+          pc, edge_vote(up ? __ldcg(src + i - W) : 0.f, pc, mc && up && mask[i - W]),
+          edge_vote(down ? __ldcg(src + i + W) : 0.f, pc, mc && down && mask[i + W]),
+          edge_vote(left ? __ldcg(src + i - 1) : 0.f, pc, mc && left && mask[i - 1]),
+          edge_vote(right ? __ldcg(src + i + 1) : 0.f, pc, mc && right && mask[i + 1]));
     }
     grid.sync();
     src = dst;
   }
 }
 
-// K4: one tile of tile_h x SLR_TILE_W pixels, h sweeps, halo h.
-__global__ void __launch_bounds__(SLR_BLOCK)
+// K4: h sweeps of a tile with a halo of h; see the header. Thread (lane,
+// warp) holds column c0 + 30 warp + lane, rows r0 .. r0 + K4_RUN - 1, as
+// P[r] and mask bit r of M.
+__global__ void __launch_bounds__(32 * K4_WARPS, K4_BLOCKS_PER_SM)
 vote_tiled_kernel(const float* __restrict__ phi, const uint8_t* __restrict__ mask,
-                  float* __restrict__ out, int H, int W, int h, int tile_h) {
-  extern __shared__ float smem[];
-  const int RW = SLR_TILE_W + 2 * h, RH = tile_h + 2 * h, cells = RW * RH;
-  float* src = smem;
-  float* dst = smem + cells;
-  uint8_t* m = reinterpret_cast<uint8_t*>(smem + 2 * cells);
-  const int r0 = blockIdx.y * tile_h - h, c0 = blockIdx.x * SLR_TILE_W - h;
-  for (int rr = threadIdx.y; rr < RH; rr += blockDim.y) {
-    for (int cc = threadIdx.x; cc < RW; cc += blockDim.x) {
-      const int r = r0 + rr, c = c0 + cc;
-      const bool in = r >= 0 && r < H && c >= 0 && c < W;
-      const long long g = (long long)r * W + c;
-      src[rr * RW + cc] = in ? phi[g] : 0.f;
-      m[rr * RW + cc] = in ? mask[g] : 0;
-    }
+                  float* __restrict__ out, int H, int W, int h) {
+  static_assert(K4_RUN > 2 * SLR_MAX_HALO && K4_RUN <= 32, "a run's mask bits are one word");
+  __shared__ float edges[2][K4_WARPS][2][K4_RUN];  // [buffer][warp][lane 1, lane 30][row]
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31, wx = threadIdx.x >> 5;
+  const int ow = 30 * K4_WARPS + 2 - 2 * h, oh = K4_RUN - 2 * h;  // pixels out a block
+  const int c0 = blockIdx.x * ow - h, r0 = blockIdx.y * oh - h;
+  const int c = c0 + 30 * wx + lane;
+  const bool col_in = c >= 0 && c < W;
+  float P[K4_RUN];
+  uint32_t M = 0u;
+#pragma unroll
+  for (int r = 0; r < K4_RUN; ++r) {
+    const int y = r0 + r;
+    const bool in = col_in && y >= 0 && y < H;
+    const long long g = (long long)y * W + c;
+    P[r] = in ? __ldg(phi + g) : 0.f;
+    M |= (in && __ldg(mask + g) != 0) ? 1u << r : 0u;
   }
-  __syncthreads();
-  for (int t = 1; t <= h; ++t) {
-    for (int rr = t + threadIdx.y; rr < RH - t; rr += blockDim.y) {
-      for (int cc = t + threadIdx.x; cc < RW - t; cc += blockDim.x) {
-        const int i = rr * RW + cc;
-        const bool nm[4] = {m[i - RW] != 0, m[i + RW] != 0, m[i - 1] != 0,
-                            m[i + 1] != 0};
-        const float nb[4] = {src[i - RW], src[i + RW], src[i - 1], src[i + 1]};
-        dst[i] = vote(src[i], m[i] != 0, nb, nm);
-      }
+  // the edges with both ends in the mask: bit r of VE the edge below row r,
+  // of HE the edge to the right (lane 31's right neighbour is not in the
+  // warp: its copy's neighbour, or the region's edge; every lane takes part
+  // in each shuffle)
+  const uint32_t MR = __shfl_down_sync(kAll, M, 1);
+  const uint32_t VE = M & (M >> 1), HE = lane < 31 ? M & MR : 0u;
+  const int from_left = (lane + 31) & 31;
+  for (int t = 0; t < h; ++t) {
+    float kd_above = __int_as_float(0x7fc00000);  // the row above's edge below: none
+#pragma unroll
+    for (int r = 0; r < K4_RUN; ++r) {
+      const float pc = P[r];
+      // the edge below (row r + 1 still holds its old value) and the edge to
+      // the right, each rounded once; the left edge is the left lane's right
+      // one (lane 0 takes lane 31's, which is NaN)
+      const float kd = edge_vote(r + 1 < K4_RUN ? P[r + 1] : 0.f, pc, (VE >> r) & 1u);
+      const float kr = edge_vote(__shfl_down_sync(kAll, pc, 1), pc, (HE >> r) & 1u);
+      const float kl = -__shfl_sync(kAll, kr, from_left);
+      P[r] = vote_consensus(pc, -kd_above, kd, kl, kr);
+      kd_above = kd;
+    }
+    if (t + 1 == h) break;
+    // refresh lanes 0 and 31 from the neighbouring warps' lanes 30 and 1
+    const int buf = t & 1;
+    if (lane == 1 || lane == 30) {
+      float* e = edges[buf][wx][lane == 30];
+#pragma unroll
+      for (int r = 0; r < K4_RUN; ++r) e[r] = P[r];
     }
     __syncthreads();
-    float* tmp = src;
-    src = dst;
-    dst = tmp;
+    if ((lane == 0 && wx > 0) || (lane == 31 && wx + 1 < K4_WARPS)) {
+      const float* e = edges[buf][lane == 0 ? wx - 1 : wx + 1][lane == 0];
+#pragma unroll
+      for (int r = 0; r < K4_RUN; ++r) P[r] = e[r];
+    }
   }
-  for (int rr = threadIdx.y; rr < tile_h; rr += blockDim.y) {
-    for (int cc = threadIdx.x; cc < SLR_TILE_W; cc += blockDim.x) {
-      const int r = r0 + h + rr, c = c0 + h + cc;
-      if (r < H && c < W) out[(long long)r * W + c] = src[(rr + h) * RW + cc + h];
+  // the interior: rows and columns at depth >= h, each column by its owner
+  if (lane >= 1 && lane <= 30 && c >= c0 + h && c < c0 + 30 * K4_WARPS + 2 - h && c < W) {
+#pragma unroll
+    for (int r = 0; r < K4_RUN; ++r) {
+      const int y = r0 + r;
+      if (r >= h && r < K4_RUN - h && y < H) out[(long long)y * W + c] = P[r];
     }
   }
 }
@@ -206,19 +301,6 @@ __device__ __forceinline__ uint32_t tag_at(uint32_t tags, int j) {
 // a thread without one has nothing left to compose, only to send.
 __device__ __forceinline__ bool chains_left(uint32_t tags) {
   return ((tags & ~(tags >> 1)) & 0x55555555u) != 0u;
-}
-
-// round(x / 2pi) as cycles(x) gives it, without the division's slow path:
-// q0 = x * RN(1/2pi) and one FMA correction, q0 itself where it is 0, inf
-// or NaN (x = +-0, tiny, or not finite: the rounded quotient is then +-0
-// of x's sign, or q0). slr_wavefront_cycles_check counts the float32
-// inputs on which the two differ: 0 of 2^32.
-constexpr float kInvTwoPi = 1.0f / kTwoPi;
-
-__device__ __forceinline__ float cycles_recip(float x) {
-  const float q0 = __fmul_rn(x, kInvTwoPi);
-  const float q1 = __fmaf_rn(__fmaf_rn(-q0, kTwoPi, x), kInvTwoPi, q0);
-  return rintf(q0 == 0.f || !isfinite(q0) ? q0 : q1);
 }
 
 __device__ __forceinline__ void compose(uint32_t tx, float psx, float pvx, uint32_t& tags,
@@ -634,18 +716,23 @@ cudaError_t launch_wavefront(const float* phi, const uint8_t* elig, const float*
   return cudaGetLastError();
 }
 
-// Over every float32 bit pattern x, whether cycles_recip(x) and cycles(x)
-// differ in any bit; counts into mismatches[0].
+// Over every float32 bit pattern x: mismatches[0] counts those on which
+// cycles_recip(x) and cycles(x) differ in any bit (K5's rounding),
+// mismatches[1] those on which vote_round(x) and cycles(x) differ other than
+// in the sign of a zero (the voting kernels').
 __global__ void cycles_check_kernel(unsigned long long* mismatches) {
   const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
-  unsigned long long n = 0;
+  unsigned long long n = 0, m = 0;
   for (uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; i < (1ull << 32);
        i += stride) {
     const float x = __uint_as_float((uint32_t)i);
-    const float a = cycles(x), b = cycles_recip(x);
+    const float a = cycles(x), b = cycles_recip(x), c = vote_round(x);
     n += !(isnan(a) && isnan(b)) && __float_as_uint(a) != __float_as_uint(b);
+    m += !(isnan(a) && isnan(c)) && !(a == 0.f && c == 0.f) &&
+         __float_as_uint(a) != __float_as_uint(c);
   }
   if (n) atomicAdd(mismatches, n);
+  if (m) atomicAdd(mismatches + 1, m);
 }
 
 // Opt in to more than 48 KB of dynamic shared memory where needed.
@@ -693,20 +780,15 @@ int slr_vote_resident(const float* phi, const uint8_t* mask, float* out, float* 
 }
 
 // K4: `sweeps` (1..SLR_MAX_HALO) sweeps of phi into out, tiles of
-// tile_h x SLR_TILE_W with a halo of `sweeps`.
+// (30 K4_WARPS + 2) x K4_RUN cells with a halo of `sweeps`.
 int slr_vote_tiled(const float* phi, const uint8_t* mask, float* out, int H, int W,
-                   int sweeps, int tile_h, int device, cudaStream_t stream) {
+                   int sweeps, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (H < 1 || W < 1 || sweeps < 1 || sweeps > SLR_MAX_HALO || tile_h < 1)
-    return (int)cudaErrorInvalidValue;
-  const size_t cells = (size_t)(SLR_TILE_W + 2 * sweeps) * (tile_h + 2 * sweeps);
-  const size_t smem = cells * (2 * sizeof(float) + 1);
-  err = shared_memory((const void*)vote_tiled_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + SLR_TILE_W - 1) / SLR_TILE_W, (H + tile_h - 1) / tile_h);
-  vote_tiled_kernel<<<grid, dim3(32, SLR_BLOCK / 32), smem, stream>>>(
-      phi, mask, out, H, W, sweeps, tile_h);
+  if (H < 1 || W < 1 || sweeps < 1 || sweeps > SLR_MAX_HALO) return (int)cudaErrorInvalidValue;
+  const int ow = 30 * K4_WARPS + 2 - 2 * sweeps, oh = K4_RUN - 2 * sweeps;
+  const dim3 grid((W + ow - 1) / ow, (H + oh - 1) / oh);
+  vote_tiled_kernel<<<grid, 32 * K4_WARPS, 0, stream>>>(phi, mask, out, H, W, sweeps);
   return (int)cudaGetLastError();
 }
 
@@ -742,9 +824,10 @@ int slr_wavefront_pass(const float* phi, const uint8_t* elig, const float* Phi,
   return (int)cudaErrorInvalidValue;
 }
 
-// The count of float32 inputs on which K5's reciprocal rounding differs
-// from the IEEE division's, into *mismatches (one unsigned 64-bit int,
-// zeroed by the caller).
+// The counts of float32 inputs on which K5's reciprocal rounding differs
+// from the IEEE division's, and on which the voting kernels' differs other
+// than in the sign of a zero, into mismatches[0] and [1] (unsigned 64-bit
+// ints, zeroed by the caller).
 int slr_wavefront_cycles_check(unsigned long long* mismatches, int device,
                                cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);

@@ -8,9 +8,11 @@ Port of ``slr/kernels/unwrap_scan.py``. Both kernels run ``iters`` sweeps of
   cooperative launch runs every sweep over the whole map, with a grid-wide
   barrier between sweeps; the map stays in L2.
 - K4, ``launch_vote_tiled`` (``quality_unwrap_tiled``): temporal blocking.
-  Each block loads a tile with a halo of h cells into shared memory, runs h
-  sweeps there and writes the tile's interior; h is at most ``MAX_HALO``, so
-  more sweeps take one launch per chunk of h.
+  Each block loads a tile with a halo of h cells into registers (a run of
+  rows of one column a thread, warps side by side), runs h sweeps there
+  and writes the tile's interior; h is at most ``MAX_HALO``, so more sweeps
+  take one launch per chunk of h. The tile's shape is the kernel's own:
+  the reference's ``tile_h`` is accepted and ignored.
 
 ``quality_unwrap`` keeps the reference's dispatch, so a shape takes the same
 kernel as there: K4 when the padded map 3 * round_up(H, 8) *
@@ -31,7 +33,6 @@ from slr_torch.kernels.build import load_library
 
 RESIDENT_BUDGET = 12 * 1024 * 1024   # the reference's VMEM budget (bytes)
 MAX_HALO = 8                         # SLR_MAX_HALO in csrc/unwrap.cu
-TILE_W = 64                          # SLR_TILE_W
 
 
 def _round_up(x: int, m: int) -> int:
@@ -50,7 +51,7 @@ def library() -> ctypes.CDLL:
     lib = load_library("unwrap")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.slr_vote_resident.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-    lib.slr_vote_tiled.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+    lib.slr_vote_tiled.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
     lib.slr_wavefront_pass.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.slr_wavefront_cycles_check.argtypes = [ptr, i32, ptr]
     for fn in (lib.slr_vote_resident, lib.slr_vote_tiled, lib.slr_wavefront_pass,
@@ -99,18 +100,17 @@ def launch_vote_resident(Phi, mask, iters: int):
     return out
 
 
-def launch_vote_tiled(Phi, mask, sweeps: int, tile_h: int = 64):
-    """K4, one launch: ``sweeps`` (1..MAX_HALO) sweeps over tiles of
-    ``tile_h`` x TILE_W cells, each with a halo of ``sweeps``."""
+def launch_vote_tiled(Phi, mask, sweeps: int):
+    """K4, one launch: ``sweeps`` (1..MAX_HALO) sweeps over tiles with a
+    halo of ``sweeps``."""
     check_maps("K4", Phi, mask)
-    if not 1 <= sweeps <= MAX_HALO or tile_h < 1:
-        raise ValueError(f"K4 takes 1..{MAX_HALO} sweeps a launch and "
-                         f"tile_h >= 1, got {sweeps}, {tile_h}")
+    if not 1 <= sweeps <= MAX_HALO:
+        raise ValueError(f"K4 takes 1..{MAX_HALO} sweeps a launch, got {sweeps}")
     H, W = Phi.shape
     out = torch.empty_like(Phi)
     lib = library()
     check_launch(lib, "K4 vote_tiled", lib.slr_vote_tiled(
-        Phi.data_ptr(), mask.data_ptr(), out.data_ptr(), H, W, sweeps, tile_h,
+        Phi.data_ptr(), mask.data_ptr(), out.data_ptr(), H, W, sweeps,
         Phi.device.index, _stream(Phi)))
     quality_unwrap_tiled.launches += 1
     return out
@@ -125,7 +125,9 @@ def quality_unwrap_tiled(Phi, quality, mask, iters: int = 8, tile_h: int = 64,
     """``spatial_quality_unwrap`` through K4 (a CPU tensor: the plain
     version). ``halo``: sweeps per launch and the tiles' halo, at most
     ``MAX_HALO`` (default: min(iters, MAX_HALO)); ``ceil(iters / halo)``
-    launches, each exact, so the result does not depend on it."""
+    launches, each exact, so the result does not depend on it. ``tile_h``
+    (the reference's row-tile height) is accepted and ignored: K4's tile
+    has the kernel's own height (K4_RUN in csrc/unwrap.cu)."""
     if Phi.device.type == "cpu":
         return spatial_quality_unwrap(Phi, quality, mask, iters)
     Phi, mask = _prepare(Phi, mask)
@@ -133,7 +135,7 @@ def quality_unwrap_tiled(Phi, quality, mask, iters: int = 8, tile_h: int = 64,
         return Phi.clone()
     halo = min(iters, MAX_HALO) if halo is None else halo
     for done in range(0, iters, halo):
-        Phi = launch_vote_tiled(Phi, mask, min(halo, iters - done), tile_h)
+        Phi = launch_vote_tiled(Phi, mask, min(halo, iters - done))
     return Phi
 
 

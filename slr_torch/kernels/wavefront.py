@@ -11,7 +11,8 @@ shared memory so that its reads and writes go a map row at a time. The axis
 and the direction are arguments of the kernel: no transposes or flips
 around it. The kernel rounds (x - ps) / 2pi by a reciprocal and one FMA
 correction; ``cycles_mismatches`` counts, on the card, the float32 inputs
-where that differs from the plain version's division: none of 2^32.
+where that differs from the plain version's division: none of 2^32 (and
+the same for the voting kernels' rounding, up to the sign of a zero).
 
 ``wavefront_unwrap`` and ``wavefront_repair`` are the reference's entry points
 (levels x rounds x four directions) with K5 as their pass; they share the
@@ -49,17 +50,19 @@ def launch_wavefront_pass(phi, elig, Phi, done, axis: int, reverse: bool):
     return Phi_out, done_out
 
 
-def cycles_mismatches(device) -> int:
+def cycles_mismatches(device) -> tuple[int, int]:
     """K5 rounds (x - ps) / 2pi by a reciprocal and one FMA correction, not
-    by a division: the number of float32 inputs x, of all 2^32, on which
-    that rounding differs in any bit from the IEEE division's (the plain
-    version's). Runs on the card."""
-    count = torch.zeros(1, dtype=torch.int64, device=device)
+    by a division, and so do the voting kernels K3 and K4 (without K5's
+    guard for a zero quotient): the numbers of float32 inputs x, of all
+    2^32, on which K5's rounding differs in any bit from the IEEE
+    division's (the plain versions'), and on which the voting kernels'
+    differs other than in the sign of a zero. Runs on the card."""
+    count = torch.zeros(2, dtype=torch.int64, device=device)
     lib = library()
-    check_launch(lib, "K5 cycles_check", lib.slr_wavefront_cycles_check(
+    check_launch(lib, "cycles_check", lib.slr_wavefront_cycles_check(
         count.data_ptr(), count.device.index,
         torch.cuda.current_stream(count.device).cuda_stream))
-    return int(count.item())
+    return tuple(count.tolist())
 
 
 def wavefront_pass(phi, elig, Phi, done, axis: int, reverse: bool):

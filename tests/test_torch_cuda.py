@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import box_exposures, hdr_best_exposure, k2_box
 from slr_torch.codec import unwrap as pu
 from slr_torch.config import DecodeConfig, PatternConfig
 from slr_torch.geom.camera import make_camera
@@ -239,6 +240,52 @@ def test_hdr_kernel_matches_plain_version(cuda, fuse):
     _agrees(k, p, rows=False)
 
 
+@pytest.mark.parametrize("case", ["mixed_boxes", "uint16", "float32", "uint8_299x215",
+                                  "uint8_301x215", "uint8_offset3"])
+def test_hdr_kernel_layouts_match_plain_version(cuda, case):
+    """K2 stages 128 x 2 boxes of the bracket in two rounds (every pixel's
+    frames, then the Gray frames of the exposures the box chose) where a
+    16-byte copy takes a box whole, and decodes from device memory
+    elsewhere: a bracket whose chosen exposure changes inside most boxes
+    (squares ~3 px wide), 12-bit data in uint16, float32, rows of 299 and
+    301 pixels, and a bracket 3 bytes off alignment; both fusions, with the
+    float32 tolerances."""
+    w, h = (299, 215) if case == "uint8_299x215" else (301, 215) if case.endswith("301x215") \
+        else (320, 256)
+    cam, proj = default_rig(cam_w=w, cam_h=h, proj_w=256, proj_h=192, device=cuda)
+    cfg = PatternConfig(**PROJ, gray_bits=5, phase_steps=4)
+    cells = w // 3 if case == "mixed_boxes" else 6
+    scan = render_scan(cam, proj, bumps_depth(h, w, base=480.0, amp=25.0, device=cuda), cfg,
+                       albedo=checker_albedo(h, w, cells=cells, lo=0.035, hi=0.75,
+                                             device=cuda))
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    bracket = torch.stack([torch.clamp(scan.frames * g + 0.003 * torch.randn(
+        scan.frames.shape, generator=gen, device=cuda), 0.0, 1.0) for g in (1.0, 3.2, 10.0)])
+    kw = {}
+    if case == "uint16":
+        bracket = torch.clamp(torch.round(bracket * 4095), 0, 4095).to(torch.uint16)
+        kw = dict(bit_depth=12)
+    elif case != "float32":
+        bracket = quantize_frames(bracket)
+    if case == "uint8_offset3":
+        buf = torch.empty(bracket.numel() + 3, dtype=torch.uint8, device=cuda)
+        buf[3:] = bracket.reshape(-1)
+        bracket = buf[3:].view(bracket.shape)
+        assert bracket.is_contiguous() and bracket.data_ptr() % 4 == 3
+    if case == "mixed_boxes":
+        chosen = box_exposures(hdr_best_exposure(bracket, cfg, DecodeConfig()), 3, k2_box())
+        assert float((chosen >= 2).float().mean()) > 0.5
+    dec = DecodeConfig()
+    for fuse in ("sum", "select"):
+        before = fs.fused_decode_triangulate_hdr.launches
+        k = fs.fused_decode_triangulate_hdr(bracket, cam, proj, cfg, dec, fuse=fuse, **kw)
+        assert fs.fused_decode_triangulate_hdr.launches == before + 1
+        p = fs.fused_decode_triangulate_hdr_reference(bracket, cam, proj, cfg, dec, fuse=fuse,
+                                                      **kw)
+        torch.cuda.synchronize()
+        _agrees(k, p, rows=False)
+
+
 def test_dense_reconstructor_launches_once_on_uint8_and_bracket(cuda):
     cam, proj, cfg, scan, bracket = _bracket(torch.device("cpu"))
     model = DenseReconstructor(cam, proj, cfg).to(cuda)
@@ -299,6 +346,59 @@ def test_vote_kernels_match_plain_version(cuda, H, W, iters, partial):
     assert not torch.equal(plain, Phi_n)
 
 
+def _tie_map(device, H, W, seed):
+    """A checkerboard of 0 and values y whose quotient y / 2pi is exactly
+    k + 1/2 in float32 (k = 0, 1, 2: the ties rounding half to even
+    breaks), with +-0 and a holed mask."""
+    rng = np.random.default_rng(seed)
+    tp = np.float32(2 * np.pi)
+    ties = []
+    for q in (0.5, 1.5, 2.5, -1.5, -2.5):
+        y0 = np.array([np.float32(q) * tp], np.float32)
+        cands = (y0.view(np.int32) + np.arange(-64, 65, dtype=np.int32)).view(np.float32)
+        ties += list(cands[cands / tp == np.float32(q)][:1])
+    assert len(ties) >= 3
+    even = (np.add.outer(np.arange(H), np.arange(W)) % 2) == 0
+    Phi = np.where(even, rng.choice(np.float32([0.0, -0.0]), size=(H, W)),
+                   rng.choice(np.array(ties, np.float32), size=(H, W))).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (Phi, rng.random((H, W)) > 0.1)]
+
+
+@pytest.mark.parametrize("case,iters", [
+    ("215x299", 4), ("215x301", 8), ("64x1281", 4), ("offset1", 4), ("130x200", 1),
+    ("130x200", 9), ("130x200", 17), ("ties", 4), ("large", 6)])
+def test_vote_kernels_on_layouts_and_values(cuda, case, iters):
+    """K4 (registers, lanes along a row, warp-edge columns through shared
+    memory) and K3 against the plain sweep, bit for bit: rows not a multiple
+    of 16 bytes, a map one float off alignment, 1, 9 and 17 sweeps (more
+    than one K4 launch), float32 ties of the rounding with +-0, and
+    |Phi| ~ 1e6."""
+    if case == "ties":
+        Phi_n, mask = _tie_map(cuda, 96, 200, 3)
+    else:
+        H, W = (130, 200) if case in ("offset1", "130x200", "large") else map(
+            int, case.split("x"))
+        _, Phi_n, _, mask, _ = _phase_map(cuda, H, W, 2, partial=True)
+        if case == "large":
+            Phi_n = Phi_n + torch.where(torch.arange(W, device=cuda) < W // 2, 1e6, -1e6)
+        if case == "offset1":
+            bufs = [torch.empty(H * W + 1, dtype=t.dtype, device=cuda) for t in (Phi_n, mask)]
+            for b, t in zip(bufs, (Phi_n, mask)):
+                b[1:] = t.reshape(-1)
+            Phi_n, mask = (b[1:].view(H, W) for b in bufs)
+            assert Phi_n.data_ptr() % 16 == 4
+    q = torch.ones_like(Phi_n)
+    plain = pu.spatial_quality_unwrap(Phi_n, q, mask, iters)
+    n = us.quality_unwrap_tiled.launches
+    k4 = us.quality_unwrap_tiled(Phi_n, q, mask, iters)
+    assert us.quality_unwrap_tiled.launches - n == -(-iters // us.MAX_HALO)
+    k3 = us.launch_vote_resident(Phi_n, mask, iters)
+    torch.cuda.synchronize()
+    for got in (k4, k3):
+        assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+    assert not torch.equal(plain, Phi_n)
+
+
 def test_quality_unwrap_dispatch(cuda):
     """The reference's rule: a 1280x1024 map takes K4, a smaller one K3."""
     for (H, W), kernel in (((1024, 1280), "tiled"), ((215, 300), "resident")):
@@ -352,8 +452,9 @@ def _wave_maps(device, H, W, seed, offset=0):
 def test_wavefront_rounding_equals_the_division(cuda):
     """K5 rounds (x - ps) / 2pi by a reciprocal and one FMA correction; on
     every one of the 2^32 float32 inputs it gives the IEEE division's bits
-    (the plain version's)."""
-    assert wf.cycles_mismatches(cuda) == 0
+    (the plain version's), and the voting kernels' rounding gives them but
+    for the sign of a zero."""
+    assert wf.cycles_mismatches(cuda) == (0, 0)
 
 
 @pytest.mark.parametrize("H,W,offset", [

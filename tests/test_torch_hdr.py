@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import box_exposures, hdr_best_exposure, k2_box
 from slr.codec import decode_multi_exposure as jax_decode_multi_exposure
 from slr.config import DecodeConfig as JDecodeConfig
 from slr.config import PatternConfig as JPatternConfig
@@ -39,12 +40,13 @@ CFG = dict(proj_width=256, proj_height=192, gray_bits=5, phase_steps=4)
 GAINS = {2: (1.0, 10.0), 3: (1.0, 3.2, 10.0)}
 
 
-def _bracket(E, kw=CFG, seed=3):
-    """JAX render of a 21x-albedo checkerboard, noiseless; E independent
-    captures at the bracket's gains with seeded numpy noise, quantized to
-    uint8 (as the reference benchmark builds its bracket)."""
+def _bracket(E, kw=CFG, seed=3, cells=6):
+    """JAX render of a 21x-albedo checkerboard of ``cells`` squares a row,
+    noiseless; E independent captures at the bracket's gains with seeded
+    numpy noise, quantized to uint8 (as the reference benchmark builds its
+    bracket)."""
     cam, proj = default_rig(cam_w=W, cam_h=H, proj_w=256, proj_h=192)
-    albedo = checker_albedo(H, W, cells=6, lo=0.035, hi=0.75)
+    albedo = checker_albedo(H, W, cells=cells, lo=0.035, hi=0.75)
     scan = render_scan(cam, proj, bumps_depth(H, W, base=480.0, amp=25.0),
                        JPatternConfig(**kw), albedo=albedo)
     f = np.array(scan.frames)
@@ -83,6 +85,34 @@ def test_hdr_plain_version_matches_jax_kernel(E, fuse):
             np.asarray(oj.x_p), ot.x_p.numpy(), np.asarray(oj.points),
             ot.points.numpy(), np.asarray(oj.quality), ot.quality.numpy())
     np.testing.assert_array_equal(ot.y_p.numpy(), 0.0)
+
+
+@pytest.mark.parametrize("fuse", ["sum", "select"])
+def test_hdr_plain_version_on_mixed_boxes(fuse):
+    """A checkerboard of ~3 px squares, so the chosen exposure changes inside
+    most of the 128 x 2 boxes K2 stages (each then stages the Gray frames of
+    several exposures): the plain version against the JAX kernel. The best
+    exposure map (``hdr_best_exposure``, an argmax) is the plain version's
+    own choice: under ``select`` each pixel's quality is that exposure's
+    modulation alone, bit for bit."""
+    camj, projj, cam, proj, bracket, _ = _bracket(3, cells=W // 3)
+    cfg, dec = PatternConfig(**CFG), DecodeConfig()
+    bt = torch.from_numpy(bracket)
+    best = hdr_best_exposure(bt, cfg, dec)
+    box_h, box_w = k2_box()
+    chosen = box_exposures(best, 3, (box_h, box_w))
+    assert chosen.shape == (H // box_h, W // box_w)
+    assert float((chosen >= 2).float().mean()) > 0.5
+    oj = jax_hdr(jnp.asarray(bracket), camj, projj, JPatternConfig(**CFG),
+                 JDecodeConfig(), fuse=fuse)
+    ot = fs.fused_decode_triangulate_hdr(bt, cam, proj, cfg, dec, fuse=fuse)
+    _agrees(np.asarray(oj.mask) > 0.5, ot.mask.numpy() > 0.5,
+            np.asarray(oj.x_p), ot.x_p.numpy(), np.asarray(oj.points),
+            ot.points.numpy(), np.asarray(oj.quality), ot.quality.numpy())
+    if fuse == "select":
+        single = torch.stack([fs.fused_decode_triangulate_hdr(
+            bt[e:e + 1], cam, proj, cfg, dec, fuse=fuse).quality for e in range(3)])
+        assert torch.equal(ot.quality, single.gather(0, best[None])[0])
 
 
 def test_hdr_plain_version_on_float_brackets_and_rows():

@@ -119,6 +119,94 @@ def test_voting_matches_pallas_kernels(partial):
         np.testing.assert_allclose(plain.numpy(), ref, rtol=0, atol=1e-5)
 
 
+def _tie_values(a, quotients=(0.5, 1.5, 2.5, 3.5, -0.5, -1.5, -2.5)):
+    """float32 values y near a + q 2pi whose difference from a, divided by
+    2pi in float32, is exactly q: the ties that round half to even breaks
+    (0.5 -> 0, 1.5 -> 2, 2.5 -> 2). Some q have no such y near a."""
+    tp, a = np.float32(2 * np.pi), np.float32(a)
+    out = []
+    for q in quotients:
+        y0 = np.array([a + np.float32(q) * tp], np.float32)
+        cands = (y0.view(np.int32) + np.arange(-64, 65, dtype=np.int32)).view(np.float32)
+        out += list(cands[(cands - a) / tp == np.float32(q)][:1])
+    return np.array(out, np.float32)
+
+
+def _edge_vote_map(kind: str):
+    """(Phi, mask) for the edge-vote model: ``holes`` (the voting map with
+    a holed mask), ``ties`` (a checkerboard of a and values a tie away from
+    a), ``zeros`` (+-0, +-2pi, denormals), ``large`` (|Phi| ~ 1e6 with
+    order errors)."""
+    rng = np.random.default_rng({"holes": 0, "ties": 1, "zeros": 2, "large": 3}[kind])
+    H, W = 40, 56
+    mask = rng.random((H, W)) > 0.15
+    if kind == "holes":
+        _, Phi, _, mask, _ = _voting_map(True)
+    elif kind == "ties":
+        Phi = np.zeros((H, W), np.float32)
+        for cols, a in ((slice(0, W // 2), 0.0), (slice(W // 2, W), 1.25)):
+            ties = _tie_values(a)
+            assert len(ties) >= 4
+            odd = rng.choice(ties, size=(H, W // 2))
+            even = (np.add.outer(np.arange(H), np.arange(W // 2)) % 2) == 0
+            Phi[:, cols] = np.where(even, np.float32(a), odd)
+    elif kind == "zeros":
+        Phi = rng.choice(np.float32([0.0, -0.0, 2 * np.pi, -2 * np.pi, 4 * np.pi,
+                                     1e-40, -1e-40, np.pi]), size=(H, W))
+    else:
+        Phi = (np.where(np.arange(W) < W // 2, 1e6, -1e6)[None, :]
+               + np.linspace(0, 40, W)[None, :] + 0.1 * rng.normal(size=(H, W)))
+        bad = rng.random((H, W)) < 0.03
+        Phi = np.where(bad, Phi + 6 * np.pi, Phi)
+    return Phi.astype(np.float32), mask
+
+
+def _edge_vote_sweep(Phi, mask):
+    """One sweep as K4 makes it, in numpy float32: each edge between two
+    pixels rounded once (round((Phi_j - Phi_i) / 2pi), IEEE division, half
+    to even) and negated for its other end, NaN where an end is outside the
+    mask or the image; the pixel moves by a non-zero vote shared by vote 0
+    and two others, or by votes 1, 2 and 3 (vote_consensus)."""
+    tp = np.float32(2 * np.pi)
+    H, W = Phi.shape
+    with np.errstate(invalid="ignore"):
+        v = np.where(mask[1:] & mask[:-1], np.rint((Phi[1:] - Phi[:-1]) / tp), np.nan)
+        h = np.where(mask[:, 1:] & mask[:, :-1], np.rint((Phi[:, 1:] - Phi[:, :-1]) / tp),
+                     np.nan)
+    k = np.full((4, H, W), np.nan, np.float32)
+    k[0, 1:], k[1, :-1] = -v, v                   # above, below
+    k[2, :, 1:], k[3, :, :-1] = -h, h             # left, right
+    e01, e02, e03 = k[0] == k[1], k[0] == k[2], k[0] == k[3]
+    first = (e01 & e02) | (e01 & e03) | (e02 & e03)
+    kk = np.where(first, k[0], k[1])
+    take = (first | ((k[1] == k[2]) & (k[1] == k[3]))) & (kk != 0)
+    return np.where(take, Phi + tp * kk, Phi).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["holes", "ties", "zeros", "large"])
+def test_edge_vote_model_matches_propagation_step(kind):
+    """The identity K4 relies on: one rounding per in-mask edge, negated for
+    the other end, and the 6-compare consensus give the bits of the port's
+    and JAX's ``propagation_step``, sweep after sweep, on tie quotients,
+    signed zeros, |Phi| ~ 1e6 and holed masks."""
+    Phi, mask = _edge_vote_map(kind)
+    if kind == "ties":   # most edges are exact ties before the first sweep
+        q = np.abs(Phi[:, 1:] - Phi[:, :-1]) / np.float32(2 * np.pi)
+        assert np.mean(q % 1 == 0.5) > 0.9
+    q_map = np.ones_like(Phi)
+    moved = 0
+    for _ in range(3):
+        model = _edge_vote_sweep(Phi, mask)
+        port, _ = tu.propagation_step(torch.from_numpy(Phi), torch.from_numpy(q_map),
+                                      torch.from_numpy(mask))
+        ref, _ = ju.propagation_step(jnp.asarray(Phi), jnp.asarray(q_map), jnp.asarray(mask))
+        for other in (port.numpy(), np.asarray(ref)):
+            np.testing.assert_array_equal(model.view(np.uint32), other.view(np.uint32))
+        moved += int((model != Phi).sum())
+        Phi = model
+    assert moved > 0
+
+
 @pytest.mark.parametrize("shape", [(64, 96), (215, 300), (1024, 1280), (1024, 1024),
                                    (1032, 1024)])
 def test_kernel_dispatch_rule_matches_reference(shape):
