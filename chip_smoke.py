@@ -15,11 +15,13 @@ uint16 ingest, Gray only, row+column midpoint with and without row phase,
 multifreq, ``decode_only`` on a posed camera, the HDR exposure bracket (K2,
 both fusions; and on brackets whose chosen exposure changes inside most
 staged boxes, uint16, float32, ragged and unaligned ones), and the spatial
-repair (``spatial_iters=4``: voting, K4 at this size and K3 on a smaller
-camera, both held to the plain sweep bit for bit also on ragged and
-unaligned maps, float32 ties of the rounding, signed zeros, |Phi| ~ 1e6 and
-masks holed along K4's tile and warp edges, at 1 to 17 sweeps; wavefront,
-K5, held to its plain pass bit for bit on every case). Then registration (config 4): the sorted-band
+repair (``spatial_iters=4``: voting, K4 at this size and K3 on a 320x256
+and a 1280x800 camera, both held to the plain sweep bit for bit also on
+ragged and unaligned maps, float32 ties of the rounding, signed zeros,
+|Phi| ~ 1e6 and masks holed along K4's tile and warp edges, at 1 to 17
+sweeps, K3 also on the largest maps its route takes at up to 64 sweeps and
+in 20 launches back to back, and refusing a map past one wave of its
+tiles; wavefront, K5, held to its plain pass bit for bit on every case). Then registration (config 4): the sorted-band
 search K8 at 256k points, point-to-plane ICP on its band route
 (``icp_point_to_plane``) at 256k (and the same case on the voxel route) and
 between two dense scans,
@@ -36,7 +38,7 @@ registered, twice (with the sample draw's ops repeated on the same
 inputs). Each path's output is checked against the
 synthetic ground truth and its launches counted; then the kernels, their
 plain versions and the paths are timed with CUDA events (every kernel also
-by device time, from CUDA-graph replays or, for K3, back-to-back launches;
+by device time, from CUDA-graph replays (K3's cooperative launch too);
 K6 and K7 with their registers, blocks an SM and K7's host launch time),
 and the whole run's wall time is printed.
 Each phase prints one JSON line; the last line is ``{"ok": true, "device":
@@ -86,6 +88,13 @@ K5_CASES = ((2048, 2448, 0), (215, 300, 0), (1037, 1283, 0), (9000, 40, 0),
 BLOB_TOL = 1e-3            # rad, a repaired map against the clean phase
 SPATIAL_ITERS = 4
 VOTE_ITERS = (1, 4, 8, 9, 17)   # sweeps of the voting kernels' layout cases
+# K3 alone: (H, W) of the largest maps the route rule sends it, 1024x1024
+# and 128x8192 (the most tiles), and a 1280x800 camera's; launches of its
+# back-to-back batch
+K3_MAPS = ((1024, 1024), (8192, 128), (800, 1280))
+K3_BATCH = 20
+K3_CAM_W, K3_CAM_H = 1280, 800   # a 1 MP sensor, whose repair takes K3
+K3_TIMED_ITERS = (SPATIAL_ITERS, 8, 17)   # sweeps of K3 and K4 timed on the config-3 map
 # registration (config 4): the reference's dense band case
 # (benchmarks/tpu_matrix.py:836-845, 876-897) and its config-4 orbit (:985-995)
 N_BIG = 262144             # points per cloud
@@ -237,17 +246,6 @@ def graph_ms(fn, launches=GRAPH_LAUNCHES, replays=5):
     return [t / launches for t in cuda_ms(graph.replay, replays, 1)]
 
 
-def queued_ms(fn, launches=GRAPH_LAUNCHES, replays=5):
-    """Device time of one call of ``fn`` for a kernel a CUDA graph does not
-    capture (K3's cooperative launch): ``launches`` calls enqueued back to
-    back between two events, so the card runs them without a gap whenever a
-    call's host time is below its device time."""
-    def batch():
-        for _ in range(launches):
-            fn()
-    return [t / launches for t in cuda_ms(batch, replays, 1)]
-
-
 def wave_maps(device, H, W, seed, offset=0):
     """(phi, elig, Phi, done) for one K5 pass, from numpy's generator: a
     noisy ramp wrapped, 2 % done, 85 % eligible; ``offset``: each map
@@ -346,6 +344,33 @@ def vote_maps(dev, phase_scene, run, warps, seed=21):
         maps[name] = (torch.from_numpy(Phi.astype(np.float32)).to(dev),
                       torch.from_numpy(rng.random((H, W)) > 0.1).to(dev))
     return maps
+
+
+def corner_fronts(H, W, run, warps, halo, seed=0):
+    """(Phi, mask) numpy maps whose repair crosses K3's tile corners: a noisy
+    ramp with an L of cells one fringe order off at every junction of four
+    tiles (tiles of 30 warps + 2 - 2 halo by run - 2 halo owned cells). An
+    arm of 2-5 cells ends in the diagonal tile and erodes a cell a sweep,
+    so the cell at the L's bend (a tile's halo, beside the corner) repairs
+    only once the corner cell in front of it has: with a halo of 2 or more,
+    a tile that missed its diagonal neighbour's corner cells repairs its
+    own cells below the bend a sweep late. The four orientations and arm
+    lengths alternate over the junctions."""
+    rng = np.random.default_rng(seed)
+    ow, oh = 30 * warps + 2 - 2 * halo, run - 2 * halo
+    bad = np.zeros((H, W), bool)
+    i = 0
+    for y0 in range(oh, H - 1, oh):
+        for x0 in range(ow, W - 1, ow):
+            o, a = i % 4, 2 + (i // 4) % 4
+            row, col = (y0 - 1 if o < 2 else y0), (x0 if o % 2 == 0 else x0 - 1)
+            arm = slice(max(col - a, 0), col + 1) if o % 2 == 0 else slice(col, col + a + 1)
+            leg = slice(row, row + 9) if o < 2 else slice(max(row - 8, 0), row + 1)
+            bad[row, arm] = True
+            bad[leg, col] = True
+            i += 1
+    Phi = np.linspace(0, 40, W)[None, :] + 0.1 * rng.normal(size=(H, W))
+    return np.where(bad, Phi + 2 * np.pi, Phi).astype(np.float32), np.ones((H, W), bool)
 
 
 def cu_constant(source, name):
@@ -1486,6 +1511,9 @@ def main():
     us.library()
     kb.library()
     kx.library()
+    def ptxas_of(name):
+        return ptxas_summary(built[name][1])
+
     emit("build", setup_s=time.perf_counter() - t0,
          library={k: p.name for k, (p, _) in built.items()},
          ptxas={k: ptxas_summary(log) for k, (_, log) in built.items()})
@@ -1804,7 +1832,53 @@ def main():
                 errs[k].append(float((got - plain).abs().max()))
             voting[f"{name}_iters{iters}"] = dict(bit_equal=True, k4_launches=n["k4"],
                                                   moved=int((plain != Phi_v).sum()))
-    emit("k3_k4_voting", **voting)
+    # K3 alone on the largest maps the route rule sends it (1024x1024, and
+    # 128x8192, its narrow, tall extreme: the most tiles), a 1280x800
+    # camera's map, at 1, h, h + 1, 17 and 64 sweeps (h sweeps between two
+    # exchanges of its tiles' rings: 64 sweeps, many exchanges); the last
+    # of 20 launches back to back, no sync between; repairs crossing every
+    # tile corner; and a 5 MP map, whose tiles no wave holds, refused
+    k3_halo = cu_constant("unwrap", "K3_HALO")
+    k3_wave, _, k3_ow, k3_oh = us.resident_layout(torch.cuda.current_device())
+    for H, W in K3_MAPS:
+        _, Phi_v, q_v, mask_v, _ = phase_scene(H, W, H + W, H * W // 500, partial=True)
+        for iters in sorted({1, k3_halo, k3_halo + 1, 17, 64}):
+            plain = pu.spatial_quality_unwrap(Phi_v, q_v, mask_v, iters)
+            k3 = us.launch_vote_resident(Phi_v, mask_v, iters)
+            torch.cuda.synchronize()
+            check(torch.equal(k3.view(torch.int32), plain.view(torch.int32)),
+                  f"K3 {W}x{H} iters {iters}: not bit-equal")
+            errs["k3"].append(float((k3 - plain).abs().max()))
+            voting[f"k3_{W}x{H}_iters{iters}"] = dict(
+                bit_equal=True, tiles=us.resident_tiles(H, W, k3_ow, k3_oh),
+                moved=int((plain != Phi_v).sum()))
+    batch = [us.launch_vote_resident(Phi_v, mask_v, 8) for _ in range(K3_BATCH)]
+    plain = pu.spatial_quality_unwrap(Phi_v, q_v, mask_v, 8)
+    torch.cuda.synchronize()
+    check(all(torch.equal(b.view(torch.int32), plain.view(torch.int32)) for b in batch),
+          f"K3: {K3_BATCH} launches back to back differ from the plain sweep")
+    voting[f"k3_{W}x{H}_batch{K3_BATCH}"] = dict(bit_equal=True)
+    # repairs that cross every corner of K3's tiles, sweep after sweep
+    k3_geometry = [cu_constant("unwrap", f"K3_{n}") for n in ("RUN", "WARPS", "HALO")]
+    Phi_v, mask_v = (torch.from_numpy(a).to(dev)
+                     for a in corner_fronts(K3_CAM_H, K3_CAM_W, *k3_geometry))
+    for iters in (*range(1, 3 * k3_halo + 1), 17):
+        plain = pu.spatial_quality_unwrap(Phi_v, None, mask_v, iters)
+        k3 = us.launch_vote_resident(Phi_v, mask_v, iters)
+        torch.cuda.synchronize()
+        check(torch.equal(k3.view(torch.int32), plain.view(torch.int32)),
+              f"K3 corner fronts iters {iters}: not bit-equal")
+        voting[f"k3_corner_fronts_iters{iters}"] = dict(
+            bit_equal=True, moved=int((plain != Phi_v).sum()))
+    _, Phi_v, _, mask_v, _ = phase_scene(TILED_H, TILED_W, 3, 10)
+    try:
+        us.launch_vote_resident(Phi_v, mask_v, 4)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None, f"K3 took a {TILED_W}x{TILED_H} map past one wave")
+    voting[f"k3_{TILED_W}x{TILED_H}_refused"] = refused
+    emit("k3_k4_voting", k3_halo=k3_halo, **voting)
 
     # phase 16: K5 against its plain pass: the light repair (8 launches),
     # 4 levels x 2 rounds (32), the phase-only unwrap (32); the scene above,
@@ -1872,9 +1946,11 @@ def main():
 
     # phase 17: the spatial repair on the main path: DenseReconstructor with
     # spatial_iters=4 on the config-3 scan, both modes (K1 + K4, or K1 + K5
-    # x 8), then the voting mode on a 320x256 camera (noise 0.01), whose map
-    # takes K3; the mask stays the unrepaired one; the repaired pixels are
-    # those of the plain route (the same function on the host)
+    # x 8), then the voting mode on a 320x256 camera (noise 0.01) and on a
+    # 1280x800 camera (a 1 MP sensor: config 3's projector, patterns and
+    # noise), whose maps take K3; the mask stays the unrepaired one; the
+    # repaired pixels are those of the plain route (the same function on
+    # the host)
     small_cam, small_proj = default_rig(cam_w=320, cam_h=256, proj_w=256, proj_h=192,
                                         device=dev)
     small_cfg = PatternConfig(proj_width=256, proj_height=192, gray_bits=6,
@@ -1888,6 +1964,13 @@ def main():
                     for mode in SPATIAL_MODES]
     spatial_runs.append(("voting_320x256", small_cam, small_proj, small_cfg,
                          small_scan.frames, small_scan, (1, 0, 0)))
+    mp_cam, mp_proj = default_rig(K3_CAM_W, K3_CAM_H)
+    mp_scan = render_scan(mp_cam.to(dev), mp_proj.to(dev), bumps_depth(
+        K3_CAM_H, K3_CAM_W, base=480.0, amp=30.0, device=dev), cfg, noise_std=0.005,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    mp_name = f"voting_{K3_CAM_W}x{K3_CAM_H}"
+    spatial_runs.append((mp_name, mp_cam, mp_proj, cfg, mp_scan.frames.contiguous(), mp_scan,
+                         (1, 0, 0)))
     for mode, c_cam, c_proj, c_cfg, c_frames, c_scan, want in spatial_runs:
         base, n = counts_of(lambda: DenseReconstructor(c_cam, c_proj, c_cfg).to(dev)(c_frames))
         check(n["k1"] == 1 and n["k3"] + n["k4"] + n["k5"] == 0, f"{mode} base: {n}")
@@ -1922,6 +2005,8 @@ def main():
         seen = repaired & c_scan.mask_true
         err = [torch.linalg.norm(x.points - c_scan.points_true, dim=-1)[seen]
                for x in (base, out)]
+        if mode == mp_name:   # the 1 MP decode's own map, timed below
+            mp_map = (base.x_p * (2 * math.pi / pitch), base.quality, base.mask)
         spatial[mode] = dict(launches=n, rms_mm=rms_s, rms_unrepaired_mm=rms_b,
                              rms_gate_mm=gate, valid_points=n_s,
                              repaired_px=int(repaired.sum()),
@@ -1963,10 +2048,11 @@ def main():
     turns = [tuple(n + sfx for n in ("plain", "kernel", "scan", "scan", "kernel", "plain"))
              for sfx in ("", "_uint8", "_hdr")]
     turns.append(("plain_uint16", "kernel_uint16", "kernel_uint16", "plain_uint16"))
-    # the spatial repair on the config-3 decode's own map: K3 and K4 at 4
-    # and 8 sweeps, one K5 pass along rows and along columns (the repair's
-    # last level: every masked pixel eligible, the trusted ones done), the
-    # 8-pass repair, and the forward in each mode
+    # the spatial repair on the config-3 decode's own map: K3 and K4 at 4,
+    # 8 and 17 sweeps, K3 at 4 and 8 on the 1280x800 decode's own map (a
+    # map its route carries), one K5 pass along rows and along columns (the
+    # repair's last level: every masked pixel eligible, the trusted ones
+    # done), the 8-pass repair, and the forward in each mode
     base = model(frames)
     pitch = cfg.fringe_pitch
     Phi3, q3, m3 = base.x_p * (2 * math.pi / pitch), base.quality, base.mask
@@ -1974,13 +2060,21 @@ def main():
     models = {mode: DenseReconstructor(cam, proj, cfg, DecodeConfig(
         spatial_unwrap_mode=mode), spatial_iters=SPATIAL_ITERS).to(dev)
         for mode in SPATIAL_MODES}
-    for it in (SPATIAL_ITERS, 8):
+    for it in K3_TIMED_ITERS:
         runs.update({
             f"plain_vote{it}": lambda it=it: pu.spatial_quality_unwrap(Phi3, q3, m3, it),
             f"k3_{it}": lambda it=it: us.launch_vote_resident(Phi3, m3, it),
-            f"k4_{it}": lambda it=it: us.launch_vote_tiled(Phi3, m3, it)})
+            f"k4_{it}": (lambda it=it: us.launch_vote_tiled(Phi3, m3, it)) if it <= us.MAX_HALO
+            else (lambda it=it: us.quality_unwrap_tiled(Phi3, q3, m3, it))})
         turns.append((f"plain_vote{it}", f"k3_{it}", f"k4_{it}", f"k4_{it}",
                       f"k3_{it}", f"plain_vote{it}"))
+    mp = f"{K3_CAM_W}x{K3_CAM_H}"
+    for it in (SPATIAL_ITERS, 8):
+        runs.update({
+            f"plain_vote{it}_{mp}": lambda it=it: pu.spatial_quality_unwrap(*mp_map, it),
+            f"k3_{it}_{mp}": lambda it=it: us.launch_vote_resident(mp_map[0], mp_map[2], it)})
+        turns.append((f"plain_vote{it}_{mp}", f"k3_{it}_{mp}", f"k3_{it}_{mp}",
+                      f"plain_vote{it}_{mp}"))
     for axis, line in ((1, "rows"), (0, "cols")):
         runs.update({
             f"plain_pass_{line}": lambda axis=axis: pu.directional_pass(
@@ -2012,7 +2106,8 @@ def main():
              # once (K3's scratch map, whose sweeps between run in L2, and
              # K4's tiles' halo re-reads are the designs', K4's in
              # design_bytes)
-             **{f"k{n}_{it}": (4 + 1 + 4) * px for n in (3, 4) for it in (SPATIAL_ITERS, 8)},
+             **{f"k{n}_{it}": (4 + 1 + 4) * px for n in (3, 4) for it in K3_TIMED_ITERS},
+             **{f"k3_{it}_{mp}": (4 + 1 + 4) * K3_CAM_W * K3_CAM_H for it in (SPATIAL_ITERS, 8)},
              # K5: phi, Phi (4 B), elig, done (1 B) in; Phi, done out
              "k5_rows": 15 * px, "k5_cols": 15 * px}
     gbs = {f"{k}_gb_s": b / (ms[k] * 1e-3) / 1e9 for k, b in moved.items()}
@@ -2031,24 +2126,26 @@ def main():
                                         .float().mean())
                    for k, m in best.items()
                    for unit, box in (("boxes", k2_box()), ("warps", (1, 32)))}
-    # the kernels alone on the device: CUDA-graph replays (K3: back-to-back
-    # launches), median per launch, in turns
+    # the kernels alone on the device: CUDA-graph replays (K3's cooperative
+    # launch too), median per launch, in turns
     runs["kernel_hdr_mixed"] = lambda: fs.launch_fused_scan_hdr(bracket_mix, params_h)
     params_hf = fs.scan_params(cam_d, proj_d, cfg, dec, (1.0, 1e4), 8, CAM_H, CAM_W,
                                exposures=len(HDR_GAINS))
     runs["kernel_hdr_float32"] = lambda: fs.launch_fused_scan_hdr(float_h, params_hf)
     device_runs = ("kernel", "kernel_uint8", "kernel_uint16", "kernel_hdr", "kernel_hdr_mixed",
-                   "kernel_hdr_float32", f"k4_{SPATIAL_ITERS}", "k5_rows", "k5_cols")
-    device_times = {k: [] for k in (*device_runs, f"k3_{SPATIAL_ITERS}")}
+                   "kernel_hdr_float32", *(f"k4_{it}" for it in K3_TIMED_ITERS), "k5_rows",
+                   "k5_cols")
+    k3_runs = (*(f"k3_{it}" for it in K3_TIMED_ITERS), f"k3_{SPATIAL_ITERS}_{mp}", f"k3_8_{mp}")
+    device_times = {k: [] for k in (*device_runs, *k3_runs)}
     for _ in range(2):
-        for k in device_runs:
+        for k in (*device_runs, *k3_runs):
             device_times[k] += graph_ms(runs[k])
-        device_times[f"k3_{SPATIAL_ITERS}"] += queued_ms(runs[f"k3_{SPATIAL_ITERS}"])
     device_ms = {k: statistics.median(v) for k, v in device_times.items()}
     host = {f"{k}_host_ms": host_ms(fn) for k, fn in (
         ("scan_params", lambda: fs.scan_params(cam_d, proj_d, cfg, dec,
                                                (1.0, 1e4), 8, CAM_H, CAM_W)),
-        ("launch", runs["kernel"]), ("scan", runs["scan"]))}
+        ("launch", runs["kernel"]), ("scan", runs["scan"]),
+        *((k, runs[k]) for k in k3_runs))}
     emit("timing", card=card, runs_each=len(times["kernel"]),
          **{f"{k}_ms": v for k, v in ms.items()}, **host, **spread,
          **{f"{k}_device_ms": v for k, v in device_ms.items()},
@@ -2076,6 +2173,13 @@ def main():
                 "bound_by": "bytes" if t_b >= t_i else "operations"}
 
     vote_instr = VOTE_INSTR_PER_PX_SWEEP * px * SPATIAL_ITERS
+    # K3's launch on this card: cells a tile owns, the tiles one wave holds
+    # and the tiles of the two timed maps
+    k3_shape = {"tile_owned_cells": [k3_ow, k3_oh], "wave_tiles": k3_wave,
+                "blocks_per_sm": k3_wave // torch.cuda.get_device_properties(
+                    0).multi_processor_count,
+                "tiles": us.resident_tiles(CAM_H, CAM_W, k3_ow, k3_oh),
+                f"tiles_{mp}": us.resident_tiles(K3_CAM_H, K3_CAM_W, k3_ow, k3_oh)}
     # K5: the composes of the timed passes' trees on this run's map, and
     # every compose of the tree at full cost (a map all CHAIN)
     composes = {k: wave_tree_composes(m3, trust3, axis)
@@ -2141,7 +2245,21 @@ def main():
         "plain_ms_iters8": ms["plain_vote8"],
         **bound(moved[f"k3_{SPATIAL_ITERS}"], vote_instr), "library_ms": None,
         "device_ms": device_ms[f"k3_{SPATIAL_ITERS}"],
-        "device_ms_by": "back-to-back launches",
+        "device_ms_iters8": device_ms["k3_8"],
+        "device_ms_iters17": device_ms["k3_17"],
+        "bound_ms_iters8": bound(moved["k3_8"], 2 * vote_instr)["bound_ms"],
+        f"device_ms_{mp}": device_ms[f"k3_{SPATIAL_ITERS}_{mp}"],
+        f"device_ms_{mp}_iters8": device_ms[f"k3_8_{mp}"],
+        f"ms_{mp}": ms[f"k3_{SPATIAL_ITERS}_{mp}"],
+        f"plain_ms_{mp}": ms[f"plain_vote{SPATIAL_ITERS}_{mp}"],
+        f"bound_ms_{mp}": bound(moved[f"k3_{SPATIAL_ITERS}_{mp}"],
+                                vote_instr * K3_CAM_W * K3_CAM_H // px)["bound_ms"],
+        "host_ms": host[f"k3_{SPATIAL_ITERS}_host_ms"],
+        f"host_ms_{mp}": host[f"k3_{SPATIAL_ITERS}_{mp}_host_ms"],
+        f"launches_{mp}": spatial[mp_name]["launches"]["k3"],
+        "halo": k3_halo,
+        **k3_shape,
+        "registers": [v for k, v in ptxas_of("unwrap").items() if "vote_resident" in k],
     }, {
         "name": "quality_unwrap_tiled",
         "route": "cuda",
@@ -2157,6 +2275,9 @@ def main():
         "bytes": moved[f"k4_{SPATIAL_ITERS}"],
         "design_bytes": design_bytes[f"k4_{SPATIAL_ITERS}"],
         "device_ms": device_ms[f"k4_{SPATIAL_ITERS}"],
+        "device_ms_iters8": device_ms["k4_8"],
+        "device_ms_iters17": device_ms["k4_17"],
+        "registers": [v for k, v in ptxas_of("unwrap").items() if "vote_tiled" in k],
     }, {
         "name": "wavefront_pass",
         "route": "cuda",

@@ -36,10 +36,9 @@
 // never counted (a vote is compared with == and != 0 only). A vote from a
 // neighbour outside the mask is never counted, and a pixel outside the mask
 // never moves: so the vote across an edge with an end outside the mask is
-// NaN, which equals nothing, and the consensus needs no mask at all. So K4
-// rounds each edge once (a vertical and a horizontal edge a pixel and
-// sweep, not 4 votes), and K3, which sweeps the map pixel by pixel, rounds
-// each of its 4 votes.
+// NaN, which equals nothing, and the consensus needs no mask at all. So K3
+// and K4 round each edge once (a vertical and a horizontal edge a pixel and
+// sweep, not 4 votes), in one sweep function (sweep_run).
 //
 // Bounds and design:
 // - A sweep reads 5 values per pixel, so sweeps out of device memory would
@@ -74,13 +73,26 @@
 //   give each block about one tile at config 3: there is no second tile to
 //   prefetch. Scalar loads take a map at any alignment and width, so no
 //   separate unaligned path exists.
-// - K3 is the card's form of "whole map resident, one launch": a
-//   cooperative launch of as many blocks as fit on the card at once sweeps
-//   the whole map in global memory, with a grid-wide barrier between
-//   sweeps. At config 3 (1280x1024) the input, the two Phi buffers and the
-//   mask are 17 MB, inside the 50 MB L2, so the sweeps after the first run
-//   out of L2. Phi is read with __ldcg (L2, not L1): it was written by
-//   other SMs in the previous sweep.
+// - K3 is the card's form of "whole map resident, one launch": the map
+//   lives in the register file of one wave of blocks for all its sweeps.
+//   One cooperative launch puts one tile on each block, in K4's layout
+//   (K3_WARPS warps of K3_RUN-row runs, a halo of K3_HALO), and every tile
+//   is resident at once. The block sweeps its tile in registers as K4 does
+//   (the same sweep_run and refresh_warp_edges). Every K3_HALO sweeps it
+//   trades edges, not the map: it writes the K3_HALO-deep ring of its owned
+//   cells to a small exchange buffer in device memory (it stays in L2),
+//   publishes a per-tile sweep counter, waits on the counters of the tiles
+//   that can reach it and reads their rings into its halo. With a halo of
+//   1 those are the 4 edge neighbours; with 2 or more also the 4 diagonal
+//   ones, because a cell at depth h then reads the corner halo (a cell's
+//   h sweeps read the cells within h steps along the grid). One grid-wide
+//   barrier a launch, behind which the tiles zero their counters, waited on
+//   only before the first exchange; after it a tile waits only on the
+//   tiles that can reach it. Each block
+//   writes its owned cells once, after the last sweep, so a launch moves 9
+//   B a pixel (phi and the mask in, Phi out) plus the rings, and any number
+//   of sweeps is one launch (the last chunk sweeps iters mod h). The map
+//   is read with no index division and no mask test inside a sweep.
 // - K5 scans lines (rows, or columns when axis = 0; the direction reversed
 //   when reverse = 1) with the Hillis-Steele tree of the plain version: step
 //   s composes element i with element i - s, s = 1, 2, 4, ..., so
@@ -119,13 +131,28 @@ namespace cg = cooperative_groups;
 extern __shared__ float k5_smem[];
 
 #define SLR_MAX_HALO 8
-#define SLR_BLOCK 256
+#define SLR_MAX_DEVICES 64
 // K4: rows a thread holds (the tile's height with its halo), warps a block,
 // and the blocks an SM must hold (at most 128 registers a thread), so that
 // config 3's grid is resident at once
 constexpr int K4_RUN = 32;
 constexpr int K4_WARPS = 4;
 constexpr int K4_BLOCKS_PER_SM = 4;
+// K3: rows a thread holds, warps a block, the blocks an SM must hold (at
+// most 128 registers a thread) and the halo, the sweeps between two
+// exchanges. Capacity: every tile is resident at once, so a map's tiles
+// must fit one wave, 132 x K3_BLOCKS_PER_SM = 1,056 on an H100. With 2
+// warps and a halo of 2 a tile owns 58 x 28 cells: every map the route rule
+// sends to K3 with both sides <= 16,384 fits (the most, 879 tiles, 121-128
+// columns by 8,192 rows), and so does the 1280x1024 map (851). K4's 4-warp
+// tile at 4 blocks an SM (528 a wave) would miss those narrow, tall maps
+// (586). A halo of 2 measured faster than 1 or 4 on the 1280x800 map
+// (PERF.md). kernels/unwrap_scan.py::resident_tiles counts the tiles; the
+// wrapper refuses a map past one wave.
+constexpr int K3_RUN = 32;
+constexpr int K3_WARPS = 2;
+constexpr int K3_BLOCKS_PER_SM = 8;
+constexpr int K3_HALO = 2;
 #define SLR_MAX_SMEM 232448  // bytes of shared memory a block may opt in to
 // K5's two builds: 8 elements a thread and at most 1,024 threads a block
 // (lines up to 8,192), 16 and 640 (up to 10,240); a column pass takes up to
@@ -188,102 +215,245 @@ __device__ __forceinline__ float vote_consensus(float pc, float k0, float k1, fl
   return take ? __fadd_rn(pc, __fmul_rn(kTwoPi, k)) : pc;
 }
 
-// K3. Sweep t reads the previous sweep's buffer and writes out or scratch,
-// arranged so that the last sweep writes out.
-__global__ void __launch_bounds__(SLR_BLOCK)
-vote_resident_kernel(const float* phi, const uint8_t* __restrict__ mask, float* out,
-                     float* scratch, int H, int W, int iters) {
-  cg::grid_group grid = cg::this_grid();
-  const long long n = (long long)H * W;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const float* src = phi;
-  for (int t = 0; t < iters; ++t) {
-    float* dst = ((iters - 1 - t) & 1) ? scratch : out;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += stride) {
-      const int r = (int)(i / W), c = (int)(i % W);
-      const float pc = __ldcg(src + i);
-      const bool mc = mask[i] != 0;
-      const bool up = r > 0, down = r < H - 1, left = c > 0, right = c < W - 1;
-      dst[i] = vote_consensus(
-          pc, edge_vote(up ? __ldcg(src + i - W) : 0.f, pc, mc && up && mask[i - W]),
-          edge_vote(down ? __ldcg(src + i + W) : 0.f, pc, mc && down && mask[i + W]),
-          edge_vote(left ? __ldcg(src + i - 1) : 0.f, pc, mc && left && mask[i - 1]),
-          edge_vote(right ? __ldcg(src + i + 1) : 0.f, pc, mc && right && mask[i + 1]));
-    }
-    grid.sync();
-    src = dst;
-  }
-}
+// The voting kernels' register tile (K3 and K4). A thread holds a run of
+// RUN rows of one column; thread (lane, warp) holds tile column 30 warp +
+// lane. Lanes 1..30 own their columns; lanes 0 and 31 hold copies of the
+// neighbouring warps' lanes 30 and 1, or, at the tile's outer edge, its
+// halo columns.
+constexpr unsigned kAllLanes = 0xffffffffu;
 
-// K4: h sweeps of a tile with a halo of h; see the header. Thread (lane,
-// warp) holds column c0 + 30 warp + lane, rows r0 .. r0 + K4_RUN - 1, as
-// P[r] and mask bit r of M.
-__global__ void __launch_bounds__(32 * K4_WARPS, K4_BLOCKS_PER_SM)
-vote_tiled_kernel(const float* __restrict__ phi, const uint8_t* __restrict__ mask,
-                  float* __restrict__ out, int H, int W, int h) {
-  static_assert(K4_RUN > 2 * SLR_MAX_HALO && K4_RUN <= 32, "a run's mask bits are one word");
-  __shared__ float edges[2][K4_WARPS][2][K4_RUN];  // [buffer][warp][lane 1, lane 30][row]
-  constexpr unsigned kAll = 0xffffffffu;
-  const int lane = threadIdx.x & 31, wx = threadIdx.x >> 5;
-  const int ow = 30 * K4_WARPS + 2 - 2 * h, oh = K4_RUN - 2 * h;  // pixels out a block
-  const int c0 = blockIdx.x * ow - h, r0 = blockIdx.y * oh - h;
-  const int c = c0 + 30 * wx + lane;
+// A run from the map: rows r0 .. r0 + RUN - 1 of column c as P[r], the mask
+// as bit r of the word returned; outside the image phi 0 and mask 0, the
+// reference's zero fill.
+template <int RUN>
+__device__ __forceinline__ uint32_t load_run(const float* __restrict__ phi,
+                                             const uint8_t* __restrict__ mask, int H, int W,
+                                             int c, int r0, float (&P)[RUN]) {
+  static_assert(RUN <= 32, "a run's mask bits are one word");
   const bool col_in = c >= 0 && c < W;
-  float P[K4_RUN];
   uint32_t M = 0u;
 #pragma unroll
-  for (int r = 0; r < K4_RUN; ++r) {
+  for (int r = 0; r < RUN; ++r) {
     const int y = r0 + r;
     const bool in = col_in && y >= 0 && y < H;
     const long long g = (long long)y * W + c;
     P[r] = in ? __ldg(phi + g) : 0.f;
     M |= (in && __ldg(mask + g) != 0) ? 1u << r : 0u;
   }
-  // the edges with both ends in the mask: bit r of VE the edge below row r,
-  // of HE the edge to the right (lane 31's right neighbour is not in the
-  // warp: its copy's neighbour, or the region's edge; every lane takes part
-  // in each shuffle)
-  const uint32_t MR = __shfl_down_sync(kAll, M, 1);
-  const uint32_t VE = M & (M >> 1), HE = lane < 31 ? M & MR : 0u;
+  return M;
+}
+
+// A run's edges with both ends in the mask: bit r of ve the edge below row
+// r, of he the edge to the right (lane 31's right neighbour is not in the
+// warp: its copy's neighbour, or the region's edge; every lane takes part
+// in each shuffle).
+struct RunEdges {
+  uint32_t ve, he;
+};
+
+__device__ __forceinline__ RunEdges run_edges(uint32_t M, int lane) {
+  const uint32_t MR = __shfl_down_sync(kAllLanes, M, 1);
+  return {M & (M >> 1), lane < 31 ? M & MR : 0u};
+}
+
+// One sweep of a thread's run: the edge below each row (row r + 1 still
+// holds its old value) and the edge to its right, each rounded once; the
+// left edge is the left lane's right one (lane 0 takes lane 31's, which is
+// NaN), the edge above the row above's edge below, each negated.
+template <int RUN>
+__device__ __forceinline__ void sweep_run(float (&P)[RUN], RunEdges e, int lane) {
   const int from_left = (lane + 31) & 31;
-  for (int t = 0; t < h; ++t) {
-    float kd_above = __int_as_float(0x7fc00000);  // the row above's edge below: none
+  float kd_above = __int_as_float(0x7fc00000);  // the row above's edge below: none
 #pragma unroll
-    for (int r = 0; r < K4_RUN; ++r) {
-      const float pc = P[r];
-      // the edge below (row r + 1 still holds its old value) and the edge to
-      // the right, each rounded once; the left edge is the left lane's right
-      // one (lane 0 takes lane 31's, which is NaN)
-      const float kd = edge_vote(r + 1 < K4_RUN ? P[r + 1] : 0.f, pc, (VE >> r) & 1u);
-      const float kr = edge_vote(__shfl_down_sync(kAll, pc, 1), pc, (HE >> r) & 1u);
-      const float kl = -__shfl_sync(kAll, kr, from_left);
-      P[r] = vote_consensus(pc, -kd_above, kd, kl, kr);
-      kd_above = kd;
+  for (int r = 0; r < RUN; ++r) {
+    const float pc = P[r];
+    const float kd = edge_vote(r + 1 < RUN ? P[r + 1] : 0.f, pc, (e.ve >> r) & 1u);
+    const float kr = edge_vote(__shfl_down_sync(kAllLanes, pc, 1), pc, (e.he >> r) & 1u);
+    const float kl = -__shfl_sync(kAllLanes, kr, from_left);
+    P[r] = vote_consensus(pc, -kd_above, kd, kl, kr);
+    kd_above = kd;
+  }
+}
+
+// Lanes 0 and 31 from the neighbouring warps' lanes 30 and 1, through
+// shared memory (edges: [warp][lane 1, lane 30][row]). Callers alternate
+// two such buffers, so one barrier a sweep suffices.
+template <int WARPS, int RUN>
+__device__ __forceinline__ void refresh_warp_edges(float (&P)[RUN],
+                                                   float (&edges)[WARPS][2][RUN], int lane,
+                                                   int wx) {
+  if (lane == 1 || lane == 30) {
+    float* e = edges[wx][lane == 30];
+#pragma unroll
+    for (int r = 0; r < RUN; ++r) e[r] = P[r];
+  }
+  __syncthreads();
+  if ((lane == 0 && wx > 0) || (lane == 31 && wx + 1 < WARPS)) {
+    const float* e = edges[lane == 0 ? wx - 1 : wx + 1][lane == 0];
+#pragma unroll
+    for (int r = 0; r < RUN; ++r) P[r] = e[r];
+  }
+}
+
+// A tile's interior out: rows and tile columns j at depth >= h from the
+// edges of a tile tw columns wide, each column by its owner lane.
+template <int RUN>
+__device__ __forceinline__ void store_run(float* __restrict__ out, const float (&P)[RUN], int H,
+                                          int W, int c, int r0, int j, int tw, int h, int lane) {
+  if (lane >= 1 && lane <= 30 && j >= h && j < tw - h && c < W) {
+#pragma unroll
+    for (int r = 0; r < RUN; ++r) {
+      const int y = r0 + r;
+      if (r >= h && r < RUN - h && y < H) out[(long long)y * W + c] = P[r];
     }
+  }
+}
+
+// K4: h sweeps of a tile with a halo of h; see the header.
+__global__ void __launch_bounds__(32 * K4_WARPS, K4_BLOCKS_PER_SM)
+vote_tiled_kernel(const float* __restrict__ phi, const uint8_t* __restrict__ mask,
+                  float* __restrict__ out, int H, int W, int h) {
+  static_assert(K4_RUN > 2 * SLR_MAX_HALO, "a run holds its halo above and below");
+  __shared__ float edges[2][K4_WARPS][2][K4_RUN];  // [buffer][warp][lane 1, lane 30][row]
+  constexpr int tw = 30 * K4_WARPS + 2;
+  const int lane = threadIdx.x & 31, wx = threadIdx.x >> 5, j = 30 * wx + lane;
+  const int c = blockIdx.x * (tw - 2 * h) - h + j, r0 = blockIdx.y * (K4_RUN - 2 * h) - h;
+  float P[K4_RUN];
+  const RunEdges e = run_edges(load_run(phi, mask, H, W, c, r0, P), lane);
+  for (int t = 0; t < h; ++t) {
+    sweep_run(P, e, lane);
     if (t + 1 == h) break;
-    // refresh lanes 0 and 31 from the neighbouring warps' lanes 30 and 1
-    const int buf = t & 1;
-    if (lane == 1 || lane == 30) {
-      float* e = edges[buf][wx][lane == 30];
+    refresh_warp_edges(P, edges[t & 1], lane, wx);
+  }
+  store_run(out, P, H, W, c, r0, j, tw, h, lane);
+}
+
+// K3's tile: K3_TW columns with the halo, K3_OW x K3_OH cells owned. Its
+// exchange buffer, per tile and chunk parity, holds the K3_HALO-deep ring
+// of the tile's owned cells: the top and bottom strips [h][K3_OW] (the
+// corners with them), then the left and right strips [h][K3_OH].
+constexpr int K3_TW = 30 * K3_WARPS + 2;
+constexpr int K3_OW = K3_TW - 2 * K3_HALO, K3_OH = K3_RUN - 2 * K3_HALO;
+constexpr int K3_RING = 2 * K3_HALO * (K3_OW + K3_OH);
+// K3's exchange buffer, 32-bit words: a sweep counter a tile (the chunks
+// it has published), then the rings, 2 a tile. Each launch has its own
+// (the wrapper allocates it), and the launch zeroes its counters itself,
+// so launches that overlap (CUDA graphs replayed on two streams) share no
+// state and the buffer needs no set-up.
+constexpr int K3_WORDS_PER_TILE = 1 + 2 * K3_RING;
+// polls of one counter (each an L2 round trip) before a launch is taken to
+// be hung: a legitimate wait is one chunk of sweeps, microseconds
+constexpr int K3_SPIN_LIMIT = 1 << 24;
+
+__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// K3: iters sweeps of the whole map, one tile a block, all resident; see
+// the header. Thread (lane, warp) holds tile column j = 30 warp + lane.
+// exchange: K3_WORDS_PER_TILE words a tile, of any content.
+__global__ void __launch_bounds__(32 * K3_WARPS, K3_BLOCKS_PER_SM)
+vote_resident_kernel(const float* __restrict__ phi, const uint8_t* __restrict__ mask,
+                     float* __restrict__ out, int H, int W, int iters, unsigned* exchange) {
+  constexpr int h = K3_HALO;
+  static_assert(K3_RUN > 2 * h && K3_TW > 4 * h, "a tile holds its halo and its ring");
+  __shared__ float edges[2][K3_WARPS][2][K3_RUN];  // [buffer][warp][lane 1, lane 30][row]
+  const int lane = threadIdx.x & 31, wx = threadIdx.x >> 5, j = 30 * wx + lane;
+  const int bx = blockIdx.x, by = blockIdx.y, nx = gridDim.x, ny = gridDim.y;
+  const int c = bx * K3_OW - h + j, r0 = by * K3_OH - h;
+  unsigned* counters = exchange;
+  float* rings = reinterpret_cast<float*>(exchange + nx * ny);
+  // Fresh counters on every launch: each tile zeroes its own, then arrives
+  // at the grid barrier (a release), and waits on it (an acquire) only
+  // before it first polls a neighbour's counter, so no tile reads a counter
+  // left from before the launch and the wait hides behind the load and the
+  // first chunk of sweeps. A launch of at most h sweeps never waits: the
+  // barrier completes all the same, with the last tile's arrival.
+  const cg::grid_group grid = cg::this_grid();
+  if (threadIdx.x == 0) counters[by * nx + bx] = 0u;
+  cg::grid_group::arrival_token zeroed = grid.barrier_arrive();
+  float P[K3_RUN];
+  const RunEdges e = run_edges(load_run(phi, mask, H, W, c, r0, P), lane);
+  // the ring tile (tx, ty) writes after chunk k (double-buffered by the
+  // chunk's parity: a tile cannot write parity p again before its
+  // neighbours have read it, since it cannot finish its next chunk without
+  // their next ring)
+  auto ring_of = [&](int tx, int ty, int k) {
+    return rings + (size_t)(2 * (ty * nx + tx) + (k & 1)) * K3_RING;
+  };
+  for (int t = 0; t < iters; ++t) {
+    sweep_run(P, e, lane);
+    if (t + 1 == iters) break;
+    refresh_warp_edges(P, edges[t & 1], lane, wx);
+    if ((t + 1) % h != 0) continue;
+    const int k = (t + 1) / h;  // the exchange after chunk k
+    // publish: the owned ring through L2 (__stcg), a barrier, then one
+    // thread's release store of the tile's counter (st.release.gpu: a
+    // fence and the store; after the barrier it orders the whole block's
+    // ring before the counter, as a grid barrier's arrival does)
+    if (lane >= 1 && lane <= 30 && j >= h && j < K3_TW - h) {
+      float* own = ring_of(bx, by, k);
 #pragma unroll
-      for (int r = 0; r < K4_RUN; ++r) e[r] = P[r];
+      for (int r = 0; r < h; ++r) {
+        __stcg(own + r * K3_OW + j - h, P[h + r]);
+        __stcg(own + (h + r) * K3_OW + j - h, P[K3_RUN - 2 * h + r]);
+      }
+      if (j < 2 * h || j >= K3_TW - 2 * h) {
+        float* side = own + 2 * h * K3_OW +
+                      (j < 2 * h ? j - h : h + j - (K3_TW - 2 * h)) * K3_OH - h;
+#pragma unroll
+        for (int r = h; r < K3_RUN - h; ++r) __stcg(side + r, P[r]);
+      }
     }
     __syncthreads();
-    if ((lane == 0 && wx > 0) || (lane == 31 && wx + 1 < K4_WARPS)) {
-      const float* e = edges[buf][lane == 0 ? wx - 1 : wx + 1][lane == 0];
+    if (threadIdx.x == 0) store_release(counters + by * nx + bx, k);
+    if (k == 1) grid.barrier_wait(cg::grid_group::arrival_token(zeroed));
+    // wait on the tiles that can reach this one, a thread each (the edge
+    // neighbours; the diagonal ones too with h >= 2), by acquire loads.
+    // Spinning is safe only because every tile is resident: the launch is
+    // cooperative and refused when the tiles exceed one wave
+    if (threadIdx.x < 8) {
+      const int d = threadIdx.x < 4 ? threadIdx.x : threadIdx.x + 1;  // 3 x 3, not the centre
+      const int dx = d % 3 - 1, dy = d / 3 - 1, tx = bx + dx, ty = by + dy;
+      if ((h >= 2 || dx == 0 || dy == 0) && tx >= 0 && tx < nx && ty >= 0 && ty < ny) {
+        const unsigned* p = counters + ty * nx + tx;
+        for (int spins = 0; load_acquire(p) < (unsigned)k; ++spins)
+          if (spins == K3_SPIN_LIMIT) __trap();
+      }
+    }
+    __syncthreads();
+    // the halo rows of each column from the tile above and below it (a
+    // corner column from a diagonal tile, read only with h >= 2), by
+    // __ldcg: L1 is not coherent across SMs
+    const int tx = j < h ? bx - 1 : (j >= K3_TW - h ? bx + 1 : bx);
+    const int jj = j < h ? K3_OW - h + j : (j >= K3_TW - h ? j - (K3_TW - h) : j - h);
+    if (tx >= 0 && tx < nx && (h >= 2 || tx == bx)) {
+      if (by > 0) {
+        const float* s = ring_of(tx, by - 1, k) + h * K3_OW + jj;  // its bottom strip
 #pragma unroll
-      for (int r = 0; r < K4_RUN; ++r) P[r] = e[r];
+        for (int r = 0; r < h; ++r) P[r] = __ldcg(s + r * K3_OW);
+      }
+      if (by + 1 < ny) {
+        const float* s = ring_of(tx, by + 1, k) + jj;  // its top strip
+#pragma unroll
+        for (int r = 0; r < h; ++r) P[K3_RUN - h + r] = __ldcg(s + r * K3_OW);
+      }
+    }
+    // the halo columns' owned rows from the tile beside it
+    if ((j < h && bx > 0) || (j >= K3_TW - h && bx + 1 < nx)) {
+      const float* s = j < h ? ring_of(bx - 1, by, k) + 2 * h * K3_OW + (h + j) * K3_OH
+                             : ring_of(bx + 1, by, k) + 2 * h * K3_OW + (j - (K3_TW - h)) * K3_OH;
+#pragma unroll
+      for (int r = h; r < K3_RUN - h; ++r) P[r] = __ldcg(s + r - h);
     }
   }
-  // the interior: rows and columns at depth >= h, each column by its owner
-  if (lane >= 1 && lane <= 30 && c >= c0 + h && c < c0 + 30 * K4_WARPS + 2 - h && c < W) {
-#pragma unroll
-    for (int r = 0; r < K4_RUN; ++r) {
-      const int y = r0 + r;
-      if (r >= h && r < K4_RUN - h && y < H) out[(long long)y * W + c] = P[r];
-    }
-  }
+  store_run(out, P, H, W, c, r0, j, K3_TW, h, lane);
 }
 
 cudaError_t shared_memory(const void* kernel, size_t bytes);
@@ -743,6 +913,29 @@ cudaError_t shared_memory(const void* kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// Make `device` current, calling cudaSetDevice only when it is not.
+cudaError_t use_device(int device) {
+  if (device < 0 || device >= SLR_MAX_DEVICES) return cudaErrorInvalidDevice;
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err != cudaSuccess) return err;
+  return cur == device ? cudaSuccess : cudaSetDevice(device);
+}
+
+// The K3 tiles one wave holds on `device` (current), asked once a device;
+// 0 if the card cannot hold one block of K3.
+int resident_capacity(int device) {
+  static int capacity[SLR_MAX_DEVICES];
+  if (!capacity[device]) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) == cudaSuccess &&
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vote_resident_kernel,
+                                                      32 * K3_WARPS, 0) == cudaSuccess)
+      capacity[device] = sms * per_sm;
+  }
+  return capacity[device];
+}
+
 }  // namespace
 
 extern "C" {
@@ -755,26 +948,47 @@ const char* slr_cuda_error_string(int err) {
 // `device` and returns the launch's error code (0: launched). None
 // synchronises or allocates.
 
-// K3: iters >= 1 sweeps of the (H, W) map phi (mask: 0/1 bytes) into out;
-// scratch is a second (H, W) buffer. Fails, and does not fall back, when
-// the card refuses the cooperative launch.
-int slr_vote_resident(const float* phi, const uint8_t* mask, float* out, float* scratch,
+// K3's layout on `device`, into layout[0..3]: the tiles one wave holds
+// (blocks an SM by the occupancy API, times the SMs; asked once a device),
+// the 32-bit words of exchange buffer a tile takes, and the cells a tile
+// owns across and down.
+int slr_vote_resident_layout(int device, int* layout) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  layout[0] = resident_capacity(device);
+  layout[1] = K3_WORDS_PER_TILE;
+  layout[2] = K3_OW;
+  layout[3] = K3_OH;
+  return layout[0] > 0 ? 0 : (int)cudaErrorCooperativeLaunchTooLarge;
+}
+
+// K3: iters >= 1 sweeps of the (H, W) map phi (mask: 0/1 bytes) into out,
+// in one cooperative launch of one block a tile. exchange: layout[1] words
+// a tile, this launch's own, of any content. Fails, and does not fall
+// back, when the tiles exceed one wave (a spinning tile would wait forever
+// on one that is not resident) or the card refuses the cooperative launch.
+// Launched by cudaLaunchKernelEx with the cooperative attribute (which
+// also gives the kernel its grid barrier), never <<<>>>, so a CUDA graph
+// can capture it.
+int slr_vote_resident(const float* phi, const uint8_t* mask, float* out, unsigned* exchange,
                       int H, int W, int iters, int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (H < 1 || W < 1 || iters < 1) return (int)cudaErrorInvalidValue;
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vote_resident_kernel,
-                                                      SLR_BLOCK, 0);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const long long need = ((long long)H * W + SLR_BLOCK - 1) / SLR_BLOCK;
-  const int grid = (int)(need < (long long)per_sm * sms ? need : (long long)per_sm * sms);
-  void* args[] = {&phi, &mask, &out, &scratch, &H, &W, &iters};
-  err = cudaLaunchCooperativeKernel((const void*)vote_resident_kernel, dim3(grid),
-                                    dim3(SLR_BLOCK), args, 0, stream);
+  const long long tx = (W + K3_OW - 1) / K3_OW, ty = (H + K3_OH - 1) / K3_OH;
+  if (tx * ty > resident_capacity(device)) return (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchAttribute cooperative[1];
+  cooperative[0].id = cudaLaunchAttributeCooperative;
+  cooperative[0].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)tx, (unsigned)ty);
+  config.blockDim = dim3(32 * K3_WARPS);
+  config.dynamicSmemBytes = 0;
+  config.stream = stream;
+  config.attrs = cooperative;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, vote_resident_kernel, phi, mask, out, H, W, iters,
+                           exchange);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

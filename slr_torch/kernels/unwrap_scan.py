@@ -4,9 +4,15 @@ Port of ``slr/kernels/unwrap_scan.py``. Both kernels run ``iters`` sweeps of
 ``slr_torch.codec.unwrap.propagation_step`` and return what
 ``spatial_quality_unwrap`` returns, bit for bit:
 
-- K3, ``launch_vote_resident`` (``quality_unwrap_pallas``): one persistent
-  cooperative launch runs every sweep over the whole map, with a grid-wide
-  barrier between sweeps; the map stays in L2.
+- K3, ``launch_vote_resident`` (``quality_unwrap_pallas``): the whole map
+  resident in registers for every sweep, one tile a block in one
+  cooperative launch; every few sweeps (K3_HALO in csrc/unwrap.cu) each
+  tile trades the ring of its owned cells with the tiles around it through
+  a small exchange buffer, not the map. Each launch takes its own buffer
+  from the caching allocator (so launches that overlap, as CUDA graphs
+  replayed on two streams do, share nothing). A map whose tiles
+  (``resident_tiles``) exceed one wave of blocks is refused with
+  ``ValueError``.
 - K4, ``launch_vote_tiled`` (``quality_unwrap_tiled``): temporal blocking.
   Each block loads a tile with a halo of h cells into registers (a run of
   rows of one column a thread, warps side by side), runs h sweeps there
@@ -45,17 +51,24 @@ def takes_tiled(H: int, W: int) -> bool:
     return 3 * _round_up(H, 8) * _round_up(W, 128) * 4 > RESIDENT_BUDGET
 
 
+def resident_tiles(H: int, W: int, ow: int, oh: int) -> int:
+    """The tiles (blocks) of K3's one launch on an (H, W) map, each owning
+    ow x oh cells (``resident_layout``)."""
+    return -(-W // ow) * -(-H // oh)
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """``csrc/unwrap.cu`` (K3, K4 and K5), built and typed on first use."""
     lib = load_library("unwrap")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.slr_vote_resident.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.slr_vote_resident_layout.argtypes = [i32, ptr]
     lib.slr_vote_tiled.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
     lib.slr_wavefront_pass.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.slr_wavefront_cycles_check.argtypes = [ptr, i32, ptr]
-    for fn in (lib.slr_vote_resident, lib.slr_vote_tiled, lib.slr_wavefront_pass,
-               lib.slr_wavefront_cycles_check):
+    for fn in (lib.slr_vote_resident, lib.slr_vote_resident_layout, lib.slr_vote_tiled,
+               lib.slr_wavefront_pass, lib.slr_wavefront_cycles_check):
         fn.restype = ctypes.c_int
     lib.slr_cuda_error_string.argtypes = [i32]
     lib.slr_cuda_error_string.restype = ctypes.c_char_p
@@ -86,16 +99,36 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@functools.cache
+def resident_layout(device: int) -> tuple[int, int, int, int]:
+    """K3 on a card: (tiles one wave holds, 32-bit words of exchange buffer
+    a tile, cells a tile owns across, down), from the library."""
+    lib = library()
+    layout = (ctypes.c_int * 4)()
+    check_launch(lib, "K3 layout", lib.slr_vote_resident_layout(device, layout))
+    return tuple(layout)
+
+
 def launch_vote_resident(Phi, mask, iters: int):
-    """K3: ``iters`` sweeps in one cooperative launch (``iters`` >= 1).
-    Raises if the card refuses the cooperative launch."""
+    """K3: ``iters`` (>= 1) sweeps in one cooperative launch. Raises
+    ``ValueError`` for a map whose tiles exceed one wave of blocks on this
+    card (no fall-back), and ``RuntimeError`` if the card refuses the
+    cooperative launch."""
     check_maps("K3", Phi, mask)
     H, W = Phi.shape
-    out, scratch = torch.empty_like(Phi), torch.empty_like(Phi)
+    dev = Phi.device.index
+    wave, words, ow, oh = resident_layout(dev)
+    tiles = resident_tiles(H, W, ow, oh)
+    if tiles > wave:
+        raise ValueError(f"K3 holds at most {wave} tiles of {ow}x{oh} cells in one wave on "
+                         f"this card; a {H}x{W} map needs {tiles}")
+    # this launch's counters and rings (the kernel zeroes its counters)
+    exchange = torch.empty(tiles * words, dtype=torch.int32, device=Phi.device)
+    out = torch.empty_like(Phi)
     lib = library()
     check_launch(lib, "K3 vote_resident", lib.slr_vote_resident(
-        Phi.data_ptr(), mask.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        H, W, iters, Phi.device.index, _stream(Phi)))
+        Phi.data_ptr(), mask.data_ptr(), out.data_ptr(), exchange.data_ptr(),
+        H, W, iters, dev, _stream(Phi)))
     quality_unwrap.launches += 1
     return out
 

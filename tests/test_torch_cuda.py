@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import box_exposures, hdr_best_exposure, k2_box
+from chip_smoke import box_exposures, corner_fronts, cu_constant, hdr_best_exposure, k2_box
 from slr_torch.codec import unwrap as pu
 from slr_torch.config import DecodeConfig, PatternConfig
 from slr_torch.geom.camera import make_camera
@@ -397,6 +397,89 @@ def test_vote_kernels_on_layouts_and_values(cuda, case, iters):
     for got in (k4, k3):
         assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
     assert not torch.equal(plain, Phi_n)
+
+
+K3_HALO = cu_constant("unwrap", "K3_HALO")
+
+
+@pytest.mark.parametrize("iters", [1, K3_HALO + 1, 17, 64])
+@pytest.mark.parametrize("H,W", [(1024, 1024), (8192, 128), (800, 1280)])
+def test_k3_matches_plain_version_on_maps_of_its_route(cuda, H, W, iters):
+    """K3 (the map resident in registers, tiles trading their rings every
+    K3_HALO sweeps) against the plain sweep, bit for bit, on the largest
+    maps the route rule sends it (128x8192: the most tiles) and a 1280x800
+    camera's, from 1 sweep to 64 (many exchanges)."""
+    assert not us.takes_tiled(H, W)
+    _, Phi_n, q, mask, _ = _phase_map(cuda, H, W, 3, partial=True)
+    plain = pu.spatial_quality_unwrap(Phi_n, q, mask, iters)
+    n = us.quality_unwrap.launches
+    k3 = us.quality_unwrap(Phi_n, q, mask, iters)
+    torch.cuda.synchronize()
+    assert us.quality_unwrap.launches == n + 1
+    assert torch.equal(k3.view(torch.int32), plain.view(torch.int32))
+    assert not torch.equal(plain, Phi_n)
+
+
+@pytest.mark.parametrize("iters", [1, K3_HALO + 1, 2 * K3_HALO, 3 * K3_HALO])
+def test_k3_exchanges_tile_corners(cuda, iters):
+    """Repairs that cross every corner of K3's tiles a sweep at a time: the
+    tiles' corner halo cells, read from the diagonal tiles, bit for bit."""
+    geometry = [cu_constant("unwrap", f"K3_{n}") for n in ("RUN", "WARPS", "HALO")]
+    Phi_n, mask = (torch.from_numpy(a).to(cuda) for a in corner_fronts(800, 1280, *geometry))
+    plain = pu.spatial_quality_unwrap(Phi_n, None, mask, iters)
+    k3 = us.launch_vote_resident(Phi_n, mask, iters)
+    torch.cuda.synchronize()
+    assert torch.equal(k3.view(torch.int32), plain.view(torch.int32))
+
+
+def test_k3_back_to_back_launches_are_equal(cuda):
+    """20 launches with no sync between them: each launch's tiles see their
+    own sweep counters (zeroed before each launch), so every output is the
+    plain sweep's, signs of zeros included."""
+    _, Phi_n, q, mask, _ = _phase_map(cuda, 800, 1280, 4, partial=True)
+    outs = [us.launch_vote_resident(Phi_n, mask, 8) for _ in range(20)]
+    plain = pu.spatial_quality_unwrap(Phi_n, q, mask, 8)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o.view(torch.int32), plain.view(torch.int32)) for o in outs)
+
+
+def test_k3_graphs_replayed_on_two_streams_are_independent(cuda):
+    """Two CUDA graphs holding K3, on two maps, replayed at once on two
+    streams, again and again: each launch owns its counters and rings, so
+    each replay gives its map's plain sweep, bit for bit."""
+    maps = [_phase_map(cuda, H, W, 6 + i, partial=True) for i, (H, W) in
+            enumerate(((800, 1280), (1024, 1024)))]
+    plains = [pu.spatial_quality_unwrap(Phi_n, q, mask, 9) for _, Phi_n, q, mask, _ in maps]
+    streams = [torch.cuda.Stream() for _ in maps]
+    graphs, outs = [], []
+    for s, (_, Phi_n, _, mask, _) in zip(streams, maps):
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            us.launch_vote_resident(Phi_n, mask, 9)   # warm-up off the capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=s):
+            outs.append([us.launch_vote_resident(Phi_n, mask, 9) for _ in range(4)])
+        graphs.append(graph)
+    torch.cuda.synchronize()
+    for _ in range(10):
+        for s, graph in zip(streams, graphs):
+            with torch.cuda.stream(s):
+                graph.replay()
+        torch.cuda.synchronize()
+        for got, plain in zip(outs, plains):
+            assert all(torch.equal(o.view(torch.int32), plain.view(torch.int32)) for o in got)
+
+
+def test_k3_refuses_a_map_past_one_wave(cuda):
+    """A 5 MP map needs more tiles than one wave of K3's blocks holds: the
+    wrapper raises and names the limit, and nothing falls back."""
+    _, Phi_n, _, mask, _ = _phase_map(cuda, 2048, 2448, 5)
+    wave, _, ow, oh = us.resident_layout(cuda.index or 0)
+    assert us.resident_tiles(2048, 2448, ow, oh) > wave
+    n = us.quality_unwrap.launches
+    with pytest.raises(ValueError, match=f"at most {wave} tiles"):
+        us.launch_vote_resident(Phi_n, mask, 4)
+    assert us.quality_unwrap.launches == n
 
 
 def test_quality_unwrap_dispatch(cuda):

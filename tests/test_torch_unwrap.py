@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import corner_fronts, cu_constant
 from slr.codec import unwrap as ju
 from slr.kernels.unwrap_scan import quality_unwrap_pallas, quality_unwrap_tiled
 from slr.kernels.wavefront import wavefront_repair_pallas
@@ -205,6 +206,122 @@ def test_edge_vote_model_matches_propagation_step(kind):
         moved += int((model != Phi).sum())
         Phi = model
     assert moved > 0
+
+
+def _k3_geometry():
+    """K3's tile as csrc/unwrap.cu sets it: (run, warps, halo, blocks an SM)."""
+    return tuple(cu_constant("unwrap", f"K3_{n}")
+                 for n in ("RUN", "WARPS", "HALO", "BLOCKS_PER_SM"))
+
+
+def _k3_schedule(Phi, mask, iters, run, warps, h):
+    """``iters`` sweeps as K3 schedules them, in numpy: the map cut into tiles
+    of (30 warps + 2 - 2h) x (run - 2h) owned cells (the last ones ragged),
+    each loaded with a halo of h (outside the image phi 0, mask 0); chunks
+    of h sweeps of ``_edge_vote_sweep`` on each tile alone, the last chunk
+    iters mod h; between chunks each tile's halo refreshed from the owned
+    cells of the tiles around it, the corner cells only with h >= 2 (with
+    h = 1 they stay as the tile swept them: no owned cell reads them); then
+    every tile's owned cells out."""
+    H, W = Phi.shape
+    tw, ow, oh = 30 * warps + 2, 30 * warps + 2 - 2 * h, run - 2 * h
+    nx, ny = -(-W // ow), -(-H // oh)
+
+    def padded(a):
+        out = np.zeros((ny * oh + 2 * h, nx * ow + 2 * h), a.dtype)
+        out[h:h + H, h:h + W] = a
+        return out
+
+    def cut(a, tx, ty):
+        return a[ty * oh:ty * oh + run, tx * ow:tx * ow + tw]
+
+    Pp, Mp = padded(Phi), padded(mask)
+    tiles = {(tx, ty): cut(Pp, tx, ty).copy() for tx in range(nx) for ty in range(ny)}
+    halo_r = (np.arange(run) < h) | (np.arange(run) >= run - h)
+    halo_c = (np.arange(tw) < h) | (np.arange(tw) >= tw - h)
+    corner = halo_r[:, None] & halo_c[None, :]
+    refresh = (halo_r[:, None] | halo_c[None, :]) & ~(corner & (h == 1))
+    done = 0
+    while True:
+        for key in tiles:
+            for _ in range(min(h, iters - done)):
+                tiles[key] = _edge_vote_sweep(tiles[key], cut(Mp, *key))
+        done += min(h, iters - done)
+        owned = np.zeros_like(Pp)
+        for (tx, ty), P in tiles.items():
+            owned[h + ty * oh:h + (ty + 1) * oh, h + tx * ow:h + (tx + 1) * ow] = \
+                P[h:run - h, h:tw - h]
+        if done == iters:
+            return owned[h:h + H, h:h + W]
+        for key in tiles:
+            tiles[key] = np.where(refresh, cut(owned, *key), tiles[key])
+
+
+def _holed_ramp(H, W, seed=5):
+    """A noisy ramp with 1 % of its pixels 3 fringe orders off and a mask
+    with 12 % holes."""
+    rng = np.random.default_rng(seed)
+    Phi = np.linspace(0, 40, W)[None, :] + 0.1 * rng.normal(size=(H, W))
+    Phi = np.where(rng.random((H, W)) < 0.01, Phi + 6 * np.pi, Phi)
+    return Phi.astype(np.float32), rng.random((H, W)) > 0.12
+
+
+@pytest.mark.parametrize("iters", [1, 3, 4, 9, 17])
+@pytest.mark.parametrize("case", ["holes", "ties", "zeros", "large", "3x50", "215x301",
+                                  "130x200", "64x1281", "corner_fronts"])
+def test_k3_schedule_model_matches_propagation_step(case, iters):
+    """K3's schedule (its tiles, h sweeps each with a halo of h, the halo
+    refreshed from the tiles around it between chunks, corners only for
+    h >= 2, ragged last tiles, iters mod h) gives the bits of the port's and
+    JAX's ``propagation_step`` swept ``iters`` times. ``corner_fronts`` repairs
+    across every tile corner: at 4 sweeps it differs if the corner cells
+    are not exchanged."""
+    run, warps, h, _ = _k3_geometry()
+    if case == "corner_fronts":
+        Phi, mask = corner_fronts(215, 301, run, warps, h)
+    elif "x" in case:
+        Phi, mask = _holed_ramp(*map(int, case.split("x")))
+    else:
+        Phi, mask = _edge_vote_map(case)
+    q = np.ones_like(Phi)
+    port, ref = torch.from_numpy(Phi), jnp.asarray(Phi)
+    for _ in range(iters):
+        port, _ = tu.propagation_step(port, torch.from_numpy(q), torch.from_numpy(mask))
+        ref, _ = ju.propagation_step(ref, jnp.asarray(q), jnp.asarray(mask))
+    model = _k3_schedule(Phi, mask, iters, run, warps, h)
+    for other in (port.numpy(), np.asarray(ref)):
+        np.testing.assert_array_equal(model.view(np.uint32), other.view(np.uint32))
+    assert (model != Phi).any()
+
+
+def _tallest_resident(W):
+    """The tallest H <= 16,384 that the route rule sends to K3 at width W."""
+    H = min(tus.RESIDENT_BUDGET // (12 * -(-W // 128) * 128) // 8 * 8, 16384)
+    assert not tus.takes_tiled(H, W) and (H == 16384 or tus.takes_tiled(H + 1, W))
+    return H
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("widths", [range(lo, lo + 1024) for lo in range(1, 16385, 1024)]
+                         + [range(121, 129), (1280,)],
+                         ids=[f"w{lo}-{lo + 1023}" for lo in range(1, 16385, 1024)]
+                         + ["w121-128_h8192", "config3_1280x1024"])
+def test_k3_maps_of_the_route_rule_fit_one_wave(widths):
+    """Every map the route rule sends to K3 with sides <= 16,384 (at each
+    width its tallest) fits one wave of K3's blocks on a 132-SM H100 at the
+    blocks an SM of its __launch_bounds__; so do the 121-128 x 8,192 maps and
+    the 1280x1024 map that chip_smoke.py times, and a 5 MP map does not."""
+    run, warps, h, per_sm = _k3_geometry()
+    wave, owned = H100_SMS * per_sm, (30 * warps + 2 - 2 * h, run - 2 * h)
+    for W in widths:
+        H = 1024 if W == 1280 and len(widths) == 1 else _tallest_resident(W)
+        tiles = tus.resident_tiles(H, W, *owned)
+        assert tiles <= wave, (H, W, tiles, wave)
+    if widths == range(121, 129):
+        assert all(_tallest_resident(W) == 8192 for W in widths)
+    assert tus.resident_tiles(2048, 2448, *owned) > wave
 
 
 @pytest.mark.parametrize("shape", [(64, 96), (215, 300), (1024, 1280), (1024, 1024),
