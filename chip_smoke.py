@@ -26,7 +26,11 @@ search K8 at 256k points, point-to-plane ICP on its band route
 (``icp_point_to_plane``) at 256k (and the same case on the voxel route) and
 between two dense scans,
 and ``register_scans`` on a 4-scan orbit, each registration twice and held
-to the same bits. Then the two-camera merge (``reconstruct_two_camera``):
+to the same bits. Then config 5 on the reference's 8-scan orbit (K1 eight
+times, ``register_scans_batched``, ``ba_refine``, ``fuse_scans``,
+``fuse_tsdf``, ``extract_mesh`` and the OBJ writer), gated on poses, the
+fused cloud and the mesh against the truth, twice to the same bits, each
+stage's wall, and one run profiled. Then the two-camera merge (``reconstruct_two_camera``):
 the crossing kernels K7 and K6 against their plain versions, bit for bit
 (the reference's random case, a ragged one, the merge's passes and the 5 MP
 calls; rows with long pair ranges, NaN and infinite codes, clipped bins,
@@ -50,6 +54,7 @@ import math
 import re
 import statistics
 import subprocess
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -107,6 +112,20 @@ N_BRUTE = 4096             # queries per variant held to a float64 brute force
 K8_BATCH = 10              # K8 launches per timed run, back to back
 ORBIT_SCANS = 4
 ROT_GATE_DEG, T_GATE_MM = 0.5, 2.0    # tests/test_pipeline.py:124-125
+# config 5: the reference's 8-scan orbit, end to end (tpu_matrix.py:966-1049;
+# config 4 registers its first ORBIT_SCANS): batched registration with 4096
+# samples, BA on 512 landmarks, the voxel fuse and a 128^3 TSDF mesh
+ORBIT_SCANS_CONFIG5 = 8
+C5_SAMPLES, C5_LANDMARKS, C5_BA_ITERS = 4096, 512, 8
+C5_VOXEL, C5_CAPACITY, C5_TSDF = 2.0, 1 << 20, (128, 128, 128)
+C5_RMS_POINTS = 8192                  # fused points held to the truth union
+C5_FUSED_GATE_MM = 2.5                # the reference's ok rule (tpu_matrix.py:1044-1045)
+C5_MIN_FACES = 1000                   # tpu_matrix.py:961
+C5_BA_RMS_GATE = 1.5                  # tests/test_pipeline.py:209
+# the port's own gates, from the reference's readings on this orbit
+# (BASELINE.md:155-160: poses to 0.080 mm, the fused cloud 0.103 mm RMS)
+C5_T_TIGHT_MM, C5_FUSED_TIGHT_MM = 0.5, 0.25
+C5_MESH_GATE_MM = 2.0                 # mesh vertices to the truth union: one voxel edge
 # a pair costs K8 8 fp32 instructions (3 sub, 3 mul, 2 add; no FMA); the
 # card issues 33.5e12 a second, half its 67 TFLOP/s (an FMA counts 2)
 FP32_ISSUE_PER_S = 33.5e12
@@ -608,11 +627,13 @@ def stage_times(module, names, fn):
 
 
 def registration_phases(dev, cam, proj, cfg, counts_of, card):
-    """Phases 19-23, config 4: K8 against its plain version, the exact
-    search and a brute force at the reference's 256k size; the 15-iteration
-    band ICP (15 K8 launches); ICP between two dense config-3 scans of the
-    rocks scene (through K1, then K8); ``register_scans`` on a 4-scan orbit;
-    then their times. Returns K8's entry of the ``kernels`` line."""
+    """Phases 19-23, configs 4 and 5: K8 against its plain version, the
+    exact search and a brute force at the reference's 256k size; the
+    15-iteration band ICP (15 K8 launches); ICP between two dense config-3
+    scans of the rocks scene (through K1, then K8); ``register_scans`` on a
+    4-scan orbit; config 5 on the 8-scan orbit (``config5_phase``); then
+    their times. Returns (config 5's K1 launches, K8's entry of the
+    ``kernels`` line)."""
     from slr_torch.config import RegistrationConfig
     from slr_torch.geom.se3 import so3_exp
     from slr_torch.kernels import band_nn as kb
@@ -688,12 +709,13 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
          rms_mm=float(resv.rms), inlier_frac=float(resv.inlier_frac),
          ms=statistics.median(cuda_ms(voxel_icp, runs=3, warmup=0)))
 
-    # the config-4 orbit: ORBIT_SCANS uint8 scans of the rocks scene from a
+    # the orbit: ORBIT_SCANS_CONFIG5 uint8 scans of the rocks scene from a
     # moving config-3 rig, decoded by K1 with the rig's own calibration, so
-    # registration has to recover each rig pose
+    # registration has to recover each rig pose; config 4 takes the first
+    # ORBIT_SCANS
     cam_d, proj_d = cam.to(dev), proj.to(dev)
-    poses, stacks = [], []
-    for s in range(ORBIT_SCANS):
+    poses, stacks, truths = [], [], []
+    for s in range(ORBIT_SCANS_CONFIG5):
         R_m = so3_exp(torch.tensor([0.0, 0.025 * s, 0.008 * s], device=dev))
         t_m = torch.tensor([7.0 * s, -3.0 * s, 0.0], device=dev)
         cam_s, proj_s = move_rig(cam_d, proj_d, R_m, t_m)
@@ -702,10 +724,11 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
                          generator=torch.Generator(device=dev).manual_seed(40 + s))
         stacks.append(quantize_frames(sc.frames))
         poses.append((R_m, t_m))
+        truths.append(sc.points_true)
     model = DenseReconstructor(cam, proj, cfg).to(dev)
 
     def decode():
-        return [model(f) for f in stacks]
+        return [model(f) for f in stacks[:ORBIT_SCANS]]
 
     clouds, n = counts_of(decode)
     check(n["k1"] == ORBIT_SCANS and quiet(n, "k1"), f"orbit decode: launches {n}")
@@ -766,6 +789,11 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
          stage_ms={"decode": decode_ms, **{k.strip("_"): v for k, v in stages.items()}},
          stage_timing="host wall, a card sync around every call")
 
+    # phase 22b: config 5 on the 8-scan orbit
+    mesh_dir = tempfile.TemporaryDirectory()
+    k1_config5, config5 = config5_phase(cam_d, model, stacks, poses, truths, counts_of,
+                                        quiet, Path(mesh_dir.name) / "config5_mesh.obj")
+
     # phase 23: times, in turns: K8 (K8_BATCH launches a timed run), its
     # plain version and the exact search at 256k (CUDA events); the band
     # ICP; ICP between the dense scans; and config 4 end to end (decode +
@@ -779,15 +807,17 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
             "exact_nn": (lambda: nearest_neighbors(qc.T, tgt), 3, 1),
             "icp_band_256k": (band_icp, 5, 1),
             "icp_dense_scans": (dense_icp, 5, 1),
-            "config4_e2e": (lambda: register(decode()), 3, 1)}
+            "config4_e2e": (lambda: register(decode()), 3, 1),
+            "config5_e2e": (config5, 3, 0)}
     turns = [("plain_k8", "k8", "exact_nn", "exact_nn", "k8", "plain_k8"),
              ("icp_band_256k", "icp_dense_scans", "icp_dense_scans", "icp_band_256k"),
-             ("config4_e2e", "config4_e2e")]
+             ("config4_e2e", "config5_e2e", "config4_e2e")]
     times = {k: [] for k in runs}
     for turn in turns:
         for name in turn:
             fn, n_runs, warmup = runs[name]
             times[name] += cuda_ms(fn, n_runs, warmup)
+    mesh_dir.cleanup()
     times["k8"] = [t / K8_BATCH for t in times["k8"]]
     ms = {k: statistics.median(v) for k, v in times.items()}
     pairs = k8["256k"]["pairs"]
@@ -798,7 +828,7 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
          k8_fp32_issue_share=pairs * 8 / FP32_ISSUE_PER_S / (ms["k8"] * 1e-3),
          exact_pairs_per_s=N_BIG * N_BIG / (ms["exact_nn"] * 1e-3),
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
-    return {"name": "band_nn_sorted", "route": "cuda",
+    return k1_config5, {"name": "band_nn_sorted", "route": "cuda",
             "source": "slr_torch/kernels/csrc/band_nn.cu",
             "replaces": "slr/registration/band.py:121",
             "launches": launches,
@@ -809,6 +839,141 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
             # 8 fp32 instructions a pair (3 sub, 3 mul, 2 add; no FMA)
             "bound_ms": pairs * 8 / FP32_ISSUE_PER_S * 1e3, "bound_by": "operations",
             "library_ms": None}
+
+
+def config5_phase(cam, model, stacks, poses, truths, counts_of, quiet, mesh_path):
+    """Phase 22b, config 5 at the reference's size: the ORBIT_SCANS_CONFIG5
+    uint8 scans decoded through ``DenseReconstructor`` (one K1 launch a
+    scan, no other kernel), ``register_scans_batched`` (features, the
+    projective polish, closures), ``ba_refine``, ``fuse_scans``,
+    ``fuse_tsdf``, ``extract_mesh`` and the OBJ writer. Gated: the
+    reference's ok rule (every pose within 0.5 deg and 2 mm, the fused cloud
+    below 2.5 mm RMS over its first 8192 points against the union of the
+    truth clouds, more than 1000 faces), BA's rms below 1.5, the port's own
+    tighter gates (poses within 0.5 mm, the fused cloud within 0.25 mm), the
+    mesh's vertices within one voxel edge RMS of the truth union, and the
+    same bits in two calls. Returns (K1 launches of the counted run, a
+    function running the pipeline once, for the timed turns)."""
+    import warnings
+
+    from slr_torch.config import RegistrationConfig
+    from slr_torch.pipeline import registerfuse as rf
+    from slr_torch.pipeline import tsdf
+    from slr_torch.registration.nn import nearest_neighbors
+
+    def pipeline(stages):
+        """The pipeline once; ``stages`` receives each stage's host wall
+        (ms, the card synchronised at each end)."""
+        mark = [time.perf_counter()]
+
+        def lap(name):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            stages[name] = (now - mark[0]) * 1e3
+            mark[0] = now
+
+        torch.cuda.synchronize()
+        mark[0] = time.perf_counter()
+        clouds = [model(f) for f in stacks]
+        lap("decode")
+        reg = rf.register_scans_batched(clouds, RegistrationConfig(icp_sample_points=C5_SAMPLES),
+                                        use_features=True, cam=cam)
+        lap("register_scans_batched")
+        reg = rf.ba_refine(clouds, reg, n_landmarks=C5_LANDMARKS, iters=C5_BA_ITERS)
+        lap("ba_refine")
+        fused = rf.fuse_scans(clouds, reg, RegistrationConfig(voxel_size=C5_VOXEL),
+                              capacity=C5_CAPACITY)
+        lap("fuse_scans")
+        with warnings.catch_warnings(record=True) as grown:
+            warnings.simplefilter("always")
+            vol = tsdf.fuse_tsdf(clouds, cam, reg.R, reg.t, size_vox=C5_TSDF, voxel=C5_VOXEL)
+        lap("fuse_tsdf")
+        mesh = tsdf.extract_mesh(vol, with_colors=True)
+        lap("extract_mesh")
+        written = tsdf.write_tsdf_mesh_obj(mesh_path, vol)
+        lap("write_tsdf_mesh_obj")
+        return clouds, reg, fused, vol, mesh, written, [str(w.message) for w in grown]
+
+    stages1, stages2 = {}, {}
+    out, n = counts_of(lambda: pipeline(stages1))
+    check(n["k1"] == ORBIT_SCANS_CONFIG5 and quiet(n, "k1"), f"config5: launches {n}")
+    clouds, reg, (pts, val, col, n_vox), vol, (verts, faces, cols), written, grown = out
+    errs = [pose_error(reg.R[s], reg.t[s], *poses[s]) for s in range(ORBIT_SCANS_CONFIG5)]
+    max_rot, max_t = max(e[0] for e in errs), max(e[1] for e in errs)
+    check(max_rot < ROT_GATE_DEG and max_t < T_GATE_MM, f"config5: {max_rot} deg, {max_t} mm")
+    check(max_t <= C5_T_TIGHT_MM, f"config5: translation error {max_t} mm > {C5_T_TIGHT_MM}")
+    ba_rms = float(reg.pg_rms)
+    check(ba_rms < C5_BA_RMS_GATE, f"config5: BA rms {ba_rms}")
+    # the reference's fused-cloud accuracy: its first 8192 fused points
+    # against the union of the truth clouds (valid where decoded)
+    gt = torch.cat([t.reshape(-1, 3) for t in truths])
+    gt_valid = torch.cat([c.mask.reshape(-1) for c in clouds])
+    check(tuple(pts.shape) == (C5_CAPACITY, 3) and bool(torch.isfinite(pts[val]).all()),
+          "config5: fused points")
+    sel = torch.nonzero(val)[:C5_RMS_POINTS, 0]
+    _, d2 = nearest_neighbors(pts[sel], gt, gt_valid, tile=4096)
+    fused_rms = float(torch.sqrt(torch.mean(d2)))
+    check(fused_rms < C5_FUSED_GATE_MM and fused_rms <= C5_FUSED_TIGHT_MM,
+          f"config5: fused RMS {fused_rms} mm")
+    n_faces = int(faces.shape[0])
+    check(n_faces > C5_MIN_FACES and written == (int(verts.shape[0]), n_faces)
+          and bool(torch.isfinite(verts).all()), f"config5: mesh {written}, {n_faces} faces")
+    stride = max(1, verts.shape[0] // C5_RMS_POINTS)
+    _, d2m = nearest_neighbors(verts[::stride][:C5_RMS_POINTS], gt, gt_valid, tile=4096)
+    mesh_rms = float(torch.sqrt(torch.mean(d2m)))
+    check(mesh_rms <= C5_MESH_GATE_MM, f"config5: mesh RMS {mesh_rms} mm")
+    # the same bits in a second call
+    again = pipeline(stages2)
+    _, reg2, (pts2, val2, col2, n_vox2), vol2, (verts2, faces2, cols2), _, _ = again
+    same = all(torch.equal(a, b) for a, b in (
+        (reg.R, reg2.R), (reg.t, reg2.t), (pts, pts2), (val, val2), (col, col2),
+        (n_vox, n_vox2), (vol.tsdf, vol2.tsdf), (vol.weight, vol2.weight),
+        (vol.color, vol2.color), (verts, verts2), (faces, faces2), (cols, cols2)))
+    check(same, "config5: two calls differ")
+    # where the time goes: torch.profiler over one more run, device rows
+    # (kernels and copies) against the run's host wall; the host's busiest
+    # operators by their own time
+    from torch.profiler import ProfilerActivity, profile
+
+    stages3 = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipeline(stages3)
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            row = by_name.setdefault(ev.name, [0, 0.0])
+            row[0] += 1
+            row[1] += ev.time_range.elapsed_us() / 1e3
+    device_ms = sum(v[1] for v in by_name.values())
+    wall_ms = sum(stages3.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    host_top = sorted((a for a in prof.key_averages() if a.self_cpu_time_total > 0),
+                      key=lambda a: -a.self_cpu_time_total)[:8]
+    emit("profile_config5", wall_ms=wall_ms, stage_ms=stages3, device_ms=device_ms,
+         device_busy_share=device_ms / wall_ms,
+         device_ops=sum(v[0] for v in by_name.values()),
+         top_device_ms={n[:90]: [c, t] for n, (c, t) in top},
+         top_host_self_ms={a.key[:60]: [a.count, a.self_cpu_time_total / 1e3]
+                           for a in host_top},
+         profiled="one run under torch.profiler (its walls include the profiler's cost)")
+    emit("config5", scans=ORBIT_SCANS_CONFIG5, samples=C5_SAMPLES, landmarks=C5_LANDMARKS,
+         ba_iters=C5_BA_ITERS, launches=n["k1"], bit_identical_calls=same,
+         rot_err_deg=[e[0] for e in errs], t_err_mm=[e[1] for e in errs],
+         max_rot_err_deg=max_rot, max_t_err_mm=max_t, rot_gate_deg=ROT_GATE_DEG,
+         t_gate_mm=T_GATE_MM, t_tight_gate_mm=C5_T_TIGHT_MM,
+         icp_rms_mm=reg.icp_rms.tolist(), ba_rms=ba_rms, ba_rms_gate=C5_BA_RMS_GATE,
+         n_voxels=int(n_vox), fused_valid=int(val.sum()), fused_rms_mm=fused_rms,
+         fused_rms_points=int(sel.numel()), fused_gate_mm=C5_FUSED_GATE_MM,
+         fused_tight_gate_mm=C5_FUSED_TIGHT_MM, tsdf_size_vox=list(C5_TSDF),
+         tsdf_voxel_mm=float(vol.voxel), tsdf_origin=vol.origin.tolist(),
+         tsdf_observed_voxels=int((vol.weight > 0).sum()), tsdf_warnings=grown,
+         mesh_faces=n_faces, mesh_verts=int(verts.shape[0]), mesh_rms_mm=mesh_rms,
+         mesh_rms_points=int(verts[::stride][:C5_RMS_POINTS].shape[0]),
+         mesh_gate_mm=C5_MESH_GATE_MM, obj_bytes=mesh_path.stat().st_size,
+         valid_px=[int(c.mask.sum()) for c in clouds],
+         stage_ms_first=stages1, stage_ms=stages2,
+         stage_timing="host wall, the card synchronised at each end of a stage")
+    return n["k1"], lambda: pipeline({})
 
 
 def crossing_agree(name, got, plain):
@@ -2159,7 +2324,8 @@ def main():
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
 
     # phases 19-23: registration (config 4), K8
-    k8_entry = registration_phases(dev, cam, proj, cfg, counts_of, card)
+    k1_config5, k8_entry = registration_phases(dev, cam, proj, cfg, counts_of, card)
+    launches += k1_config5
 
     # phases 24-30: the two-camera merge, K7 and K6
     k7_entry, k6_entry = two_camera_phases(dev, counts_of, card,

@@ -1,8 +1,8 @@
 """Batched projector-camera triangulation (midpoint / ray-plane).
 
 Port of ``slr/geom/triangulate.py``; the unfused oracle for the fused
-kernel's geometry, and the batched 3x3 solve of the two-camera splat
-oracle. All functions accept arbitrary extrinsics.
+kernel's geometry, the DLT least-squares triangulation, and the batched 3x3
+solve of the two-camera splat oracle. All functions accept arbitrary extrinsics.
 """
 
 from __future__ import annotations
@@ -62,6 +62,45 @@ def triangulate_rays(cam: Camera, proj: Camera, u, v, u_p, v_p):
     o_c, d_c = pixel_to_ray(cam, u, v)
     o_p, d_p = pixel_to_ray(proj, u_p, v_p)
     return triangulate_midpoint(o_c, d_c, o_p, d_p)
+
+
+def triangulate_dlt(cam: Camera, proj: Camera, u, v, u_p, v_p=None):
+    """DLT least-squares triangulation from undistorted pixel observations.
+
+    The homogeneous system A X = 0 from the camera (2 rows) and the
+    projector column (1 row; 2 with ``v_p``), solved for the inhomogeneous
+    X through its 3x3 normal equations in closed form (no per-point SVD).
+    """
+    _, d_c = pixel_to_ray(cam, u, v)
+    dc_cam = torch.einsum("ij,...j->...i", cam.R, d_c)   # the camera-frame ray
+    xn_c = dc_cam[..., 0] / dc_cam[..., 2]
+    yn_c = dc_cam[..., 1] / dc_cam[..., 2]
+
+    def rows_for(camera, xn, yn, include_y=True):
+        # P = [R | t]: (xn P3 - P1) X = -(xn t3 - t1), and so for y
+        Rm, tm = camera.R, camera.t
+        r1 = xn[..., None] * Rm[2] - Rm[0]
+        b1 = -(xn * tm[2] - tm[0])
+        if not include_y:
+            return r1[..., None, :], b1[..., None]
+        r2 = yn[..., None] * Rm[2] - Rm[1]
+        b2 = -(yn * tm[2] - tm[1])
+        return torch.stack([r1, r2], dim=-2), torch.stack([b1, b2], dim=-1)
+
+    A_c, b_c = rows_for(cam, xn_c, yn_c)
+    if v_p is None:
+        xn_p = (u_p - proj.cx) / proj.fx
+        A_p, b_p = rows_for(proj, xn_p, torch.zeros_like(xn_p), include_y=False)
+    else:
+        _, d_p = pixel_to_ray(proj, u_p, v_p)
+        dp_proj = torch.einsum("ij,...j->...i", proj.R, d_p)
+        A_p, b_p = rows_for(proj, dp_proj[..., 0] / dp_proj[..., 2],
+                            dp_proj[..., 1] / dp_proj[..., 2])
+    A = torch.cat([A_c, A_p], dim=-2)                    # (..., m, 3)
+    b = torch.cat([b_c, b_p], dim=-1)                    # (..., m)
+    AtA = torch.einsum("...mi,...mj->...ij", A, A)
+    AtA = AtA + 1e-9 * torch.eye(3, dtype=AtA.dtype, device=AtA.device)
+    return _solve3x3(AtA, torch.einsum("...mi,...m->...i", A, b))
 
 
 def _solve3x3(A, b):

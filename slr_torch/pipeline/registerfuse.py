@@ -1,25 +1,35 @@
-"""Multi-scan registration (config 4; port of ``slr/pipeline/registerfuse.py``).
+"""Multi-scan registration and fusion (configs 4-5; port of
+``slr/pipeline/registerfuse.py``).
 
 ``register_scans``: sequential pairwise alignment (point-to-plane ICP, raced
 against an FPFH + RANSAC-initialised ICP, with a projective polish when the
 rig camera is given) into a pose chain, loop-closure edges, then pose-graph
-refinement over every relative measurement. ``register_scans_batched``,
-``ba_refine`` and ``fuse_scans`` are ROADMAP slice 6.
+refinement over every relative measurement. ``register_scans_batched``: the
+same with every edge of a round aligned at once, along a leading edge axis
+(``torch.func.vmap``, as the reference's ``jax.vmap``). ``ba_refine``:
+Schur bundle adjustment over landmarks drawn from every scan.
+``fuse_scans``: every scan in the anchor frame, voxel-merged.
 """
 
 from __future__ import annotations
 
 from typing import List, NamedTuple
 
+import numpy as np
 import torch
+from torch.func import vmap
 
 from slr_torch.config import RegistrationConfig
+from slr_torch.dist.ba import bundle_adjust_reference
 from slr_torch.pipeline.reconstruct import ScanCloud
+from slr_torch.registration import features
 from slr_torch.registration.features import draw_categorical, fpfh_features, ransac_align
-from slr_torch.registration.icp import icp_point_to_plane
+from slr_torch.registration.icp import ICPResult, _resolve_nn_method, icp_point_to_plane
+from slr_torch.registration.nn import nearest_neighbors
 from slr_torch.registration.normals import grid_normals
 from slr_torch.registration.posegraph import pose_graph_optimize
 from slr_torch.registration.projective import icp_projective
+from slr_torch.registration.voxel import voxel_downsample
 
 
 class RegisteredScans(NamedTuple):
@@ -27,6 +37,13 @@ class RegisteredScans(NamedTuple):
     t: torch.Tensor          # (S,3)
     icp_rms: torch.Tensor    # (S-1,) pairwise ICP residuals
     pg_rms: torch.Tensor     # pose-graph residual RMS
+
+
+def registered_scans_from_numpy(R, t, icp_rms, pg_rms, device="cpu") -> RegisteredScans:
+    """Poses given as numpy arrays (the JAX ``RegisteredScans`` after
+    ``jax.tree.map(np.asarray, reg)``) -> the port's ``RegisteredScans``."""
+    return RegisteredScans(*(torch.as_tensor(np.array(x, np.float32), device=device)
+                             for x in (R, t, icp_rms, pg_rms)))
 
 
 def _draw_samples(p, n: int, seed: int):
@@ -48,6 +65,17 @@ def _subsample(cloud: ScanCloud, n: int, seed: int = 0, min_incidence: float = 0
     p = (cloud.mask & (cos_inc > min_incidence)).reshape(-1).to(torch.float32)
     idx = _draw_samples(p / torch.sum(p), n, seed)
     return cloud.points.reshape(-1, 3)[idx], normals.reshape(-1, 3)[idx]
+
+
+def _chain_init(Zr, Zt):
+    """Chain odometry from the S-1 chain edges (s-1, s): pose s is pose s-1
+    composed with the edge. Returns lists of S rotations and translations."""
+    R_init = [torch.eye(3, device=Zr[0].device)]
+    t_init = [torch.zeros(3, device=Zr[0].device)]
+    for s in range(1, len(Zr) + 1):
+        R_init.append(R_init[-1] @ Zr[s - 1])
+        t_init.append(R_init[-2] @ Zt[s - 1] + t_init[-1])
+    return R_init, t_init
 
 
 def register_scans(
@@ -115,13 +143,8 @@ def register_scans(
         Zt.append(res.t)
         rms_list.append(res.rms)
 
-    # chain odometry init
     dev = clouds[0].points.device
-    R_init = [torch.eye(3, device=dev)]
-    t_init = [torch.zeros(3, device=dev)]
-    for s in range(1, S):
-        R_init.append(R_init[-1] @ Zr[s - 1])
-        t_init.append(R_init[-2] @ Zt[s - 1] + t_init[-1])
+    R_init, t_init = _chain_init(Zr, Zt)
 
     if loop_closures and S >= 3:
         closure_pairs = [(0, S - 1)] + [(i, i + 2) for i in range(0, S - 2, 2)]
@@ -147,3 +170,219 @@ def register_scans(
                              iters=cfg.pg_iters, damping=cfg.pg_damping)
     return RegisteredScans(R=pg.R, t=pg.t, icp_rms=torch.stack(rms_list),
                            pg_rms=pg.rms)
+
+
+def _batched_fine(src, tgt_p, tgt_n, cfg, R0=None, t0=None, grids=None, cam=None,
+                  tgt_idx=None):
+    """ICP over a batch of edges: src, tgt_p, tgt_n (E, N, 3), optional
+    (E,) inits; then, with the stacked organized target grids, the
+    projective polish. On the exact route every edge goes at once along the
+    leading axis (batched products and Cholesky); the band search (K8) and
+    the voxel hash take one cloud a call, so there the edges go one after
+    another."""
+    E, N = src.shape[:2]
+    dev = src.device
+    if R0 is None:
+        R0 = torch.eye(3, device=dev).expand(E, 3, 3)
+        t0 = torch.zeros(E, 3, device=dev)
+
+    def one(s, tp, tn, R_i, t_i):
+        return icp_point_to_plane(s, tp, tn, R0=R_i, t0=t_i, iters=cfg.icp_iters,
+                                  max_corr_dist=cfg.icp_max_corr_dist)
+
+    if _resolve_nn_method("auto", N, tgt_p.shape[1], dev) == "exact":
+        res = vmap(one)(src, tgt_p, tgt_n, R0, t0)
+    else:
+        res = ICPResult(*map(torch.stack, zip(*map(one, src, tgt_p, tgt_n, R0, t0))))
+    if grids is not None:
+        g_pts, g_mask, g_nrm = grids
+        ones = torch.ones(N, dtype=torch.bool, device=dev)
+
+        def polish(s, tg, tm, tn, R_i, t_i):
+            return icp_projective(s, ones, tg, tm, tn, cam, R0=R_i, t0=t_i,
+                                  iters=max(8, cfg.icp_iters // 2),
+                                  max_corr_dist=cfg.icp_max_corr_dist)
+
+        res = vmap(polish)(src, g_pts[tgt_idx], g_mask[tgt_idx], g_nrm[tgt_idx],
+                           res.R, res.t)
+    return res
+
+
+def _batched_feature_race(src, src_n, tgt_p, tgt_n, res, cfg, race_mask, grids=None,
+                          cam=None, tgt_idx=None):
+    """FPFH + RANSAC inits and ICP for every edge at once, then a select on
+    the device of whichever result locked better (the sequential race's
+    rule), with no host read. ``race_mask`` (E,) bool: the edges whose
+    result the race may replace.
+
+    Each edge draws its hypotheses as a call of its own with a fresh
+    generator seeded 0 would: the reference's vmapped RANSAC draws every
+    edge with ``PRNGKey(0)``."""
+    f_src = vmap(fpfh_features)(src, src_n)
+    f_tgt = vmap(fpfh_features)(tgt_p, tgt_n)
+    fwd, mutual, match_w, probs = vmap(features._ransac_matches)(f_src, f_tgt)
+    sel = torch.stack([features._draw_hypotheses(
+        p, cfg.ransac_iters, torch.Generator(device=p.device).manual_seed(0))
+        for p in probs])
+    matched = torch.take_along_dim(tgt_p, fwd[..., None], dim=1)
+    R0, t0, _ = vmap(features._ransac_fit, in_dims=(0, 0, 0, 0, 0, None))(
+        src, matched, mutual, match_w, sel, cfg.ransac_inlier_dist)
+    res_f = _batched_fine(src, tgt_p, tgt_n, cfg, R0=R0, t0=t0, grids=grids, cam=cam,
+                          tgt_idx=tgt_idx)
+    better = (res_f.inlier_frac > res.inlier_frac) | (
+        (torch.abs(res_f.inlier_frac - res.inlier_frac) < 0.05) & (res_f.rms < res.rms))
+    take = better & race_mask
+    return ICPResult(R=torch.where(take[:, None, None], res_f.R, res.R),
+                     t=torch.where(take[:, None], res_f.t, res.t),
+                     rms=torch.where(take, res_f.rms, res.rms),
+                     inlier_frac=torch.where(take, res_f.inlier_frac, res.inlier_frac))
+
+
+def register_scans_batched(
+    clouds: List[ScanCloud],
+    cfg: RegistrationConfig = RegistrationConfig(),
+    use_features: bool = True,
+    cam=None,
+    loop_closures: bool = True,
+    mesh=None,
+) -> RegisteredScans:
+    """``register_scans`` with each round's pairwise alignments batched: the
+    chain edges, given identity inits, in one round; the loop closures, from
+    the chain-predicted inits, in another. The one host read is the closure
+    accept/reject decision.
+
+    A closure races the features only where its chain-init ICP did not lock
+    (inlier fraction < 0.5), as the sequential path. The reference gets
+    there in two passes, the first racing with an all-false mask, which
+    keeps every result; the port takes the first pass without the race.
+    ``mesh`` (edges sharded over ``map_block``) comes with multi-GPU: any
+    value but None raises ``NotImplementedError``.
+    """
+    if mesh is not None:
+        raise NotImplementedError("register_scans_batched: mesh= (edges sharded over "
+                                  "map_block) is not ported yet; pass mesh=None")
+    S = len(clouds)
+    dev = clouds[0].points.device if S else torch.device("cpu")
+    if S < 2:
+        return RegisteredScans(R=torch.eye(3, device=dev).expand(S, 3, 3),
+                               t=torch.zeros(S, 3, device=dev),
+                               icp_rms=torch.zeros(0, device=dev),
+                               pg_rms=torch.zeros((), device=dev))
+    samples = [_subsample(c, cfg.icp_sample_points, seed=i) for i, c in enumerate(clouds)]
+    pts = torch.stack([p for p, _ in samples])          # (S, N, 3)
+    nrm = torch.stack([n for _, n in samples])
+    grids = None
+    if cam is not None:
+        grids = (torch.stack([c.points for c in clouds]),
+                 torch.stack([c.mask for c in clouds]),
+                 torch.stack([grid_normals(c.points, c.mask) for c in clouds]))
+
+    def run_edges(src_i, tgt_i, R0=None, t0=None, race_mask=None, res=None):
+        """One round over the edges src_i -> tgt_i: ICP (unless ``res`` is
+        given), then, with features, the race where ``race_mask``."""
+        si = torch.tensor(src_i, device=dev)
+        ti = torch.tensor(tgt_i, device=dev)
+        if res is None:
+            res = _batched_fine(pts[si], pts[ti], nrm[ti], cfg, R0=R0, t0=t0,
+                                grids=grids, cam=cam, tgt_idx=ti)
+        if race_mask is None:
+            return res
+        return _batched_feature_race(pts[si], nrm[si], pts[ti], nrm[ti], res, cfg,
+                                     race_mask, grids=grids, cam=cam, tgt_idx=ti)
+
+    # round 1: every chain edge (s-1, s), measurement T_{s-1}^-1 T_s
+    race_all = torch.ones(S - 1, dtype=torch.bool, device=dev) if use_features else None
+    chain = run_edges(list(range(1, S)), list(range(0, S - 1)), race_mask=race_all)
+    edges = [(s - 1, s) for s in range(1, S)]
+    R_init, t_init = _chain_init(chain.R, chain.t)
+    Zr, Zt = list(chain.R), list(chain.t)
+
+    # round 2: loop closures from the chain-predicted relative poses
+    if loop_closures and S >= 3:
+        pairs = [(0, S - 1)] + [(i, i + 2) for i in range(0, S - 2, 2)]
+        pairs = [p for p in pairs if p not in edges]
+        if pairs:
+            src_i, tgt_i = [j for _, j in pairs], [i for i, _ in pairs]
+            R0 = torch.stack([R_init[i].T @ R_init[j] for i, j in pairs])
+            t0 = torch.stack([R_init[i].T @ (t_init[j] - t_init[i]) for i, j in pairs])
+            res = run_edges(src_i, tgt_i, R0=R0, t0=t0)
+            if use_features:
+                res = run_edges(src_i, tgt_i, race_mask=res.inlier_frac < 0.5, res=res)
+            accept = (res.inlier_frac >= 0.3).tolist()
+            for e, (i, j) in enumerate(pairs):
+                if accept[e]:
+                    edges.append((i, j))
+                    Zr.append(res.R[e])
+                    Zt.append(res.t[e])
+
+    ei = torch.tensor([e[0] for e in edges], device=dev)
+    ej = torch.tensor([e[1] for e in edges], device=dev)
+    pg = pose_graph_optimize(torch.stack(R_init), torch.stack(t_init), ei, ej,
+                             torch.stack(Zr), torch.stack(Zt),
+                             iters=cfg.pg_iters, damping=cfg.pg_damping)
+    return RegisteredScans(R=pg.R, t=pg.t, icp_rms=chain.rms, pg_rms=pg.rms)
+
+
+def ba_refine(
+    clouds: List[ScanCloud],
+    reg: RegisteredScans,
+    n_landmarks: int = 512,
+    corr_dist: float = 3.0,
+    iters: int = 8,
+    mesh=None,
+    rounds: int = 2,
+    huber_delta: float = 1.0,
+    point_to_plane: bool = True,
+) -> RegisteredScans:
+    """Multi-scan bundle adjustment on top of the pose-graph solution.
+
+    Landmarks are an even draw from every scan's surface (4096 samples a
+    scan, seed 100 + s), in the anchor frame at the current poses. A scan
+    observes a landmark when its nearest sample (the exact search, in the
+    scan's frame) lies within ``corr_dist``; poses and landmarks refine
+    jointly by the Schur solver with Huber weights, in ``rounds`` rounds
+    with the correspondences re-associated from the refined poses between
+    them. ``pg_rms`` of the result is the BA rms. ``mesh`` (the distributed
+    BA) comes with multi-GPU: any value but None raises
+    ``NotImplementedError``.
+    """
+    if mesh is not None:
+        raise NotImplementedError("ba_refine: mesh= (the distributed BA) is not ported "
+                                  "yet; pass mesh=None")
+    S = len(clouds)
+    samples = [_subsample(c, 4096, seed=100 + i) for i, c in enumerate(clouds)]
+    R_cur, t_cur = reg.R, reg.t
+    per = [n_landmarks // S + (1 if i < n_landmarks % S else 0) for i in range(S)]
+    X0 = torch.cat([samples[s][0][:per[s]] @ R_cur[s].T + t_cur[s] for s in range(S)])
+    obs_s = torch.arange(S, device=X0.device).expand(n_landmarks, S)
+    res = None
+    for _ in range(max(1, rounds)):
+        obs_p, obs_n, obs_w = [], [], []
+        for s, (pts_s, nrm_s) in enumerate(samples):
+            # the landmarks in scan s's frame: R_s^T (X - t_s)
+            idx, d2 = nearest_neighbors((X0 - t_cur[s]) @ R_cur[s], pts_s, tile=2048)
+            obs_w.append((d2 < corr_dist * corr_dist).to(torch.float32))
+            obs_p.append(pts_s[idx])
+            obs_n.append(nrm_s[idx])
+        res = bundle_adjust_reference(
+            R_cur, t_cur, X0, obs_s, torch.stack(obs_p, 1), torch.stack(obs_w, 1),
+            iters=max(1, iters // max(1, rounds)), huber_delta=huber_delta,
+            obs_n=torch.stack(obs_n, 1) if point_to_plane else None)
+        R_cur, t_cur, X0 = res.R, res.t, res.X
+    return RegisteredScans(R=res.R, t=res.t, icp_rms=reg.icp_rms, pg_rms=res.rms)
+
+
+def fuse_scans(
+    clouds: List[ScanCloud],
+    reg: RegisteredScans,
+    cfg: RegistrationConfig = RegistrationConfig(),
+    capacity: int = 1 << 20,
+):
+    """Every scan in the anchor frame, voxel-merged (voxel edge
+    ``cfg.voxel_size``). Returns (points (capacity, 3), valid (capacity,),
+    colors (capacity, 1), n_voxels)."""
+    pts = torch.cat([c.points.reshape(-1, 3) @ reg.R[s].T + reg.t[s]
+                     for s, c in enumerate(clouds)])
+    val = torch.cat([c.mask.reshape(-1) for c in clouds])
+    col = torch.cat([c.colors.reshape(-1, 1) for c in clouds])
+    return voxel_downsample(pts, val, cfg.voxel_size, capacity=capacity, attrs=col)

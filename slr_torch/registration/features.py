@@ -90,8 +90,10 @@ def _kabsch(P, Q, w):
     H = (P0 * w[..., None]).transpose(-1, -2) @ Q0
     U, _, Vt = torch.linalg.svd(H)
     V, Ut = Vt.transpose(-1, -2), U.transpose(-1, -2)
-    D = torch.ones(H.shape[:-1], device=H.device)
-    D[..., 2] = torch.sign(torch.linalg.det(V @ Ut))
+    # D = diag(1, 1, sign), built without an in-place write: batched
+    # registration runs this under torch.func.vmap
+    sign = torch.sign(torch.linalg.det(V @ Ut))[..., None]
+    D = torch.cat([torch.ones_like(sign), torch.ones_like(sign), sign], dim=-1)
     R = V @ (D[..., None] * Ut)
     return R, cq - torch.einsum("...ij,...j->...i", R, cp)
 
@@ -128,32 +130,25 @@ def _draw_hypotheses(probs, n_iters: int, generator=None):
     return draw_categorical(probs, 3 * n_iters, generator).reshape(n_iters, 3)
 
 
-def ransac_align(src_pts, src_feat, tgt_pts, tgt_feat, n_iters: int = 256,
-                 inlier_dist: float = 5.0, generator=None):
-    """Feature-matched RANSAC rigid alignment src -> tgt: (R, t, inlier_frac).
-
-    Matches are mutual nearest descriptors weighted by the ratio-test
-    margin; each hypothesis's 3 draws must pass the rigid length-consistency
-    test and span a triangle before its Kabsch fit counts; the winner by
-    inlier count is refit twice on its inliers. ``generator``: the
-    ``torch.Generator`` of the draw (default: one seeded 0 on the device).
-    """
-    dev = src_pts.device
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+def _ransac_matches(src_feat, tgt_feat):
+    """Mutual nearest descriptors weighted by the ratio-test margin: (fwd
+    (N,) target index of each source point, mutual (N,) bool, match_w (N,),
+    probs (N,): the hypotheses' draw probabilities)."""
     sim = src_feat @ tgt_feat.T                        # cosine (unit features)
     top2, top2_i = torch.topk(sim, 2, dim=1)
     fwd = top2_i[:, 0]
     bwd = torch.argmax(sim, dim=0)
-    mutual = bwd[fwd] == torch.arange(src_pts.shape[0], device=dev)
+    mutual = bwd[fwd] == torch.arange(src_feat.shape[0], device=src_feat.device)
     margin = torch.clamp(top2[:, 0] - top2[:, 1], min=0.0)
     match_w = mutual.to(torch.float32) * margin
-    P, Q = src_pts, tgt_pts[fwd]
-    d2_thresh = inlier_dist * inlier_dist
     probs = match_w + 1e-5
-    probs = probs / torch.sum(probs)
+    return fwd, mutual, match_w, probs / torch.sum(probs)
 
-    sel = _draw_hypotheses(probs, n_iters, generator)  # (n_iters, 3)
+
+def _ransac_fit(P, Q, mutual, match_w, sel, inlier_dist: float):
+    """Score the hypotheses ``sel`` (n_iters, 3) on the matched pairs P -> Q
+    and refit the winner twice on its inliers: (R, t, inlier_frac)."""
+    d2_thresh = inlier_dist * inlier_dist
     Ps, Qs = P[sel], Q[sel]                            # (n_iters, 3, 3)
     # rigid length-consistency test on the 3 pairwise edges
     ip, jp = [0, 0, 1], [1, 2, 2]
@@ -165,7 +160,7 @@ def ransac_align(src_pts, src_feat, tgt_pts, tgt_feat, n_iters: int = 256,
     area2 = torch.linalg.norm(torch.cross(Ps[:, 1] - Ps[:, 0], Ps[:, 2] - Ps[:, 0],
                                           dim=-1), dim=-1)
     good = consistent & (area2 > 1e-3)
-    Rs, ts = _kabsch(Ps, Qs, torch.ones(sel.shape, device=dev))
+    Rs, ts = _kabsch(Ps, Qs, torch.ones(sel.shape, device=P.device))
     moved = torch.einsum("hij,nj->hni", Rs, P) + ts[:, None, :]
     inliers = (torch.sum((moved - Q) ** 2, dim=-1) < d2_thresh) & mutual
     counts = torch.where(good, torch.sum(inliers, dim=1), -1)
@@ -177,5 +172,21 @@ def ransac_align(src_pts, src_feat, tgt_pts, tgt_feat, n_iters: int = 256,
         moved = P @ R.T + t
         w = ((torch.sum((moved - Q) ** 2, dim=1) < d2_thresh) & mutual).to(torch.float32)
         R, t = _kabsch(P, Q, w + 1e-9 * match_w)
-    inl = torch.sum(w) / (torch.sum(mutual) + 1e-9)
-    return R, t, inl
+    return R, t, torch.sum(w) / (torch.sum(mutual) + 1e-9)
+
+
+def ransac_align(src_pts, src_feat, tgt_pts, tgt_feat, n_iters: int = 256,
+                 inlier_dist: float = 5.0, generator=None):
+    """Feature-matched RANSAC rigid alignment src -> tgt: (R, t, inlier_frac).
+
+    Matches are mutual nearest descriptors weighted by the ratio-test
+    margin; each hypothesis's 3 draws must pass the rigid length-consistency
+    test and span a triangle before its Kabsch fit counts; the winner by
+    inlier count is refit twice on its inliers. ``generator``: the
+    ``torch.Generator`` of the draw (default: one seeded 0 on the device).
+    """
+    if generator is None:
+        generator = torch.Generator(device=src_pts.device).manual_seed(0)
+    fwd, mutual, match_w, probs = _ransac_matches(src_feat, tgt_feat)
+    sel = _draw_hypotheses(probs, n_iters, generator)
+    return _ransac_fit(src_pts, tgt_pts[fwd], mutual, match_w, sel, inlier_dist)

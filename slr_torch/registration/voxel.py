@@ -1,16 +1,21 @@
-"""Voxel-hash nearest neighbours (port of ``slr/registration/voxel.py``).
+"""Voxel-grid utilities (port of ``slr/registration/voxel.py``): the voxel
+merge of fusion and the voxel-hash nearest neighbours.
 
-ICP's CPU alternative to the exact search: the target is bucketed once into
-a static voxel grid with at most ``bucket_cap`` points a voxel, and a query
-looks only at the 27 voxels around its own. With the voxel edge equal to
-the correspondence radius, every target within that radius lies in those
-voxels; in clouds denser than ``bucket_cap`` points a voxel the match is
-the nearest of the bucket's sample.
+``voxel_downsample`` averages the points (and attributes) of each occupied
+voxel into a fixed-capacity buffer, each voxel's sum taken in index order
+by an ordered segment sum (no float atomics, so the same bits in every
+call).
+
+The hash is ICP's CPU alternative to the exact search: the target is
+bucketed once into a static voxel grid with at most ``bucket_cap`` points a
+voxel, and a query looks only at the 27 voxels around its own. With the
+voxel edge equal to the correspondence radius, every target within that
+radius lies in those voxels; in clouds denser than ``bucket_cap`` points a
+voxel the match is the nearest of the bucket's sample.
 
 Fixed shapes, as the reference: the table has one row per input point (the
 most voxels there can be), addressed by ``searchsorted`` on the sorted
-unique voxel ids. ``voxel_downsample`` is not ported here: ICP does not use
-it.
+unique voxel ids.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ _VOX_BITS = 10
 _VOX_N = 1 << _VOX_BITS
 _INVALID_VID = 0x40000000
 _PAD_VID = 0x7FFFFFFF      # row ids past the unique ones
+_TAIL = 1024               # points a discarded segment of voxel_downsample holds
 
 
 def _voxel_coords(points, voxel_size: float):
@@ -114,3 +120,42 @@ def voxel_hash_nn(query, points, table, row_ids, lo, voxel_size: float,
                 best_d2 = torch.where(take, dmin, best_d2)
                 best_i = torch.where(take, imin, best_i)
     return best_i, best_d2
+
+
+def voxel_downsample(points, valid, voxel_size: float, capacity: int, attrs=None):
+    """Average the points (and optional attributes) that fall in one voxel.
+
+    points (N, 3), valid (N,) bool, attrs (N, A) or None. Returns
+    (out_pts (capacity, 3), out_valid (capacity,) bool, out_attrs
+    (capacity, A) or None, n_voxels: every occupied voxel, those past
+    ``capacity`` too, which are dropped). Slot k holds the voxel with the
+    k-th smallest packed id: a stable sort by id, so within a voxel the
+    points sum in index order. Points outside the 1024-voxel window at the
+    cloud's minimum voxel are dropped, never aliased onto another voxel.
+    """
+    N = points.shape[0]
+    dev = points.device
+    v = _voxel_coords(points, voxel_size)
+    vid = _pack_vid(v, _voxel_origin(v, valid), valid)
+    vid_s, order = torch.sort(vid, stable=True)
+    val_s = vid_s != _INVALID_VID           # valid and inside the window
+    first = torch.ones(N, dtype=torch.bool, device=dev)
+    first[1:] = vid_s[1:] != vid_s[:-1]
+    seg = torch.cumsum(first.to(torch.int64), 0) - 1
+    # the points past the last slot (overflowing or invalid; they sort last)
+    # go to discarded segments of at most _TAIL points each: a segment is
+    # summed in order by one thread on the card, so one bucket of them all
+    # would take the longest serial sum. The segments stay non-decreasing.
+    ar = torch.arange(N, device=dev)
+    seg = torch.where(val_s & (seg < capacity), seg, capacity + ar // _TAIL)
+    w = val_s[:, None].to(torch.float32)
+    cols = [points[order] * w, w]
+    if attrs is not None:
+        cols.insert(1, attrs[order] * w)
+    offsets = torch.searchsorted(seg, torch.arange(capacity + N // _TAIL + 2, device=dev))
+    sums = torch.segment_reduce(torch.cat(cols, dim=1), "sum", offsets=offsets,
+                                axis=0, unsafe=True)[:capacity]
+    cnt = sums[:, -1:]
+    denom = torch.where(cnt > 0, cnt, 1.0)
+    out_attrs = None if attrs is None else sums[:, 3:-1] / denom
+    return sums[:, :3] / denom, cnt[:, 0] > 0, out_attrs, torch.sum(first & val_s)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels (K1, every branch, K2, the spatial repair's K3, K4
 and K5, the band search K8, and the crossing kernels K6 and K7 of the
-two-camera merge) against their plain PyTorch versions, on the card.
+two-camera merge) against their plain PyTorch versions, on the card; and
+config 5's voxel merge, whose ordered segment sum must give the same bits
+in every call there.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it also runs on a machine without it:
@@ -1003,3 +1005,25 @@ def test_tiled_route_launches_k6(cuda, monkeypatch):
     b = reconstruct_two_camera(f1, f2, c1, c2, cfg)
     assert torch.equal(a.mask, b.mask)
     assert float(torch.linalg.norm(a.points - b.points, dim=-1)[a.mask].max()) <= 1e-3
+
+
+@pytest.mark.parametrize("capacity", [1 << 16, 3000])
+def test_voxel_downsample_on_card_equals_cpu(cuda, capacity):
+    """Config 5's voxel merge on the card: the same slots and flags as on
+    the CPU, means within 1e-5 relative (each voxel summed in index order
+    on both), and the same bits in two calls (no float atomics); also with
+    voxels past ``capacity`` and a tail of more than one discarded
+    segment."""
+    from slr_torch.registration.voxel import voxel_downsample
+
+    rng = np.random.default_rng(5)
+    pts = torch.from_numpy(rng.normal(500.0, 40.0, (200_000, 3)).astype(np.float32))
+    valid = torch.from_numpy(rng.random(200_000) > 0.3)
+    col = torch.from_numpy(rng.random((200_000, 1)).astype(np.float32))
+    cpu = voxel_downsample(pts, valid, 2.0, capacity, attrs=col)
+    a = voxel_downsample(pts.to(cuda), valid.to(cuda), 2.0, capacity, attrs=col.to(cuda))
+    b = voxel_downsample(pts.to(cuda), valid.to(cuda), 2.0, capacity, attrs=col.to(cuda))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert int(a[3]) == int(cpu[3]) and torch.equal(a[1].cpu(), cpu[1])
+    torch.testing.assert_close(a[0].cpu(), cpu[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(a[2].cpu(), cpu[2], rtol=1e-5, atol=1e-6)

@@ -117,7 +117,9 @@ def test_port_imports_neither_jax_nor_slr():
         "slr_torch.registration.band, slr_torch.registration.features, "
         "slr_torch.registration.icp, slr_torch.registration.posegraph, "
         "slr_torch.registration.projective, slr_torch.registration.voxel, "
-        "slr_torch.pipeline.registerfuse, "
+        "slr_torch.pipeline.registerfuse, slr_torch.registration.filters, "
+        "slr_torch.dist, slr_torch.dist.ba, slr_torch.pipeline.tsdf, "
+        "slr_torch.pipeline.meshing, slr_torch.geom.triangulate, "
         "slr_torch.synth.scene, slr_torch.kernels.crossing, slr_torch.pipeline.twocam\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'slr' or m.startswith('slr.'))\n"
@@ -219,6 +221,32 @@ def test_triangulate_plane_and_rays_match_reference(seed):
     mt, gt = ttri.triangulate_rays(camt, projt, *tt)
     _close(mj, mt, rtol=1e-4, atol=1e-3)
     _close(gj, gt, rtol=1e-4, atol=1e-3)
+
+
+def test_triangulate_dlt_matches_reference():
+    """tests/test_geom.py's rig case: 400 numpy-seeded points seen by the
+    default rig, DLT from the camera pixel and the projector column (and
+    row). The closed-form 3x3 solve amplifies float32 rounding by the
+    normal equations' conditioning: within 2e-2 mm of JAX's, and both
+    within the reference's 5e-2 mm of the truth."""
+    from slr.synth.render import default_rig
+
+    cj, pj = default_rig()
+    ct, pt = (tcam.camera_from_numpy(jax.tree.map(np.asarray, c)) for c in (cj, pj))
+    rng = np.random.default_rng(6)
+    pts = np.stack([rng.uniform(-60, 60, 400), rng.uniform(-50, 50, 400),
+                    rng.uniform(420, 600, 400)], axis=1).astype(np.float32)
+    uv_c = np.asarray(jcam.project(cj, pts)[0])
+    uv_p = np.asarray(jcam.project(pj, pts)[0])
+    for rows in (False, True):
+        vp = uv_p[:, 1] if rows else None
+        xj = np.asarray(jtri.triangulate_dlt(cj, pj, uv_c[:, 0], uv_c[:, 1], uv_p[:, 0], vp))
+        xt = ttri.triangulate_dlt(ct, pt, *(torch.from_numpy(a) for a in (
+            uv_c[:, 0], uv_c[:, 1], uv_p[:, 0])), None if vp is None else torch.from_numpy(vp))
+        assert tuple(xt.shape) == (400, 3)
+        np.testing.assert_allclose(xt.numpy(), xj, atol=2e-2)
+        assert np.linalg.norm(xt.numpy() - pts, axis=-1).max() < 5e-2
+        assert np.linalg.norm(xj - pts, axis=-1).max() < 5e-2
 
 
 def test_camera_to_and_center():

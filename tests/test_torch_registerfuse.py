@@ -107,7 +107,7 @@ def config4():
     (cj, pj), (ct, _) = _rigs()
     cfg = jcfg.PatternConfig(proj_width=PROJ_W, proj_height=PROJ_H, gray_bits=6,
                              phase_steps=4)
-    clouds, poses = [], []
+    clouds, poses, truths = [], [], []
     for s in range(3):
         R_m, t_m = _pose(s)
         cj2, pj2 = jrender.move_rig(cj, pj, R_m, t_m)
@@ -115,6 +115,7 @@ def config4():
                                    noise_std=0.003, key=jax.random.PRNGKey(40 + s))
         clouds.append(jax.tree.map(np.asarray, reconstruct_scan(scan.frames, cj, pj, cfg)))
         poses.append((R_m, t_m))
+        truths.append(np.asarray(scan.points_true)[np.asarray(scan.mask_true)])
     rc_j = jcfg.RegistrationConfig(icp_sample_points=1024, ransac_iters=64, icp_iters=10,
                                    pg_iters=10)
     reg_j = jreg.register_scans([jax.tree.map(jnp.asarray, c) for c in clouds], rc_j,
@@ -127,7 +128,7 @@ def config4():
         good = c.mask & (np.abs(np.sum(n * vdir, -1)) > 0.35)
         p = jnp.asarray(good.reshape(-1), jnp.float32)
         probs.append(p / jnp.sum(p))
-    return clouds, poses, reg_j, probs, ct
+    return clouds, poses, reg_j, probs, ct, truths
 
 
 def _pose_errors(R, t, poses):
@@ -138,12 +139,13 @@ def _pose_errors(R, t, poses):
     return out
 
 
-def test_register_scans_matches_reference(config4, monkeypatch):
-    clouds, poses, reg_j, probs, cam = config4
-
+def _jax_draws(monkeypatch, probs):
+    """Replace the port's draws by the reference's: the subsample of scan s
+    (seed s, or 100 + s for BA's landmarks) and the RANSAC hypotheses (key
+    0 for every pair, as the reference's vmapped RANSAC draws too)."""
     def jax_samples(p, n, seed):
         idx = jax.random.choice(jax.random.PRNGKey(seed), p.shape[0], shape=(n,),
-                                p=probs[seed])
+                                p=probs[seed % 100])
         return torch.from_numpy(np.asarray(idx, np.int64))
 
     def jax_hypotheses(p, n_iters, generator=None):
@@ -154,6 +156,11 @@ def test_register_scans_matches_reference(config4, monkeypatch):
 
     monkeypatch.setattr(treg, "_draw_samples", jax_samples)
     monkeypatch.setattr(tfeat, "_draw_hypotheses", jax_hypotheses)
+
+
+def test_register_scans_matches_reference(config4, monkeypatch):
+    clouds, poses, reg_j, probs, cam, _ = config4
+    _jax_draws(monkeypatch, probs)
     rc = tcfg.RegistrationConfig(icp_sample_points=1024, ransac_iters=64, icp_iters=10,
                                  pg_iters=10)
     reg_t = treg.register_scans([scan_cloud_from_numpy(*c) for c in clouds], rc,
@@ -170,7 +177,7 @@ def test_register_scans_matches_reference(config4, monkeypatch):
 def test_register_scans_own_draws_recover_poses(config4):
     """The port's own torch.Generator draws, chain only, no camera: the
     exact-NN ICP alone holds the ground-truth bounds."""
-    clouds, poses, _, _, _ = config4
+    clouds, poses, _, _, _, _ = config4
     rc = tcfg.RegistrationConfig(icp_sample_points=1024, icp_iters=15, pg_iters=10)
     reg = treg.register_scans([scan_cloud_from_numpy(*c) for c in clouds], rc,
                               use_features=False, loop_closures=False)
@@ -180,7 +187,7 @@ def test_register_scans_own_draws_recover_poses(config4):
 
 
 def test_scan_cloud_from_numpy_and_subsample(config4):
-    clouds, _, _, _, _ = config4
+    clouds, _, _, _, _, _ = config4
     c = scan_cloud_from_numpy(*clouds[0])
     assert c.points.dtype == torch.float32 and c.mask.dtype == torch.bool
     assert np.array_equal(_np(c.mask), clouds[0].mask)
@@ -191,3 +198,148 @@ def test_scan_cloud_from_numpy_and_subsample(config4):
     np.testing.assert_allclose(_np(torch.linalg.norm(nrm, dim=1)), 1.0, atol=1e-5)
     again, _ = treg._subsample(c, 512, seed=3)
     assert torch.equal(pts, again)
+
+
+RC5 = dict(icp_sample_points=1024, ransac_iters=64, icp_iters=10, pg_iters=10)
+BA5 = dict(n_landmarks=128, iters=4)
+
+
+@pytest.fixture(scope="module")
+def config5(config4):
+    """The reference's config 5 on the three scans: batched registration,
+    BA from it, the fused cloud from BA's poses."""
+    from slr.geom.camera import Camera as JCamera
+
+    clouds, _, _, _, ct, _ = config4
+    jc = [jax.tree.map(jnp.asarray, c) for c in clouds]
+    cam_j = JCamera(*(jnp.asarray(x.numpy()) for x in ct))
+    reg_b = jreg.register_scans_batched(jc, jcfg.RegistrationConfig(**RC5), use_features=True,
+                                        cam=cam_j)
+    reg_ba = jreg.ba_refine(jc, reg_b, **BA5)
+    fused = jreg.fuse_scans(jc, reg_ba, jcfg.RegistrationConfig(voxel_size=2.0),
+                            capacity=1 << 16)
+    return tuple(jax.tree.map(np.asarray, x) for x in (reg_b, reg_ba, fused))
+
+
+def test_register_scans_batched_matches_reference(config4, config5, monkeypatch):
+    clouds, poses, _, probs, cam, _ = config4
+    reg_j = config5[0]
+    _jax_draws(monkeypatch, probs)
+    reg_t = treg.register_scans_batched([scan_cloud_from_numpy(*c) for c in clouds],
+                                        tcfg.RegistrationConfig(**RC5), use_features=True,
+                                        cam=cam)
+    np.testing.assert_allclose(_np(reg_t.R), reg_j.R, atol=1e-4)
+    np.testing.assert_allclose(_np(reg_t.t), reg_j.t, atol=2e-2)
+    np.testing.assert_allclose(_np(reg_t.icp_rms), reg_j.icp_rms, rtol=1e-2)
+    for rot, tr in _pose_errors(reg_t.R, reg_t.t, poses):
+        assert rot < 0.5 and tr < 2.0, (rot, tr)
+
+
+def test_ba_refine_matches_reference(config4, config5, monkeypatch):
+    """The reference's batched poses into the port's BA, with the
+    reference's landmark draws."""
+    clouds, poses, _, probs, _, _ = config4
+    reg_b, reg_j, _ = config5
+    _jax_draws(monkeypatch, probs)
+    reg_t = treg.ba_refine([scan_cloud_from_numpy(*c) for c in clouds],
+                           treg.registered_scans_from_numpy(*reg_b), **BA5)
+    np.testing.assert_allclose(_np(reg_t.R), reg_j.R, atol=1e-4)
+    np.testing.assert_allclose(_np(reg_t.t), reg_j.t, atol=2e-2)
+    np.testing.assert_allclose(float(reg_t.pg_rms), float(reg_j.pg_rms), rtol=1e-3)
+    np.testing.assert_array_equal(_np(reg_t.icp_rms), reg_b.icp_rms)
+    assert float(reg_t.pg_rms) < 1.5            # tests/test_pipeline.py's BA gate
+
+
+def test_fuse_scans_matches_reference(config4, config5):
+    """The reference's BA poses into the port's fusion: a point whose
+    transformed position sits within float32 rounding of a voxel face may
+    change voxel, so the clouds are held as sets: voxel counts within
+    0.1 %, every fused point within 1e-3 of a reference one but 0.5 %."""
+    from scipy.spatial import cKDTree
+
+    clouds = config4[0]
+    reg_j = config5[1]
+    jp, jv, jc, jn = config5[2]
+    tp, tv, tc, tn = treg.fuse_scans([scan_cloud_from_numpy(*c) for c in clouds],
+                                     treg.registered_scans_from_numpy(*reg_j),
+                                     tcfg.RegistrationConfig(voxel_size=2.0),
+                                     capacity=1 << 16)
+    assert tuple(tp.shape) == (1 << 16, 3) and tuple(tc.shape) == (1 << 16, 1)
+    assert abs(int(tn) - int(jn)) <= 1e-3 * int(jn) and int(tv.sum()) == min(int(tn), 1 << 16)
+    d, i = cKDTree(jp[jv]).query(_np(tp[tv]))
+    assert np.mean(d < 1e-3) > 0.995
+    close = d < 1e-3
+    np.testing.assert_allclose(_np(tc[tv])[close], jc[jv][i[close]], atol=1e-4)
+
+
+def test_register_scans_batched_enters_solver_once_per_round(config4, monkeypatch):
+    """The batched rounds enter ICP once per round (chain, closures), not
+    once per edge, as the reference's test_pipeline.py holds its own; with
+    features, once more per round for the race. With the port's own draws
+    the result equals the sequential path's."""
+    clouds, poses, _, _, cam, _ = config4
+    cl = [scan_cloud_from_numpy(*c) for c in clouds]
+    calls = {"n": 0}
+    real_icp = treg.icp_point_to_plane
+
+    def counting_icp(*a, **k):
+        calls["n"] += 1
+        return real_icp(*a, **k)
+
+    monkeypatch.setattr(treg, "icp_point_to_plane", counting_icp)
+    rc = tcfg.RegistrationConfig(**RC5)
+    reg = treg.register_scans_batched(cl, rc, use_features=False, cam=cam)
+    assert calls["n"] == 2, calls["n"]
+    calls["n"] = 0
+    reg_f = treg.register_scans_batched(cl, rc, use_features=True, cam=cam)
+    assert calls["n"] == 4, calls["n"]
+    monkeypatch.setattr(treg, "icp_point_to_plane", real_icp)
+    seq = treg.register_scans(cl, rc, use_features=True, cam=cam)
+    np.testing.assert_allclose(_np(reg_f.R), _np(seq.R), atol=1e-4)
+    np.testing.assert_allclose(_np(reg_f.t), _np(seq.t), atol=2e-2)
+    for R, t in ((reg.R, reg.t), (reg_f.R, reg_f.t)):
+        for rot, tr in _pose_errors(R, t, poses):
+            assert rot < 0.5 and tr < 2.0, (rot, tr)
+
+
+def test_mesh_other_than_none_raises(config4):
+    clouds = [scan_cloud_from_numpy(*c) for c in config4[0][:2]]
+    with pytest.raises(NotImplementedError, match="mesh"):
+        treg.register_scans_batched(clouds, mesh=object())
+    reg = treg.registered_scans_from_numpy(np.stack([np.eye(3)] * 2), np.zeros((2, 3)),
+                                           np.zeros(1), 0.0)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        treg.ba_refine(clouds, reg, mesh=object())
+
+
+def test_config5_end_to_end(config4, config5, tmp_path):
+    """The port's config 5 with its own draws: batched registration, BA,
+    voxel fusion and the TSDF mesh, held to the reference's gates (poses
+    within 0.5 deg and 2 mm, the fused cloud within 2.5 mm RMS of the truth
+    union, BA's rms below 1.5), which the reference's fused cloud of the
+    same scans meets too (its draws differ: the two RMS differ by ~0.1 mm
+    at this 160 x 128 size); then a mesh of more than 1000 faces."""
+    from scipy.spatial import cKDTree
+    from slr_torch.pipeline.tsdf import fuse_tsdf, write_tsdf_mesh_obj
+
+    clouds, poses, _, _, cam, truths = config4
+    cl = [scan_cloud_from_numpy(*c) for c in clouds]
+    reg = treg.register_scans_batched(cl, tcfg.RegistrationConfig(**RC5),
+                                      use_features=True, cam=cam)
+    reg = treg.ba_refine(cl, reg, **BA5)
+    assert float(reg.pg_rms) < 1.5
+    for rot, tr in _pose_errors(reg.R, reg.t, poses):
+        assert rot < 0.5 and tr < 2.0, (rot, tr)
+    pts, val, _, n_vox = treg.fuse_scans(cl, reg, tcfg.RegistrationConfig(voxel_size=2.0),
+                                         capacity=1 << 16)
+    tree = cKDTree(np.concatenate(truths))
+
+    def rms(p):
+        return float(np.sqrt(np.mean(tree.query(p)[0] ** 2)))
+
+    rms_t = rms(_np(pts[val]))
+    jp, jv = config5[2][:2]
+    assert rms_t < 2.5 and rms(jp[jv]) < 2.5, (rms_t, rms(jp[jv]))
+    vol = fuse_tsdf(cl, cam, reg.R, reg.t, size_vox=(48, 48, 48), voxel=4.0)
+    nv, nf = write_tsdf_mesh_obj(tmp_path / "m.obj", vol)
+    assert nf > 1000 and nv == 3 * nf
