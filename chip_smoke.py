@@ -21,7 +21,9 @@ ragged and unaligned maps, float32 ties of the rounding, signed zeros,
 |Phi| ~ 1e6 and masks holed along K4's tile and warp edges, at 1 to 17
 sweeps, K3 also on the largest maps its route takes at up to 64 sweeps and
 in 20 launches back to back, and refusing a map past one wave of its
-tiles; wavefront, K5, held to its plain pass bit for bit on every case). Then registration (config 4): the sorted-band
+tiles, while ``quality_unwrap`` sends a map within the budget but past one
+wave to K4; wavefront, K5, held to its plain pass bit for bit on every
+case), and the projector's optics (defocus and gamma) decoded by K1. Then registration (config 4): the sorted-band
 search K8 at 256k points, point-to-plane ICP on its band route
 (``icp_point_to_plane``) at 256k (and the same case on the voxel route) and
 between two dense scans,
@@ -34,12 +36,18 @@ stage's wall, and one run profiled. Then the two-camera merge (``reconstruct_two
 the crossing kernels K7 and K6 against their plain versions, bit for bit
 (the reference's random case, a ragged one, the merge's passes and the 5 MP
 calls; rows with long pair ranges, NaN and infinite codes, clipped bins,
-unaligned rows, few and many rows, the widest row a block holds, and
+unaligned rows, few and many rows, the widest row a block holds, rows
+past it in chunks of pairs (K6), and
 channel layouts other than the merge's), the merge at full width in float32 and uint8 (K1 twice, K7 four times; RMS and
 cells equal to the recorded digits), the tiled route on a 5 MP sensor (K6
 four times), the splat and search oracles, and two merged rig poses
 registered, twice (with the sample draw's ops repeated on the same
-inputs). Each path's output is checked against the
+inputs). Then calibration (config 2), which runs no kernel: the
+reference's 24-view Zhang and stereo solves (``benchmarks/tpu_matrix.py``)
+and the CLI's image route at 1280x1024 (8 rendered board views: corners
+detected, patterns decoded, corners lifted into the projector, camera,
+projector and stereo LM) under the reference's golden gates, twice to the
+same bits. Each path's output is checked against the
 synthetic ground truth and its launches counted; then the kernels, their
 plain versions and the paths are timed with CUDA events (every kernel also
 by device time, from CUDA-graph replays (K3's cooperative launch too);
@@ -56,6 +64,7 @@ import statistics
 import subprocess
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -159,6 +168,22 @@ TWO_CAM_RMS_GATE_MM = 0.05
 TWO_CAM_MIN_POINTS = 560_000
 ORACLE_RMS_GATE_MM = 0.5              # tpu_matrix.py:511
 TILED_W, TILED_H = 2448, 2048         # a 5 MP machine-vision sensor
+K6_CHUNK_CASE = (4, 40_000, 7, 1024)  # R, U, N, K: rows past one K6 block
+OPTICS = dict(defocus_sigma=1.0, proj_gamma=2.2)
+# calibration (config 2): benchmarks/tpu_matrix.py:610-679's 24-view case and
+# its gates, the reference's readings on those inputs (BASELINE.md:177-178)
+# and how far the port may stray from them
+V24_ZHANG_RMS, V24_STEREO_RMS, V24_RMS_TOL = 0.1376, 0.1397, 0.002
+V24_T_ERR_MAX = 0.5                   # mm; the reference reads 0.173
+# the CLI's image route at its own size: tests/test_calib.py:205-213's golden
+# gates, :143-144's corner gates, and the reference's readings on it
+CALIB_CAM = (1280, 1024, 1024, 768)
+CALIB_GOLDEN = dict(rms_px=0.5, f_rel=0.01, c_px=5.0, R_abs=4e-3, t_abs_mm=2.0,
+                    corner_max_px=0.8, corner_mean_px=0.4)
+CALIB_REFERENCE = dict(rms_px=0.2143, cam_cx_off_px=4.15, max_dt_mm=0.26)
+CALIB_STAGES = ("detect_chessboard", "decode_stack", "projector_corners_from_decode",
+                "calibrate_camera", "calibrate_projector", "stereo_calibrate")
+K3_OVERFLOW_MAP = (32, 32768)         # within the 12 MiB budget, past one wave of K3
 CROSSING_REL_TOL = 1e-6               # where a bin has >= 2 crossings (sum order)
 MERGE_MASK_AGREE = 0.9999             # kernel against plain route (tests/test_twocam.py:99-103)
 MERGE_POINTS_TOL = 1e-3               # mm
@@ -1139,6 +1164,22 @@ def crossing_k6_bytes_needed(lo, hi, N, K):
     return 8 * R * U + N * 4 * int(fires_a_bin(lo, hi, K).sum()) + N * 4 * R * K
 
 
+def long_range_pairs(device, R, U, N, K, seed=0):
+    """(lo, hi, payload) of R rows of U pairs whose codes climb over the K
+    bins with a wiggle of a few bins, so each bin's first..last pair range
+    is long and holds many crossings; 5 % of the pairs invalid (lo == hi ==
+    -1, zero payload)."""
+    rng = np.random.default_rng(seed)
+    lo = np.cumsum(rng.uniform(0, 2.0 * (K + 6) / U, (R, U)), axis=1) - 3.0
+    lo = (lo + 2.0 * rng.normal(size=(R, U))).astype(np.float32)
+    hi = (lo + rng.uniform(0.1, 2.4, (R, U))).astype(np.float32)
+    dead = rng.random((R, U)) < 0.05
+    lo[dead] = hi[dead] = -1.0
+    pay = rng.normal(0, 3, (R, N, U)).astype(np.float32)
+    pay[np.broadcast_to(dead[:, None, :], pay.shape)] = 0.0
+    return [torch.from_numpy(a).to(device) for a in (lo, hi, pay)]
+
+
 def two_camera_phases(dev, counts_of, card, ptxas):
     """Phases 24-30, the two-camera merge (slice 5): K7 and K6 against
     their plain versions; ``reconstruct_two_camera`` at the reference's
@@ -1288,6 +1329,27 @@ def two_camera_phases(dev, counts_of, card, ptxas):
             shape=list(out_s.shape), max_fires=float(fires.max()), bit_equal=same,
             max_abs_err=float((out_s - ref_s).abs().max()),
             grid_blocks_per_sm=list(kx.launch_shape("K6", *lo_s.shape, pay_s.shape[1], K_s)))
+    # K6 on rows past one block (40,000 pairs at 1,024 bins): chunks of
+    # pairs in order, each continuing the previous chunk's sums
+    lo_c, hi_c, pay_c = long_range_pairs(dev, *K6_CHUNK_CASE)
+    K_c = K6_CHUNK_CASE[3]
+    ref_c = kx.crossing_bin_sum_reference(lo_c, hi_c, pay_c, K_c)
+    out_c, n = counts_of(lambda: kx.crossing_bin_sum(lo_c, hi_c, pay_c, K_c))
+    chunk = kx.bin_sum_chunk(K_c)
+    check(n["k6"] == -(-lo_c.shape[1] // chunk) >= 2, f"K6 chunked: launches {n}")
+    same = bool(torch.equal(out_c, ref_c))
+    check(same, "K6 chunked: not bit-equal to its plain version")
+    fires = kx.crossing_bin_sum_reference(lo_c, hi_c, torch.ones_like(pay_c[:, :1]), K_c)
+    k6_chunked = dict(
+        shape=[*pay_c.shape, K_c], chunk_pairs=chunk, chunks=n["k6"], bit_equal=same,
+        max_fires=float(fires.max()), max_abs_err=float((out_c - ref_c).abs().max()),
+        ms=statistics.median(cuda_ms(lambda: kx.crossing_bin_sum(lo_c, hi_c, pay_c, K_c))),
+        plain_ms=statistics.median(cuda_ms(
+            lambda: kx.crossing_bin_sum_reference(lo_c, hi_c, pay_c, K_c), 3, 1)),
+        bytes=crossing_k6_bytes_needed(lo_c, hi_c, pay_c.shape[1], K_c))
+    k6_chunked["bound_ms"] = k6_chunked["bytes"] / (HBM_PEAK_TBS * 1e12) * 1e3
+    k6_checks["chunked_4x40000"] = k6_chunked
+    del lo_c, hi_c, pay_c, ref_c, out_c, fires
     emit("k7_vs_plain", rel_tol=CROSSING_REL_TOL, **k7_checks)
 
     # phase 26: the merge at full width, float32 and uint8: K1 (decode_only)
@@ -1486,7 +1548,8 @@ def two_camera_phases(dev, counts_of, card, ptxas):
                        "built before this run: not reported")
             for name, pattern in (("k7_merge_layout", "interp_fused_kernelILi4ELi3"),
                                   ("k7_any_layout", "interp_fused_kernelILi8"),
-                                  ("k6", "bin_sum_kernel"))}
+                                  ("k6", "bin_sum_kernelILb0"),
+                                  ("k6_chunked", "bin_sum_kernelILb1"))}
     (a1, _), (a2, _) = k7_calls[0], k7_calls[1]
     def k7_needed(i):
         code, valid, ch, K, _, gates, dmin, dmax = k7_args(i)
@@ -1580,7 +1643,187 @@ def two_camera_phases(dev, counts_of, card, ptxas):
         "bound_ms_all_inputs": moved_all["k6_5mp_pass1"] / (HBM_PEAK_TBS * 1e12) * 1e3,
         "device_ms": dev_ms["k6_5mp_pass1"], "registers": regs["k6"],
         "grid_blocks_per_sm": shapes["k6_5mp_pass1"],
+        "ms_chunked": k6_chunked["ms"], "plain_ms_chunked": k6_chunked["plain_ms"],
+        "registers_chunked": regs["k6_chunked"],
+        "bound_ms_chunked": k6_chunked["bound_ms"], "chunks": k6_chunked["chunks"],
+        "chunked_shape": k6_chunked["shape"],
     }]
+
+
+def calib_v24_case(dev):
+    """benchmarks/tpu_matrix.py:616-646's inputs with the port's ``so3_exp``
+    and ``project``: 24 views of a 9x6 board (20 mm) seen by a camera and a
+    projector 180 mm aside, corners with 0.1 px noise, numpy seed 3. Returns
+    (obj, cam_uv, proj_uv) on ``dev`` and the true camera -> projector t."""
+    from slr_torch.geom.camera import make_camera, project
+    from slr_torch.geom.se3 import so3_exp
+
+    rng = np.random.default_rng(3)
+    xx, yy = np.meshgrid(np.arange(9), np.arange(6))
+    obj = torch.tensor(np.stack([xx.ravel() * 20.0, yy.ravel() * 20.0,
+                                 np.zeros(54)], axis=1), dtype=torch.float32)
+    cam = make_camera(1400.0, 1395.0, 640.0, 512.0, dist=[-0.12, 0.05, 0.001, -0.001, 0.0])
+    proj = make_camera(1750.0, 1745.0, 512.0, 700.0, dist=[-0.06, 0.02, 0.0, 0.0, 0.0])
+    R_cp = so3_exp(torch.tensor([0.0, -0.28, 0.0]))
+    t_cp = torch.tensor([180.0, 6.0, 40.0])
+    cam_uv, proj_uv = [], []
+    for _ in range(24):
+        rv = torch.tensor(rng.uniform(-0.35, 0.35, 3), dtype=torch.float32)
+        tv = torch.tensor([rng.uniform(-60, 60), rng.uniform(-50, 50), rng.uniform(420, 640)],
+                          dtype=torch.float32)
+        pts_w = obj @ so3_exp(rv).T + tv
+        uv_c, _ = project(cam, pts_w)
+        uv_p, _ = project(proj, pts_w @ R_cp.T + t_cp)
+        for uv, out in ((uv_c, cam_uv), (uv_p, proj_uv)):
+            out.append(uv + torch.tensor(rng.normal(0, 0.1, uv.shape), dtype=torch.float32))
+    return obj.to(dev), torch.stack(cam_uv).to(dev), torch.stack(proj_uv).to(dev), t_cp
+
+
+def host_syncs(fn):
+    """(result, host synchronisations) of ``fn``: torch's sync debug mode
+    warns once at every call that waits for the card."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def same_bits(a, b):
+    """Two results (nested tuples of tensors) hold the same bits."""
+    if isinstance(a, tuple):
+        return all(same_bits(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def calibration_phases(dev, counts_of, card):
+    """Phases 31-33, config 2: calibration. The 24-view Zhang and stereo
+    solves of benchmarks/tpu_matrix.py, gated as there and against the
+    reference's readings on the same inputs; then the CLI's image route at
+    1280x1024 (8 rendered board views, 34 frames each): corners detected,
+    patterns decoded, corners lifted into the projector, camera, projector
+    and stereo LM, under the reference's golden gates, twice to the same
+    bits, stage by stage. None of it launches a kernel."""
+    from slr_torch import calib as cal
+    from slr_torch.calib import corners, lm
+    from slr_torch.calib import pipeline as cpipe
+    from slr_torch.config import CalibConfig, PatternConfig
+    from slr_torch.synth.board import board_poses, render_board_view
+    from slr_torch.synth.render import default_rig
+
+    def solve(name, fn, gates):
+        """``fn`` on the card: no kernel, the same bits twice, its LM steps
+        and host syncs, CUDA-event and host-wall ms; then its gates."""
+        out, n = counts_of(fn)
+        check(not any(n.values()), f"{name}: kernels launched {n}")
+        steps = int(lm.lm_solve.steps)
+        again, syncs = host_syncs(fn)
+        check(same_bits(out, again), f"{name}: two calls differ")
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        ms = statistics.median(cuda_ms(fn, 5, 1))
+        fields = gates(out)
+        emit(name, card=card, ms=ms, ms_of="CUDA events around one solve (host time "
+             "included)", host_wall_ms=wall, lm_steps=steps, host_syncs=syncs,
+             bit_identical_calls=True, launches=n, **fields)
+        return out
+
+    # phase 31: 24-view Zhang; phase 32: the joint stereo solve
+    obj, cam_uv, proj_uv, t_cp = calib_v24_case(dev)
+
+    def zhang_gates(r):
+        rms, fx_err = float(r.rms), abs(float(r.camera.fx) - 1400.0) / 1400.0
+        check(fx_err < 5e-3 and rms < 0.3, f"calib_zhang_v24: fx {fx_err}, RMS {rms}")
+        check(abs(rms - V24_ZHANG_RMS) <= V24_RMS_TOL,
+              f"calib_zhang_v24: RMS {rms}, the reference's {V24_ZHANG_RMS}")
+        return dict(views=24, rms_px=rms, fx_rel_err=fx_err, reference_rms_px=V24_ZHANG_RMS)
+
+    rc = solve("calib_zhang_v24", lambda: cal.calibrate_camera(obj, cam_uv), zhang_gates)
+    rp = cal.calibrate_camera(obj, proj_uv)
+
+    def stereo_gates(r):
+        rms = float(r.rms)
+        t_err = float(torch.linalg.norm(r.proj.t.cpu() - t_cp))
+        check(t_err < 1.0 and rms < 0.3, f"calib_stereo_v24: t {t_err} mm, RMS {rms}")
+        check(abs(rms - V24_STEREO_RMS) <= V24_RMS_TOL and t_err <= V24_T_ERR_MAX,
+              f"calib_stereo_v24: RMS {rms}, t {t_err} mm against the reference's")
+        return dict(views=24, params=24 + 6 * 24, residuals=2 * 2 * 54 * 24, rms_px=rms,
+                    t_rel_err_mm=t_err, reference_rms_px=V24_STEREO_RMS,
+                    reference_t_err_mm=0.1728)
+
+    solve("calib_stereo_v24", lambda: cal.stereo_calibrate(obj, cam_uv, proj_uv, rc, rp),
+          stereo_gates)
+
+    # phase 33: the CLI's image route at 1280x1024
+    cc = CalibConfig()
+    cols, rows, sq = cc.board_cols, cc.board_rows, cc.square_size
+    cam, proj = default_rig(*CALIB_CAM, device=dev)
+    cfg = PatternConfig(proj_width=CALIB_CAM[2], proj_height=CALIB_CAM[3],
+                        row_gray_bits=5, row_phase_steps=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    views = [render_board_view(cam, proj, cfg, R, t, cols, rows, sq, CALIB_CAM[1],
+                               CALIB_CAM[0], noise_std=0.003,
+                               generator=torch.Generator(device="cuda").manual_seed(i))
+             for i, (R, t) in enumerate(board_poses(8, cols, rows, sq, seed=0))]
+    torch.cuda.synchronize()
+    render_ms = (time.perf_counter() - t0) * 1e3
+    whites = [v.white_image for v in views]
+    stacks = [v.scan.frames for v in views]
+
+    def calibrate():
+        return cal.calibrate_from_images(whites, stacks, cols, rows, sq, cfg,
+                                         lm_iters=cc.lm_iters)
+
+    dev_views = corners.detect_chessboard.device_views
+    res, n = counts_of(calibrate)
+    dev_views = corners.detect_chessboard.device_views - dev_views
+    check(not any(n.values()), f"calib_images: kernels launched {n}")
+    again, stages = stage_times(cpipe, CALIB_STAGES, calibrate)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    third = calibrate()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    for other in (again, third):
+        check(same_bits((res.corners_cam, res.corners_proj, res.stereo),
+                        (other.corners_cam, other.corners_proj, other.stereo)),
+              "calib_images: two calls differ")
+    st = res.stereo
+    g = CALIB_GOLDEN
+    true_c = torch.stack([v.corners_cam_true for v in views])
+    err_c = torch.linalg.norm(res.corners_cam - true_c, dim=-1)
+    err_p = torch.linalg.norm(res.corners_proj - torch.stack([v.corners_proj_true
+                                                              for v in views]), dim=-1)
+    f_rel = {f"{c}_{f}": abs(float(getattr(getattr(st, c), f)) - float(getattr(truth, f)))
+             / float(getattr(truth, f)) for c, truth in (("cam", cam), ("proj", proj))
+             for f in ("fx", "fy")}
+    readings = dict(
+        rms_px=float(st.rms), cam_rms_px=float(res.cam_rms), proj_rms_px=float(res.proj_rms),
+        f_rel_err=f_rel, cam_cx_off_px=abs(float(st.cam.cx - cam.cx)),
+        cam_cy_off_px=abs(float(st.cam.cy - cam.cy)),
+        max_dR=float((st.proj.R - proj.R).abs().max()),
+        max_dt_mm=float((st.proj.t - proj.t).abs().max()),
+        corner_err_px=dict(max=float(err_c.max()), mean=float(err_c.mean())),
+        proj_corner_err_px=dict(max=float(err_p.max()), mean=float(err_p.mean())))
+    check(readings["rms_px"] < g["rms_px"] and max(f_rel.values()) < g["f_rel"]
+          and max(readings["cam_cx_off_px"], readings["cam_cy_off_px"]) < g["c_px"]
+          and readings["max_dR"] < g["R_abs"] and readings["max_dt_mm"] < g["t_abs_mm"],
+          f"calib_images: golden gates {readings}")
+    check(float(err_c.max()) < g["corner_max_px"] and float(err_c.mean()) < g["corner_mean_px"],
+          f"calib_images: corners {readings['corner_err_px']}")
+    emit("calib_images_1280x1024", card=card, views=8, frames=cfg.num_frames,
+         camera=list(CALIB_CAM[:2]), lm_iters=cc.lm_iters, launches=n,
+         device_path_views=dev_views, gates=g, **readings, reference=CALIB_REFERENCE,
+         bit_identical_calls=True, render_ms=render_ms, calibrate_ms=wall,
+         stage_ms=stages, stage_ms_of="the second call, each stage's wall from an idle "
+         "card to its result")
 
 
 def main():
@@ -1824,6 +2067,25 @@ def main():
     launches += k1_path("k1_multifreq", scanmf.frames, cam_d, proj_d, cfgmf,
                         scanmf, RMS_GATE_MM)
 
+    # phase 12b: projector optics on the config-3 scene, defocus (a PSF of
+    # 1 projector px) and gamma 2.2, decoded by K1: the modulation falls by
+    # the closed form's factor (within 5 %, tests/test_synth.py:168-220's
+    # rule), the accuracy holds (the config-3 gate)
+    from slr_torch.synth.render import _fringe_series
+    scan_o = render_scan(cam_d, proj_d, depth, cfg, noise_std=0.005,
+                         generator=torch.Generator(device="cuda").manual_seed(0), **OPTICS)
+    q_sharp, q_optics = (decode_stack(f, cfg, dec) for f in (frames, scan_o.frames))
+    both = q_sharp.mask & q_optics.mask & scan_o.mask_true
+    ratio = float((q_optics.quality[both] / q_sharp.quality[both]).median())
+    expect = _fringe_series(cfg.fringe_pitch, OPTICS["proj_gamma"],
+                            OPTICS["defocus_sigma"])[1][0][1] / 0.5
+    check(abs(ratio - expect) < 0.05 * expect,
+          f"defocus/gamma: modulation ratio {ratio}, closed form {expect}")
+    launches += k1_path("k1_defocus_gamma", scan_o.frames, cam_d, proj_d, cfg, scan_o,
+                        RMS_GATE_MM, optics=OPTICS, modulation_ratio=ratio,
+                        modulation_ratio_closed_form=expect,
+                        valid_vs_sharp=float(q_optics.mask.sum() / q_sharp.mask.sum()))
+
     # phase 13: decode_only on a posed camera (camera 2 of a two-camera rig:
     # R != I, t != 0), no projector model; uint8 row+column frames
     cam2 = make_camera(cam.fx, cam.fy, cam.cx, cam.cy, R=proj.R, t=proj.t,
@@ -2043,6 +2305,28 @@ def main():
         refused = str(e)
     check(refused is not None, f"K3 took a {TILED_W}x{TILED_H} map past one wave")
     voting[f"k3_{TILED_W}x{TILED_H}_refused"] = refused
+    # a map within the reference's budget whose tiles exceed one wave:
+    # quality_unwrap takes K4, the plain sweep's bits; K3 still refuses it
+    H, W = K3_OVERFLOW_MAP
+    _, Phi_v, q_v, mask_v, _ = phase_scene(H, W, H + W, H * W // 500, partial=True)
+    check(not us.takes_tiled(H, W) and us.resident_tiles(H, W, k3_ow, k3_oh) > k3_wave,
+          f"{W}x{H}: not a map past one wave within the budget")
+    got, n = counts_of(lambda: us.quality_unwrap(Phi_v, q_v, mask_v, 8))
+    plain = pu.spatial_quality_unwrap(Phi_v, q_v, mask_v, 8)
+    same = torch.equal(got.view(torch.int32), plain.view(torch.int32))
+    check(same and n["k3"] == 0 and n["k4"] == 1,
+          f"quality_unwrap {W}x{H}: launches {n}, bit-equal {same}")
+    errs["k4"].append(float((got - plain).abs().max()))
+    try:
+        us.launch_vote_resident(Phi_v, mask_v, 8)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None, f"K3 took the {W}x{H} map")
+    voting[f"quality_unwrap_{W}x{H}"] = dict(
+        route="K4", launches=n, bit_equal=same, k3_refused=refused,
+        tiles=us.resident_tiles(H, W, k3_ow, k3_oh), wave_tiles=k3_wave,
+        moved=int((plain != Phi_v).sum()))
     emit("k3_k4_voting", k3_halo=k3_halo, **voting)
 
     # phase 16: K5 against its plain pass: the light repair (8 launches),
@@ -2331,6 +2615,9 @@ def main():
     k7_entry, k6_entry = two_camera_phases(dev, counts_of, card,
                                            ptxas_summary(built["crossing"][1]))
 
+    # phases 31-33: calibration (config 2)
+    calibration_phases(dev, counts_of, card)
+
     def bound(nbytes=0, instr=0):
         """The least time (ms) for ``nbytes`` of HBM traffic and ``instr``
         fp32 instructions, and which of the two binds."""
@@ -2444,6 +2731,8 @@ def main():
         "device_ms_iters8": device_ms["k4_8"],
         "device_ms_iters17": device_ms["k4_17"],
         "registers": [v for k, v in ptxas_of("unwrap").items() if "vote_tiled" in k],
+        "overflow_map": {k: voting[f"quality_unwrap_{K3_OVERFLOW_MAP[1]}x{K3_OVERFLOW_MAP[0]}"][k]
+                         for k in ("route", "launches", "bit_equal", "tiles", "wave_tiles")},
     }, {
         "name": "wavefront_pass",
         "route": "cuda",

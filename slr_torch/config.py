@@ -1,5 +1,5 @@
-"""Typed configuration for the port: the scan and registration slices of
-``slr.config``.
+"""Typed configuration for the port: the scan, calibration and registration
+slices of ``slr.config``.
 
 Restated field for field rather than imported, because importing
 anything under ``slr`` imports JAX, which the GPU machine does not have.
@@ -89,6 +89,21 @@ class DecodeConfig:
     modulation_threshold: float = 0.05  # tau_mod: phase modulation B gate
     spatial_unwrap_iters: int = 8
     spatial_unwrap_mode: str = "voting"
+
+
+@dataclass(frozen=True)
+class CalibConfig:
+    """Zhang calibration solver knobs."""
+
+    board_cols: int = 9           # inner corners per row
+    board_rows: int = 6
+    square_size: float = 20.0     # board square edge, mm
+    num_dist_coeffs: int = 5      # k1 k2 p1 p2 k3
+    lm_iters: int = 50
+    lm_lambda_init: float = 1e-3
+    lm_lambda_up: float = 10.0
+    lm_lambda_down: float = 0.1
+    lm_tol: float = 1e-10
 
 
 @dataclass(frozen=True)

@@ -126,7 +126,7 @@ def library() -> ctypes.CDLL:
     """``csrc/crossing.cu`` (K6 and K7), built and typed on first use."""
     lib = load_library("crossing")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.slr_crossing_bin_sum.argtypes = [ptr] * 3 + [i32] * 4 + [ptr, i32, ptr]
+    lib.slr_crossing_bin_sum.argtypes = [ptr] * 3 + [i32] * 6 + [ptr, i32, ptr]
     lib.slr_crossing_interp_fused.argtypes = ([ptr] * 3 + [i32] * 6 + [ptr] * 2
                                               + [f32] * 2 + [ptr] * 2 + [i32, ptr])
     lib.slr_crossing_launch_shape.argtypes = [i32] * 7 + [ptr] * 2
@@ -189,21 +189,39 @@ def launch_shape(kernel: str, R: int, U: int, n: int, num_bins: int,
     return grid.value, per_sm.value
 
 
+@functools.cache
+def bin_sum_chunk(num_bins: int) -> int:
+    """The most pairs a row that one K6 block holds at ``num_bins`` bins
+    (one row buffer): a wider row runs in chunks of this many."""
+    lib = library()
+    lo, hi = 1, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if lib.slr_bin_sum_smem(mid, num_bins) <= SMEM_MAX else (lo, mid - 1)
+    return lo
+
+
 def launch_bin_sum(code_lo, code_hi, payload, num_bins: int):
-    """K6, one launch. Returns (R, N, num_bins) float32."""
+    """K6: one launch for a row one block holds, else one launch per chunk
+    of ``bin_sum_chunk(num_bins)`` pairs, in order, each continuing the
+    previous chunk's sums (the bits of one launch). Returns (R, N,
+    num_bins) float32."""
     R, U = code_lo.shape
     N = payload.shape[1]
     f32 = torch.float32
     _check("K6", [(code_lo, (R, U), f32), (code_hi, (R, U), f32),
                   (payload, (R, N, U), f32)])
     lib = library()
-    if lib.slr_bin_sum_smem(U, num_bins) > SMEM_MAX:
-        raise ValueError(f"K6: {U} pairs a row exceed one block's shared memory")
+    chunk = U if lib.slr_bin_sum_smem(U, num_bins) <= SMEM_MAX else bin_sum_chunk(num_bins)
     out = torch.empty((R, N, num_bins), device=payload.device)
-    _raise_on(lib, "K6 crossing_bin_sum", lib.slr_crossing_bin_sum(
-        code_lo.data_ptr(), code_hi.data_ptr(), payload.data_ptr(), R, U, N,
-        num_bins, out.data_ptr(), payload.device.index, _stream(payload)))
-    crossing_bin_sum.launches += 1
+    ptrs = (code_lo.data_ptr(), code_hi.data_ptr(), payload.data_ptr())
+    for u0 in range(0, U, chunk):
+        # chunk u0: the same rows, read in place from pair u0 on (4 B a pair)
+        lo, hi, pay = (p + 4 * u0 for p in ptrs)
+        _raise_on(lib, "K6 crossing_bin_sum", lib.slr_crossing_bin_sum(
+            lo, hi, pay, R, min(chunk, U - u0), U, N, num_bins, int(u0 > 0),
+            out.data_ptr(), payload.device.index, _stream(payload)))
+        crossing_bin_sum.launches += 1
     return out
 
 
@@ -213,8 +231,9 @@ def crossing_bin_sum(code_lo, code_hi, payload, num_bins: int, utile=None, rt=No
     for the integer bins k in [0, num_bins). Invalid pairs must arrive with
     code_lo == code_hi (they never fire) and zero payload. code_lo/hi
     (R, U) float32, payload (R, N, U) float32 -> (R, N, num_bins) float32.
-    A CPU tensor takes the plain version, a CUDA tensor launches K6. The
-    tiling knobs are ignored."""
+    A CPU tensor takes the plain version, a CUDA tensor launches K6 (in
+    chunks of pairs, in order, where a row exceeds one block). The tiling
+    knobs are ignored."""
     if payload.device.type == "cpu":
         return crossing_bin_sum_reference(code_lo, code_hi, payload, num_bins)
     return launch_bin_sum(code_lo, code_hi, payload, num_bins)

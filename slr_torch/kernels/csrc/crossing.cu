@@ -59,12 +59,20 @@
 //   and hi (one block an SM at 5 MP) took 0.1015 ms of device time on the
 //   5 MP pass on an H100, against 0.0635 ms for this route (PERF.md), and
 //   was dropped.
+// - A row too wide for one block's shared memory (about 28,000 pairs at
+//   1,024 bins) takes K6 over chunks of its pairs, in order, one launch a
+//   chunk of its own build (bin_sum_kernel<true>), each reading its chunk
+//   in place (rows ld floats apart). Every chunk after the first starts
+//   each bin's sum from the previous chunk's output, so a bin is still one
+//   ascending chain of __fadd_rn: the bits of one launch over the row.
+//   (Adding the chunks' totals afterwards would round differently.)
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
 #define SLR_XING_THREADS 256    // K6 block
+#define SLR_XING_K6_BLOCKS_PER_SM 4  // K6 at <= 64 registers: 4 blocks an SM
 #define SLR_XING_K7_THREADS 512 // K7 block
 #define SLR_XING_NGROUP 8       // K6 payload channels summed per walk of a range
 #define SLR_XING_MAX_C 8        // K7 channels
@@ -259,27 +267,35 @@ __host__ __device__ inline Layout k6_layout(int U, int K, int nbuf) {
 
 // ------------------------------------------------------------ K6
 
-// K6's staged arrays of row r in buffer `buf`: 0 lo, 1 hi.
+// K6's staged arrays of row r in buffer `buf`: 0 lo, 1 hi; U pairs of a
+// row, rows ld floats apart.
 struct K6Rows {
   const float *lo, *hi;
-  int U;
+  int U, ld;
   __device__ Row operator()(int i, int r, char* buf) const {
     const size_t bytes = 4 * (size_t)U;
-    return {(const char*)((i == 0 ? lo : hi) + (size_t)r * U), buf + i * region(bytes), bytes};
+    return {(const char*)((i == 0 ? lo : hi) + (size_t)r * ld), buf + i * region(bytes), bytes};
   }
 };
 
-__global__ void __launch_bounds__(SLR_XING_THREADS)
+// CHUNKED: a chunk of U pairs of rows ld floats apart, each bin's sum
+// started from out's value where accumulate is set; else whole contiguous
+// rows (ld == U) summed from 0, the one-launch build, whose registers the
+// chunking leaves as they were (64, no spills).
+template <bool CHUNKED>
+__global__ void __launch_bounds__(SLR_XING_THREADS, SLR_XING_K6_BLOCKS_PER_SM)
 bin_sum_kernel(const float* __restrict__ lo_g, const float* __restrict__ hi_g,
-               const float* __restrict__ pay, int R, int U, int N, int K, int nbuf,
-               float* __restrict__ out) {
+               const float* __restrict__ pay, int R, int U, int ld_arg, int N, int K, int nbuf,
+               int accumulate_arg, float* __restrict__ out) {
+  const int ld = CHUNKED ? ld_arg : U;
+  const bool accumulate = CHUNKED && accumulate_arg;
   extern __shared__ __align__(16) char sm[];
   const Layout L = k6_layout(U, K, nbuf);
   uint64_t* bars = (uint64_t*)sm;
   int* first = (int*)(sm + L.first);
   int* last = (int*)(sm + L.last);
   block_start(sm, first, last, K);
-  const K6Rows rows{lo_g, hi_g, U};
+  const K6Rows rows{lo_g, hi_g, U, ld};
   const int na = 2;
   char* const buf0 = sm + L.buf;
   const size_t stride = L.stride;
@@ -311,9 +327,9 @@ bin_sum_kernel(const float* __restrict__ lo_g, const float* __restrict__ hi_g,
         float acc[SLR_XING_NGROUP];
 #pragma unroll
         for (int j = 0; j < SLR_XING_NGROUP; ++j) {
-          acc[j] = 0.f;
           const int n = n0 + j < N ? n0 + j : N - 1;
-          p[j] = pay + ((size_t)r * N + n) * U;
+          acc[j] = accumulate ? o[(size_t)n * K + k] : 0.f;
+          p[j] = pay + ((size_t)r * N + n) * ld;
         }
         for (int u = u0; u <= u1; ++u) {
           if (lo[u] <= kf && kf < hi[u]) {
@@ -480,7 +496,35 @@ struct Plan {
 };
 
 // The dynamic shared memory each kernel build was granted so far, per device.
-size_t k6_granted[SLR_XING_MAX_DEVICES], k7_granted[2][SLR_XING_MAX_DEVICES];
+size_t k6_granted[2][SLR_XING_MAX_DEVICES], k7_granted[2][SLR_XING_MAX_DEVICES];
+
+// Blocks an SM of the plans asked so far, by kernel build, device, block and
+// shared memory: asked of the runtime once, not at every launch (the query
+// cost a K6 build with a stack frame measurable host time a launch;
+// PERF.md).
+struct Occupancy {
+  const void* fn;
+  int device, threads;
+  size_t smem;
+  int per_sm;
+};
+Occupancy occupancy_seen[64];
+int n_occupancy_seen = 0;
+
+cudaError_t blocks_per_sm(Plan* p, int device) {
+  for (int i = 0; i < n_occupancy_seen; ++i) {
+    const Occupancy& o = occupancy_seen[i];
+    if (o.fn == p->fn && o.device == device && o.threads == p->threads && o.smem == p->smem) {
+      p->per_sm = o.per_sm;
+      return cudaSuccess;
+    }
+  }
+  cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p->per_sm, p->fn, p->threads, p->smem);
+  if (err == cudaSuccess && n_occupancy_seen < 64)
+    occupancy_seen[n_occupancy_seen++] = {p->fn, device, p->threads, p->smem, p->per_sm};
+  return err;
+}
 
 // Grid of a persistent launch: the blocks that fit on the card at once, at
 // most R. Sets the kernel's shared-memory attribute only when a size above
@@ -495,7 +539,7 @@ cudaError_t persistent_grid(Plan* p, size_t* granted, int device, int R) {
     if (err != cudaSuccess) return err;
     granted[device] = p->smem;
   }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p->per_sm, p->fn, p->threads, p->smem);
+  err = blocks_per_sm(p, device);
   if (err != cudaSuccess) return err;
   if (p->per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long g = (long long)p->per_sm * sm_count(device);
@@ -510,12 +554,12 @@ int k7_buffers(int U, int C, int K) {
 
 int k6_buffers(int U, int K) { return k6_layout(U, K, 2).total <= SLR_XING_SMEM_MAX ? 2 : 1; }
 
-cudaError_t k6_plan(int R, int U, int K, int device, Plan* p) {
-  p->fn = (const void*)bin_sum_kernel;
+cudaError_t k6_plan(int R, int U, int K, bool chunked, int device, Plan* p) {
+  p->fn = chunked ? (const void*)bin_sum_kernel<true> : (const void*)bin_sum_kernel<false>;
   p->threads = SLR_XING_THREADS;
   p->nbuf = k6_buffers(U, K);
   p->smem = k6_layout(U, K, p->nbuf).total;
-  return persistent_grid(p, k6_granted, device, R);
+  return persistent_grid(p, k6_granted[chunked ? 1 : 0], device, R);
 }
 
 // the merge's layout (u, y interpolated; quality, white carried: T = 6
@@ -560,7 +604,7 @@ int slr_crossing_launch_shape(int kernel, int R, int U, int n, int K, int interp
   Plan p;
   cudaError_t err;
   if (kernel == 6)
-    err = k6_plan(R, U, K, device, &p);
+    err = k6_plan(R, U, K, false, device, &p);
   else if (kernel == 7 && U >= 2 && n >= 1 && n <= SLR_XING_MAX_C)
     err = k7_plan(R, U, n, K, interp_mask, device, &p);
   else
@@ -571,18 +615,28 @@ int slr_crossing_launch_shape(int kernel, int R, int U, int n, int K, int interp
   return (int)cudaSuccess;
 }
 
-// K6: lo, hi (R, U) and payload (R, N, U), float32, contiguous -> out
-// (R, N, K). Launches on `stream` of `device` and returns the launch's
-// error code (0: launched); neither synchronises nor allocates.
+// K6: lo, hi (R, U) and payload (R, N, U), float32, rows ld >= U floats
+// apart (ld == U: contiguous; ld > U: a chunk of U pairs of wider rows) ->
+// out (R, N, K), contiguous. accumulate: each bin's sum starts from out's
+// value (the previous chunk's sum, so a row's chunks in order make the one
+// ascending chain of float adds that one launch over the row makes), else
+// from 0. Launches on `stream` of `device` and returns the launch's error
+// code (0: launched); neither synchronises nor allocates.
 int slr_crossing_bin_sum(const float* lo, const float* hi, const float* payload, int R, int U,
-                         int N, int K, float* out, int device, cudaStream_t stream) {
-  if (R < 0 || U < 1 || N < 1 || K < 0) return (int)cudaErrorInvalidValue;
+                         int ld, int N, int K, int accumulate, float* out, int device,
+                         cudaStream_t stream) {
+  if (R < 0 || U < 1 || ld < U || N < 1 || K < 0) return (int)cudaErrorInvalidValue;
   if (R == 0 || K == 0) return (int)cudaSuccess;
+  const bool chunked = ld != U || accumulate;
   Plan p;
-  cudaError_t err = k6_plan(R, U, K, device, &p);
+  cudaError_t err = k6_plan(R, U, K, chunked, device, &p);
   if (err != cudaSuccess) return (int)err;
-  bin_sum_kernel<<<p.grid, p.threads, p.smem, stream>>>(lo, hi, payload, R, U, N, K, p.nbuf,
-                                                         out);
+  if (chunked)
+    bin_sum_kernel<true><<<p.grid, p.threads, p.smem, stream>>>(lo, hi, payload, R, U, ld, N, K,
+                                                                p.nbuf, accumulate, out);
+  else
+    bin_sum_kernel<false><<<p.grid, p.threads, p.smem, stream>>>(lo, hi, payload, R, U, ld, N, K,
+                                                                 p.nbuf, accumulate, out);
   return (int)cudaGetLastError();
 }
 

@@ -22,7 +22,10 @@ Port of ``slr/kernels/unwrap_scan.py``. Both kernels run ``iters`` sweeps of
 
 ``quality_unwrap`` keeps the reference's dispatch, so a shape takes the same
 kernel as there: K4 when the padded map 3 * round_up(H, 8) *
-round_up(W, 128) * 4 B exceeds 12 MiB, else K3. Each wrapper takes the
+round_up(W, 128) * 4 B exceeds 12 MiB, else K3; and K4 also for a map
+within the budget whose tiles exceed one wave of K3's blocks on this card
+(a 32 x 32768 map: 1,130 tiles on an H100, which holds 1,056). Both return
+the plain sweep's bits, so the route changes no result. Each wrapper takes the
 plain version for a CPU tensor and launches for a CUDA tensor, or raises.
 ``quality`` is unused by the vote; the kernels do not read it.
 """
@@ -172,14 +175,22 @@ def quality_unwrap_tiled(Phi, quality, mask, iters: int = 8, tile_h: int = 64,
     return Phi
 
 
+def takes_resident(H: int, W: int, layout: tuple[int, int, int, int]) -> bool:
+    """``quality_unwrap``'s route on a card of K3 ``layout``
+    (``resident_layout``): K3 for a map within the reference's budget whose
+    tiles one wave holds, else K4."""
+    wave, _, ow, oh = layout
+    return not takes_tiled(H, W) and resident_tiles(H, W, ow, oh) <= wave
+
+
 def quality_unwrap(Phi, quality, mask, iters: int = 8):
     """``spatial_quality_unwrap`` on the card: K3 for maps within the
-    reference's budget, K4 above it (a CPU tensor: the plain version).
-    ``.launches`` counts K3's launches, ``quality_unwrap_tiled.launches``
-    K4's."""
+    reference's budget whose tiles one wave holds, K4 for the others (a
+    CPU tensor: the plain version). ``.launches`` counts K3's launches,
+    ``quality_unwrap_tiled.launches`` K4's."""
     if Phi.device.type == "cpu":
         return spatial_quality_unwrap(Phi, quality, mask, iters)
-    if takes_tiled(*Phi.shape):
+    if not takes_resident(*Phi.shape, resident_layout(Phi.device.index)):
         return quality_unwrap_tiled(Phi, quality, mask, iters=iters)
     Phi, mask = _prepare(Phi, mask)
     if iters == 0:

@@ -4,10 +4,20 @@ For each camera pixel: cast the camera ray to the scene depth, project the
 3D point into the projector, sample each projected pattern there, apply
 ambient light and optional sensor noise. Exact ground truth rides along.
 
-Ported: both codings, cast shadows (a projector-space scatter-min depth
-map: a point is lit only if nothing nearer the projector claims its
-projector pixel, within ``shadow_bias``), an optional albedo map and the
-analytic phase fringes. Defocus and projector gamma are ROADMAP slice 10.
+Optics model:
+
+- **cast shadows**: a projector-space scatter-min depth map; a point is lit
+  only if nothing nearer the projector claims its projector pixel, within
+  ``shadow_bias``. Shadowed pixels receive ambient light only.
+- **defocus blur**: the projected patterns are convolved with a Gaussian
+  PSF of ``defocus_sigma`` projector px; for the analytically evaluated
+  sinusoidal fringes this is the exact closed form, harmonic m attenuated
+  by exp(-2 (pi m sigma / pitch)^2) with its phase kept.
+- **projector gamma**: ``proj_gamma`` raises the pattern luminance to a
+  power before the blur; the fringes' Fourier series is that of the
+  gamma'd profile (computed with numpy on the host, as the reference
+  does), so N-step decoding sees the harmonics a real DLP chain makes.
+
 Noise comes from a ``torch.Generator``; its bits differ from
 ``jax.random``'s.
 """
@@ -17,8 +27,10 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from slr_torch.calib.corners import gaussian_blur
 from slr_torch.codec.patterns import generate_pattern_stack
 from slr_torch.config import PatternConfig
 from slr_torch.geom.camera import Camera, make_camera, pixel_to_ray, project
@@ -115,6 +127,23 @@ def _bilinear_sample(img, x, y):
             + v10 * (1 - fx) * fy + v11 * fx * fy)
 
 
+def _fringe_series(pitch: float, proj_gamma: float, defocus_sigma: float,
+                   n: int = 256, harmonics: int = 8):
+    """The fringe profile (0.5 + 0.5 cos)^gamma as a Fourier series: (mean,
+    [(m, amplitude, phase)] of the harmonics above 1e-7), each amplitude
+    attenuated by the Gaussian PSF's exp(-2 (pi m sigma / pitch)^2);
+    gamma 1, sigma 0 is 0.5 + 0.5 cos. numpy on the host, static per call."""
+    prof = (0.5 + 0.5 * np.cos(2 * np.pi * np.arange(n) / n)) ** proj_gamma
+    coef = np.fft.rfft(prof) / n
+    m = np.arange(1, harmonics + 1)
+    amps = 2.0 * np.abs(coef[1:harmonics + 1])
+    if defocus_sigma > 0.0:
+        amps = amps * np.exp(-2.0 * (np.pi * m * defocus_sigma / pitch) ** 2)
+    phis = np.angle(coef[1:harmonics + 1])
+    return float(coef[0].real), [(int(i), float(a), float(p))
+                                 for i, a, p in zip(m, amps, phis) if a > 1e-7]
+
+
 def _shadow_cells(xp, yp, proj_w: int, proj_h: int):
     """Flat index of each point's nearest projector pixel."""
     xi = torch.clamp(torch.round(xp).to(torch.int64), 0, proj_w - 1)
@@ -157,9 +186,8 @@ def render_scan(
 ) -> RenderedScan:
     """Render the (F, H, W) stack seen by ``cam`` of ``depth`` lit by ``proj``.
     ``cast_shadows``: points that something nearer the projector hides
-    get ambient light only."""
-    if defocus_sigma != 0.0 or proj_gamma != 1.0:
-        raise NotImplementedError("defocus and projector gamma are ROADMAP slice 10")
+    get ambient light only. ``defocus_sigma`` (projector px) and
+    ``proj_gamma``: the projector's optics (module docstring)."""
     H, W = depth.shape
     dev = depth.device
     v = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
@@ -193,13 +221,22 @@ def render_scan(
                    if f[2]]
     patterns = generate_pattern_stack(cfg, device=dev)
     n_sampled = patterns.shape[0] - sum(f[2] for f in fringes)
-    segs = [_bilinear_sample(patterns[:n_sampled], xp, yp)]
+    patterns = patterns[:n_sampled]
+    if proj_gamma != 1.0:
+        patterns = torch.clamp(patterns, 0.0, 1.0) ** proj_gamma
+    if defocus_sigma > 0.0:
+        patterns = gaussian_blur(patterns, defocus_sigma)
+    segs = [_bilinear_sample(patterns, xp, yp)]
 
     def analytic_fringes(coord, pitch: float, steps: int):
         k = torch.arange(steps, dtype=torch.float32, device=dev)
         ph = (2.0 * math.pi * coord[None] / pitch
               - 2.0 * math.pi * k[:, None, None] / steps)
-        return 0.5 + 0.5 * torch.cos(ph)
+        mean, harmonics = _fringe_series(pitch, proj_gamma, defocus_sigma)
+        out = torch.full_like(ph, mean)
+        for m, amp, phi in harmonics:
+            out = out + amp * torch.cos(m * ph + phi)
+        return out
 
     segs += [analytic_fringes(*f) for f in fringes]
     proj_light = torch.where(illuminated[None], torch.cat(segs, dim=0), 0.0)

@@ -2,7 +2,9 @@
 and K5, the band search K8, and the crossing kernels K6 and K7 of the
 two-camera merge) against their plain PyTorch versions, on the card; and
 config 5's voxel merge, whose ordered segment sum must give the same bits
-in every call there.
+in every call there; and calibration (config 2) on the card: the LM loop
+with no host synchronisation, the solves and the corner detector against
+the CPU.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it also runs on a machine without it:
@@ -18,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import box_exposures, corner_fronts, cu_constant, hdr_best_exposure, k2_box
+from chip_smoke import (box_exposures, corner_fronts, cu_constant, hdr_best_exposure, k2_box,
+                        long_range_pairs)
 from slr_torch.codec import unwrap as pu
 from slr_torch.config import DecodeConfig, PatternConfig
 from slr_torch.geom.camera import make_camera
@@ -496,6 +499,24 @@ def test_quality_unwrap_dispatch(cuda):
         assert torch.equal(out, pu.spatial_quality_unwrap(Phi_n, q, mask, 4))
 
 
+def test_quality_unwrap_past_one_wave_takes_k4(cuda):
+    """A 32 x 32768 map is within the reference's 12 MiB budget, but its
+    tiles exceed one wave of K3's blocks: ``quality_unwrap`` takes K4 and
+    returns the plain sweep's bits, and K3 itself still refuses the map."""
+    H, W = 32, 32768
+    _, Phi_n, q, mask, _ = _phase_map(cuda, H, W, 9, partial=True)
+    wave, _, ow, oh = us.resident_layout(cuda.index or 0)
+    assert not us.takes_tiled(H, W) and us.resident_tiles(H, W, ow, oh) > wave
+    us.quality_unwrap.launches = us.quality_unwrap_tiled.launches = 0
+    out = us.quality_unwrap(Phi_n, q, mask, iters=8)
+    torch.cuda.synchronize()
+    assert (us.quality_unwrap.launches, us.quality_unwrap_tiled.launches) == (0, 1)
+    plain = pu.spatial_quality_unwrap(Phi_n, q, mask, 8)
+    assert torch.equal(out.view(torch.int32), plain.view(torch.int32))
+    with pytest.raises(ValueError, match=f"at most {wave} tiles"):
+        us.launch_vote_resident(Phi_n, mask, 8)
+
+
 @pytest.mark.parametrize("H,W", [(37, 53), (256, 320), (215, 300)])
 def test_wavefront_pass_matches_plain_version(cuda, H, W):
     rng = np.random.default_rng(H)
@@ -893,7 +914,8 @@ def test_bin_sum_kernel_on_wide_spans(cuda):
 
 def test_crossing_kernels_at_the_shared_memory_limit(cuda):
     """The widest rows a block holds (one row buffer, no prefetch) launch and
-    equal their plain versions; one code wider is refused."""
+    equal their plain versions; one code wider, K7 refuses, and K6 takes the
+    row in two chunks of pairs, with the same bits."""
     lib = kx.library()
     U = 2048
     while lib.slr_interp_fused_smem(U + 1, 4, U + 1) <= kx.SMEM_MAX:
@@ -910,14 +932,33 @@ def test_crossing_kernels_at_the_shared_memory_limit(cuda):
     Up = 2048
     while lib.slr_bin_sum_smem(Up + 1, 1024) <= kx.SMEM_MAX:
         Up += 1
-    lo, hi, pay, _ = kx.crossing_pairs(*_crossing_case(cuda, 5, Up + 1, 6, 0.3)[:3], INTERP)
-    out = kx.launch_bin_sum(lo, hi, pay, 1024)
-    ref = kx.crossing_bin_sum_reference(lo, hi, pay, 1024)
+    assert kx.bin_sum_chunk(1024) == Up
+    for U6, launches in ((Up + 1, 1), (Up + 2, 2)):
+        lo, hi, pay, _ = kx.crossing_pairs(*_crossing_case(cuda, 5, U6, 6, 0.3)[:3], INTERP)
+        n = kx.crossing_bin_sum.launches
+        out = kx.launch_bin_sum(lo, hi, pay, 1024)
+        ref = kx.crossing_bin_sum_reference(lo, hi, pay, 1024)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+        assert kx.crossing_bin_sum.launches - n == launches
+
+
+def test_bin_sum_kernel_in_chunks_of_pairs(cuda):
+    """Rows of 40,000 pairs exceed one K6 block at 1,024 bins: K6 runs over
+    chunks of pairs in order, each continuing the previous chunk's sums, and
+    equals the plain version bit for bit (one ascending add chain a bin)."""
+    R, U, N, K = 4, 40_000, 7, 1024
+    lo, hi, pay = long_range_pairs(cuda, R, U, N, K)
+    chunk = kx.bin_sum_chunk(K)
+    assert chunk < U
+    n = kx.crossing_bin_sum.launches
+    out = kx.crossing_bin_sum(lo, hi, pay, K)
+    ref = kx.crossing_bin_sum_reference(lo, hi, pay, K)
     torch.cuda.synchronize()
+    assert kx.crossing_bin_sum.launches - n == -(-U // chunk)
     assert torch.equal(out, ref)
-    with pytest.raises(ValueError, match="shared memory"):
-        kx.launch_bin_sum(*kx.crossing_pairs(*_crossing_case(cuda, 2, Up + 2, 6)[:3],
-                                             INTERP)[:3], 1024)
+    fires = kx.crossing_bin_sum_reference(lo, hi, torch.ones_like(pay[:, :1]), K)
+    assert float(fires.max()) >= 20
 
 
 @pytest.mark.parametrize("C,interp,gates,U", [
@@ -1005,6 +1046,107 @@ def test_tiled_route_launches_k6(cuda, monkeypatch):
     b = reconstruct_two_camera(f1, f2, c1, c2, cfg)
     assert torch.equal(a.mask, b.mask)
     assert float(torch.linalg.norm(a.points - b.points, dim=-1)[a.mask].max()) <= 1e-3
+
+
+def test_lm_solve_reads_nothing_on_the_host(cuda):
+    """The masked LM loop: every step on the card, no host synchronisation
+    in the whole solve (torch's sync debug mode raises on one)."""
+    from slr_torch.calib import lm_solve
+
+    t = torch.linspace(0, 2, 40, device=cuda)
+    y = 2.0 * torch.exp(-1.3 * t) + 0.5
+
+    def residual(x, t, y):
+        return x[0] * torch.exp(x[1] * t) + x[2] - y
+
+    x0 = torch.tensor([1.0, -0.5, 0.0], device=cuda)
+    residual(x0, t, y)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x, cost = lm_solve(residual, x0, args=(t, y), iters=30, tol=1e-6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(cost) < 1e-8 and abs(float(x[1]) + 1.3) < 1e-3
+
+
+def test_lm_solve_graph_replay_equals_eager_loop(cuda, monkeypatch):
+    """On the card the LM step is replayed from a CUDA graph: the same bits
+    and step count as the eager masked loop on the same inputs (chip_smoke.py's
+    24-view stereo case, 168 parameters)."""
+    from chip_smoke import calib_v24_case
+    from slr_torch import calib as cal
+    from slr_torch.calib import lm
+
+    obj, cam_uv, proj_uv, _ = calib_v24_case(cuda)
+    rc, rp = cal.calibrate_camera(obj, cam_uv), cal.calibrate_camera(obj, proj_uv)
+    replayed = cal.stereo_calibrate(obj, cam_uv, proj_uv, rc, rp)
+    steps = int(lm.lm_solve.steps)
+
+    def eager(step, state, iters):
+        for _ in range(iters):
+            state = step(state)
+        return state
+
+    monkeypatch.setattr(lm, "_replayed", eager)
+    loop = cal.stereo_calibrate(obj, cam_uv, proj_uv, rc, rp)
+    assert int(lm.lm_solve.steps) == steps == 80
+    assert torch.equal(replayed.rvecs, loop.rvecs) and torch.equal(replayed.rms, loop.rms)
+    assert all(torch.equal(a, b) for a, b in zip(replayed.proj, loop.proj))
+
+
+def test_calibration_on_card_matches_cpu(cuda):
+    """chip_smoke.py's 24-view case on the card against the CPU: intrinsics
+    within 1e-4 relative, RMS within 1e-4 px, the relative pose within
+    1e-3 (float32 in other summation orders); two calls give the same
+    bits."""
+    from chip_smoke import calib_v24_case, same_bits
+    from slr_torch import calib as cal
+
+    obj, cam_uv, proj_uv, _ = calib_v24_case(cuda)
+    runs = {}
+    for where in ("cpu", cuda):
+        o, c, p = (x.to(where) for x in (obj, cam_uv, proj_uv))
+        rc, rp = cal.calibrate_camera(o, c), cal.calibrate_camera(o, p)
+        runs[str(where)] = (rc, cal.stereo_calibrate(o, c, p, rc, rp))
+    (rc, st), (rc_cpu, st_cpu) = runs[str(cuda)], runs["cpu"]
+    for a, b in ((rc.camera, rc_cpu.camera), (st.cam, st_cpu.cam), (st.proj, st_cpu.proj)):
+        for f in ("fx", "fy", "cx", "cy"):
+            assert abs(float(getattr(a, f)) / float(getattr(b, f)) - 1) < 1e-4
+    assert abs(float(st.rms) - float(st_cpu.rms)) < 1e-4
+    assert float((st.proj.R.cpu() - st_cpu.proj.R).abs().max()) < 1e-3
+    assert float((st.proj.t.cpu() - st_cpu.proj.t).abs().max()) < 1e-1
+    assert same_bits(rc, cal.calibrate_camera(obj, cam_uv))
+
+
+def test_detect_chessboard_on_card_matches_cpu(cuda):
+    """A rendered 640x512 board: the card's corners within 0.01 px of the
+    CPU's, by the device ordering, the same bits in two calls; projector
+    corners likewise within 0.01 projector px."""
+    from slr_torch import calib as cal
+    from slr_torch.calib import corners
+    from slr_torch.codec import decode_stack
+    from slr_torch.synth.board import board_poses, render_board_view
+
+    cam, proj = default_rig(cam_w=640, cam_h=512, proj_w=512, proj_h=384)
+    cfg = PatternConfig(proj_width=512, proj_height=384, gray_bits=6, row_gray_bits=5,
+                        phase_steps=4, row_phase_steps=4)
+    R, t = board_poses(1, 9, 6, 20.0, seed=2)[0]
+    bv = render_board_view(cam, proj, cfg, R, t, 9, 6, 20.0, 512, 640, noise_std=0.003,
+                           generator=torch.Generator().manual_seed(0))
+    n = corners.detect_chessboard.device_views
+    got = [corners.detect_chessboard(bv.white_image.to(cuda), 9, 6)[0] for _ in range(2)]
+    want = corners.detect_chessboard(bv.white_image, 9, 6)[0]
+    assert corners.detect_chessboard.device_views == n + 3
+    assert torch.equal(got[0], got[1])
+    assert float((got[0].cpu() - want).abs().max()) < 0.01
+    outs = []
+    for where, c in ((cuda, got[0]), ("cpu", want)):
+        res = decode_stack(bv.scan.frames.to(where), cfg, DecodeConfig())
+        outs.append(cal.projector_corners_from_decode(res.x_p, res.y_p, res.mask,
+                                                      res.quality, c))
+    assert bool(outs[0][1].all()) and bool(outs[1][1].all())
+    assert float((outs[0][0].cpu() - outs[1][0]).abs().max()) < 0.01
 
 
 @pytest.mark.parametrize("capacity", [1 << 16, 3000])

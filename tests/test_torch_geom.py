@@ -60,7 +60,7 @@ def _camera_pair(rng, with_pose=True):
 
 # ---------------------------------------------------------------- config
 
-@pytest.mark.parametrize("name", ["PatternConfig", "DecodeConfig",
+@pytest.mark.parametrize("name", ["PatternConfig", "DecodeConfig", "CalibConfig",
                                   "ReconstructConfig", "RegistrationConfig"])
 def test_config_fields_match_reference(name):
     a, b = getattr(jcfg, name), getattr(tcfg, name)
@@ -120,7 +120,11 @@ def test_port_imports_neither_jax_nor_slr():
         "slr_torch.pipeline.registerfuse, slr_torch.registration.filters, "
         "slr_torch.dist, slr_torch.dist.ba, slr_torch.pipeline.tsdf, "
         "slr_torch.pipeline.meshing, slr_torch.geom.triangulate, "
-        "slr_torch.synth.scene, slr_torch.kernels.crossing, slr_torch.pipeline.twocam\n"
+        "slr_torch.synth.scene, slr_torch.kernels.crossing, slr_torch.pipeline.twocam, "
+        "slr_torch.calib, slr_torch.calib.board, slr_torch.calib.homography, "
+        "slr_torch.calib.lm, slr_torch.calib.zhang, slr_torch.calib.stereo, "
+        "slr_torch.calib.corners, slr_torch.calib.proj_corners, "
+        "slr_torch.calib.pipeline, slr_torch.synth.board\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'slr' or m.startswith('slr.'))\n"
         "print(bad)\n"

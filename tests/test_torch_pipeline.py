@@ -146,13 +146,38 @@ def test_render_noise_from_generator():
     assert torch.equal(noisy(0), noisy(0)) and not torch.equal(noisy(0), noisy(1))
     clean = trender.render_scan(cam, proj, depth, cfg).frames
     assert 0.005 < float((noisy(0) - clean).std()) < 0.02
-    for kw in (dict(defocus_sigma=1.0), dict(proj_gamma=2.2)):
-        with pytest.raises(NotImplementedError, match="slice 10"):
-            trender.render_scan(cam, proj, depth, cfg, **kw)
     # cast shadows are ported: they only ever take light away
     lit = trender.render_scan(cam, proj, depth, cfg, cast_shadows=True).mask_true
     unshadowed = trender.render_scan(cam, proj, depth, cfg).mask_true
     assert bool((lit <= unshadowed).all()) and bool(lit.any())
+
+
+@pytest.mark.parametrize("optics", [dict(defocus_sigma=1.0), dict(proj_gamma=2.2),
+                                    dict(defocus_sigma=1.0, proj_gamma=2.2)],
+                         ids=["defocus", "gamma", "defocus_gamma"])
+@pytest.mark.parametrize("coding", ["gray_phase", "multifreq"])
+def test_render_optics_match_reference(optics, coding):
+    """Defocus and projector gamma against slr.synth's frames (1e-4, the
+    render tolerance above), on the discrete frames (white, black and the
+    Gray patterns, gamma'd and blurred, then sampled) and on the analytic
+    fringes (the gamma'd profile's Fourier series, each harmonic attenuated
+    by the PSF), rows coded too; and the optics change the frames."""
+    kw = (dict(CFG, row_gray_bits=5, row_phase_steps=4) if coding == "gray_phase"
+          else dict(proj_width=256, proj_height=192, coding="multifreq", phase_steps=4))
+    camj, projj = jrender.default_rig(**dict(RIG, cam_w=160, cam_h=128))
+    depth = jbumps(128, 160, base=480.0, amp=25.0)
+    sj = jrender.render_scan(camj, projj, depth, JPatternConfig(**kw), **optics)
+    cam, proj = trender.default_rig(**dict(RIG, cam_w=160, cam_h=128))
+    cfg = PatternConfig(**kw)
+    st = trender.render_scan(cam, proj, torch.tensor(np.asarray(depth)), cfg, **optics)
+    n_fringe = (cfg.mf_levels * cfg.phase_steps if coding == "multifreq"
+                else cfg.phase_steps + cfg.row_phase_steps)
+    a, b = np.asarray(sj.frames), st.frames.numpy()
+    assert b.shape == a.shape
+    assert np.abs(b[:-n_fringe] - a[:-n_fringe]).max() <= 1e-4      # discrete
+    assert np.abs(b[-n_fringe:] - a[-n_fringe:]).max() <= 1e-4      # analytic
+    ideal = trender.render_scan(cam, proj, torch.tensor(np.asarray(depth)), cfg).frames
+    assert float((st.frames[-n_fringe:] - ideal[-n_fringe:]).abs().max()) > 1e-2
 
 
 def test_accuracy_vs_ground_truth():

@@ -324,6 +324,22 @@ def test_k3_maps_of_the_route_rule_fit_one_wave(widths):
     assert tus.resident_tiles(2048, 2448, *owned) > wave
 
 
+@pytest.mark.parametrize("shape,resident", [((32, 32768), False), ((16, 65536), False),
+                                            ((1024, 1024), True), ((8192, 128), True),
+                                            ((1024, 1280), False), ((215, 300), True)])
+def test_route_sends_maps_past_one_wave_to_k4(shape, resident):
+    """``quality_unwrap``'s route on a 132-SM H100's K3 layout: a map within
+    the reference's budget whose tiles exceed one wave (32 x 32768: exactly
+    12 MiB padded, 1,130 tiles of 58 x 28 against 1,056) takes K4, as does a
+    map past the budget; the maps of K3's route take K3."""
+    run, warps, h, per_sm = _k3_geometry()
+    layout = (H100_SMS * per_sm, 0, 30 * warps + 2 - 2 * h, run - 2 * h)
+    H, W = shape
+    assert tus.takes_resident(H, W, layout) == resident
+    if shape == (32, 32768):
+        assert not tus.takes_tiled(H, W) and tus.resident_tiles(H, W, *layout[2:]) == 1130
+
+
 @pytest.mark.parametrize("shape", [(64, 96), (215, 300), (1024, 1280), (1024, 1024),
                                    (1032, 1024)])
 def test_kernel_dispatch_rule_matches_reference(shape):
