@@ -657,8 +657,9 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
     15-iteration band ICP (15 K8 launches); ICP between two dense config-3
     scans of the rocks scene (through K1, then K8); ``register_scans`` on a
     4-scan orbit; config 5 on the 8-scan orbit (``config5_phase``); then
-    their times. Returns (config 5's K1 launches, K8's entry of the
-    ``kernels`` line)."""
+    their times. Returns (config 5's K1 launches, the 8-scan orbit as
+    (uint8 stacks, rig poses, truth points), K8's entry of the ``kernels``
+    line)."""
     from slr_torch.config import RegistrationConfig
     from slr_torch.geom.se3 import so3_exp
     from slr_torch.kernels import band_nn as kb
@@ -853,7 +854,7 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
          k8_fp32_issue_share=pairs * 8 / FP32_ISSUE_PER_S / (ms["k8"] * 1e-3),
          exact_pairs_per_s=N_BIG * N_BIG / (ms["exact_nn"] * 1e-3),
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
-    return k1_config5, {"name": "band_nn_sorted", "route": "cuda",
+    return k1_config5, (stacks, poses, truths), {"name": "band_nn_sorted", "route": "cuda",
             "source": "slr_torch/kernels/csrc/band_nn.cu",
             "replaces": "slr/registration/band.py:121",
             "launches": launches,
@@ -864,6 +865,46 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
             # 8 fp32 instructions a pair (3 sub, 3 mul, 2 add; no FMA)
             "bound_ms": pairs * 8 / FP32_ISSUE_PER_S * 1e3, "bound_by": "operations",
             "library_ms": None}
+
+
+def config5_accuracy(name, reg, pts, val, verts, n_faces, clouds, poses, truths):
+    """Config 5's accuracy gates on one run's output: the reference's ok
+    rule (every pose within 0.5 deg and 2 mm, the fused cloud below 2.5 mm
+    RMS over its first C5_RMS_POINTS points against the union of the truth
+    clouds, valid where decoded; more than 1000 faces), BA's rms below 1.5,
+    the port's tighter gates (poses within 0.5 mm, the fused cloud within
+    0.25 mm) and the mesh's vertices within one voxel edge RMS of the truth
+    union. Returns the measured numbers."""
+    from slr_torch.registration.nn import nearest_neighbors
+
+    errs = [pose_error(reg.R[s], reg.t[s], *poses[s]) for s in range(len(poses))]
+    max_rot, max_t = max(e[0] for e in errs), max(e[1] for e in errs)
+    check(max_rot < ROT_GATE_DEG and max_t < T_GATE_MM, f"{name}: {max_rot} deg, {max_t} mm")
+    check(max_t <= C5_T_TIGHT_MM, f"{name}: translation error {max_t} mm > {C5_T_TIGHT_MM}")
+    ba_rms = float(reg.pg_rms)
+    check(ba_rms < C5_BA_RMS_GATE, f"{name}: BA rms {ba_rms}")
+    gt = torch.cat([t.reshape(-1, 3) for t in truths])
+    gt_valid = torch.cat([c.mask.reshape(-1) for c in clouds])
+    check(tuple(pts.shape) == (C5_CAPACITY, 3) and bool(torch.isfinite(pts[val]).all()),
+          f"{name}: fused points")
+    sel = torch.nonzero(val)[:C5_RMS_POINTS, 0]
+    _, d2 = nearest_neighbors(pts[sel], gt, gt_valid, tile=4096)
+    fused_rms = float(torch.sqrt(torch.mean(d2)))
+    check(fused_rms < C5_FUSED_GATE_MM and fused_rms <= C5_FUSED_TIGHT_MM,
+          f"{name}: fused RMS {fused_rms} mm")
+    check(n_faces > C5_MIN_FACES and bool(torch.isfinite(verts).all()),
+          f"{name}: mesh of {n_faces} faces")
+    stride = max(1, verts.shape[0] // C5_RMS_POINTS)
+    mesh_sel = verts[::stride][:C5_RMS_POINTS]
+    _, d2m = nearest_neighbors(mesh_sel, gt, gt_valid, tile=4096)
+    mesh_rms = float(torch.sqrt(torch.mean(d2m)))
+    check(mesh_rms <= C5_MESH_GATE_MM, f"{name}: mesh RMS {mesh_rms} mm")
+    return dict(rot_err_deg=[e[0] for e in errs], t_err_mm=[e[1] for e in errs],
+                max_rot_err_deg=max_rot, max_t_err_mm=max_t, ba_rms=ba_rms,
+                fused_rms_mm=fused_rms, fused_rms_points=int(sel.numel()),
+                fused_valid=int(val.sum()), mesh_faces=n_faces,
+                mesh_verts=int(verts.shape[0]), mesh_rms_mm=mesh_rms,
+                mesh_rms_points=int(mesh_sel.shape[0]))
 
 
 def config5_phase(cam, model, stacks, poses, truths, counts_of, quiet, mesh_path):
@@ -884,7 +925,6 @@ def config5_phase(cam, model, stacks, poses, truths, counts_of, quiet, mesh_path
     from slr_torch.config import RegistrationConfig
     from slr_torch.pipeline import registerfuse as rf
     from slr_torch.pipeline import tsdf
-    from slr_torch.registration.nn import nearest_neighbors
 
     def pipeline(stages):
         """The pipeline once; ``stages`` receives each stage's host wall
@@ -923,30 +963,9 @@ def config5_phase(cam, model, stacks, poses, truths, counts_of, quiet, mesh_path
     out, n = counts_of(lambda: pipeline(stages1))
     check(n["k1"] == ORBIT_SCANS_CONFIG5 and quiet(n, "k1"), f"config5: launches {n}")
     clouds, reg, (pts, val, col, n_vox), vol, (verts, faces, cols), written, grown = out
-    errs = [pose_error(reg.R[s], reg.t[s], *poses[s]) for s in range(ORBIT_SCANS_CONFIG5)]
-    max_rot, max_t = max(e[0] for e in errs), max(e[1] for e in errs)
-    check(max_rot < ROT_GATE_DEG and max_t < T_GATE_MM, f"config5: {max_rot} deg, {max_t} mm")
-    check(max_t <= C5_T_TIGHT_MM, f"config5: translation error {max_t} mm > {C5_T_TIGHT_MM}")
-    ba_rms = float(reg.pg_rms)
-    check(ba_rms < C5_BA_RMS_GATE, f"config5: BA rms {ba_rms}")
-    # the reference's fused-cloud accuracy: its first 8192 fused points
-    # against the union of the truth clouds (valid where decoded)
-    gt = torch.cat([t.reshape(-1, 3) for t in truths])
-    gt_valid = torch.cat([c.mask.reshape(-1) for c in clouds])
-    check(tuple(pts.shape) == (C5_CAPACITY, 3) and bool(torch.isfinite(pts[val]).all()),
-          "config5: fused points")
-    sel = torch.nonzero(val)[:C5_RMS_POINTS, 0]
-    _, d2 = nearest_neighbors(pts[sel], gt, gt_valid, tile=4096)
-    fused_rms = float(torch.sqrt(torch.mean(d2)))
-    check(fused_rms < C5_FUSED_GATE_MM and fused_rms <= C5_FUSED_TIGHT_MM,
-          f"config5: fused RMS {fused_rms} mm")
     n_faces = int(faces.shape[0])
-    check(n_faces > C5_MIN_FACES and written == (int(verts.shape[0]), n_faces)
-          and bool(torch.isfinite(verts).all()), f"config5: mesh {written}, {n_faces} faces")
-    stride = max(1, verts.shape[0] // C5_RMS_POINTS)
-    _, d2m = nearest_neighbors(verts[::stride][:C5_RMS_POINTS], gt, gt_valid, tile=4096)
-    mesh_rms = float(torch.sqrt(torch.mean(d2m)))
-    check(mesh_rms <= C5_MESH_GATE_MM, f"config5: mesh RMS {mesh_rms} mm")
+    check(written == (int(verts.shape[0]), n_faces), f"config5: mesh {written}")
+    acc = config5_accuracy("config5", reg, pts, val, verts, n_faces, clouds, poses, truths)
     # the same bits in a second call
     again = pipeline(stages2)
     _, reg2, (pts2, val2, col2, n_vox2), vol2, (verts2, faces2, cols2), _, _ = again
@@ -982,18 +1001,13 @@ def config5_phase(cam, model, stacks, poses, truths, counts_of, quiet, mesh_path
                            for a in host_top},
          profiled="one run under torch.profiler (its walls include the profiler's cost)")
     emit("config5", scans=ORBIT_SCANS_CONFIG5, samples=C5_SAMPLES, landmarks=C5_LANDMARKS,
-         ba_iters=C5_BA_ITERS, launches=n["k1"], bit_identical_calls=same,
-         rot_err_deg=[e[0] for e in errs], t_err_mm=[e[1] for e in errs],
-         max_rot_err_deg=max_rot, max_t_err_mm=max_t, rot_gate_deg=ROT_GATE_DEG,
-         t_gate_mm=T_GATE_MM, t_tight_gate_mm=C5_T_TIGHT_MM,
-         icp_rms_mm=reg.icp_rms.tolist(), ba_rms=ba_rms, ba_rms_gate=C5_BA_RMS_GATE,
-         n_voxels=int(n_vox), fused_valid=int(val.sum()), fused_rms_mm=fused_rms,
-         fused_rms_points=int(sel.numel()), fused_gate_mm=C5_FUSED_GATE_MM,
+         ba_iters=C5_BA_ITERS, launches=n["k1"], bit_identical_calls=same, **acc,
+         rot_gate_deg=ROT_GATE_DEG, t_gate_mm=T_GATE_MM, t_tight_gate_mm=C5_T_TIGHT_MM,
+         icp_rms_mm=reg.icp_rms.tolist(), ba_rms_gate=C5_BA_RMS_GATE,
+         n_voxels=int(n_vox), fused_gate_mm=C5_FUSED_GATE_MM,
          fused_tight_gate_mm=C5_FUSED_TIGHT_MM, tsdf_size_vox=list(C5_TSDF),
          tsdf_voxel_mm=float(vol.voxel), tsdf_origin=vol.origin.tolist(),
          tsdf_observed_voxels=int((vol.weight > 0).sum()), tsdf_warnings=grown,
-         mesh_faces=n_faces, mesh_verts=int(verts.shape[0]), mesh_rms_mm=mesh_rms,
-         mesh_rms_points=int(verts[::stride][:C5_RMS_POINTS].shape[0]),
          mesh_gate_mm=C5_MESH_GATE_MM, obj_bytes=mesh_path.stat().st_size,
          valid_px=[int(c.mask.sum()) for c in clouds],
          stage_ms_first=stages1, stage_ms=stages2,
@@ -1826,6 +1840,351 @@ def calibration_phases(dev, counts_of, card):
          "card to its result")
 
 
+def same_cloud(a, b):
+    """Two ScanClouds (or any tuples of tensors) the same bits, dtypes and
+    shapes."""
+    return all(x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+def product_phases(dev, counts_of, card, main_path, orbit):
+    """Phases 34-39, the product surface (slice 9): the native PLY build and
+    the persistence round trips with cameras on the card (``io_card``);
+    config 5's 8-scan orbit through ``Session`` (``reconstruct_all``,
+    ``register``, ``fuse``, ``fuse_mesh``), held to the direct calls' bytes
+    and to config 5's accuracy gates, twice (``session_config5``); config 3
+    at full width through ``Session.reconstruct`` on every route
+    (``session_routes_1280x1024``); the stream against the sequential loop
+    (``stream_config3``); the CLI's demo in a subprocess (``cli_demo``);
+    and the viewer on the card against the CPU (``viewer_fused``). Returns
+    the session paths' launches by kernel."""
+    import shutil
+    import sys
+    import warnings
+
+    from slr_torch import io as sio
+    from slr_torch.config import (
+        DecodeConfig, PatternConfig, ReconstructConfig, RegistrationConfig, ScanConfig)
+    from slr_torch.geom.camera import make_camera
+    from slr_torch.io import ply as sply
+    from slr_torch.kernels.build import build_host_library
+    from slr_torch.observability import StageTimer
+    from slr_torch.pipeline import Session, reconstruct_stream
+    from slr_torch.pipeline import registerfuse as rf
+    from slr_torch.pipeline import tsdf
+    from slr_torch.pipeline.checks import validate_cloud
+    from slr_torch.pipeline.reconstruct import reconstruct_dense, reconstruct_scan_hdr
+    from slr_torch.pipeline.twocam import reconstruct_two_camera
+    from slr_torch.pipeline.viewer import render_cloud_image, render_turntable
+    from slr_torch.registration.filters import statistical_outlier_removal
+    from slr_torch.synth.render import quantize_frames, render_scan, two_camera_rig
+    from slr_torch.synth.scene import spheres_scene
+
+    launches = dict.fromkeys(("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8"), 0)
+
+    def product(fn):
+        """``counts_of`` on a product path; its launches join the kernels
+        line's."""
+        out, n = counts_of(fn)
+        for k, v in n.items():
+            launches[k] += v
+        return out, n
+
+    def ms_of(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    cam_d, proj_d, cfg = main_path["cam"], main_path["proj"], main_path["cfg"]
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+
+    # phase 34: the native PLY writer built by g++ from the checkout, its
+    # file the plain writer's bytes, read back bit for bit; calibration as
+    # JSON (bits) and as OpenCV YAML (float64 relative pose: 1e-6 on R,
+    # 1e-4 mm on t) with the cameras on the card
+    t0 = time.perf_counter()
+    lib, log = build_host_library(sply.NATIVE_SRC)
+    sply.library()
+    build_s = time.perf_counter() - t0
+    cloud = main_path["cloud"]
+    colors = cloud.colors[..., None].expand(-1, -1, 3)
+    n_pts, native_ms = ms_of(lambda: sio.write_ply(root / "c.ply", cloud.points,
+                                                   mask=cloud.mask, colors=colors))
+    _, numpy_ms = ms_of(lambda: sply.write_ply_numpy(root / "c_np.ply", cloud.points,
+                                                     mask=cloud.mask, colors=colors))
+    check((root / "c.ply").read_bytes() == (root / "c_np.ply").read_bytes(),
+          "io_card: native and plain PLY bytes differ")
+    (pts, col, nrm), read_ms = ms_of(lambda: sio.read_ply(root / "c.ply"))
+    check(torch.equal(torch.from_numpy(pts), cloud.points[cloud.mask].cpu()) and nrm is None
+          and col.shape == (n_pts, 3), "io_card: PLY round trip")
+    cam2 = make_camera(cam_d.fx, cam_d.fy, cam_d.cx, cam_d.cy, dist=PROJ_DIST, R=proj_d.R,
+                       t=proj_d.t, device=dev)
+    sio.save_calibration(root / "cal.json", cam_d, proj_d, {"rms": 0.1}, cam2=cam2)
+    c, p, meta, c2 = sio.load_calibration(root / "cal.json", with_cam2=True, device=dev)
+    check(all(x.device.type == "cuda" for x in (*c, *p, *c2)) and meta == {"rms": 0.1}
+          and all(torch.equal(a, b) for a, b in zip((*c, *p, *c2), (*cam_d, *proj_d, *cam2))),
+          "io_card: calibration JSON round trip")
+    sio.save_calibration_opencv(root / "cal.yml", cam2, proj_d, {"rms": 0.1})
+    c, p, meta = sio.load_calibration_opencv(root / "cal.yml", device=dev)
+    yaml_err = {"R": max(float((c.R - cam2.R).abs().max()), float((p.R - proj_d.R).abs().max())),
+                "t_mm": max(float((c.t - cam2.t).abs().max()), float((p.t - proj_d.t).abs().max())),
+                "intrinsics": max(float((a - b).abs().max()) for a, b in
+                                  zip((*c[:5], *p[:5]), (*cam2[:5], *proj_d[:5])))}
+    check(c.R.device.type == "cuda" and yaml_err["R"] <= 1e-6 and yaml_err["t_mm"] <= 1e-4
+          and yaml_err["intrinsics"] == 0.0 and meta == {"rms": 0.1},
+          f"io_card: OpenCV YAML round trip {yaml_err}")
+    emit("io_card", native_library=lib.name, build_s=build_s, gxx_log=log,
+         ply_points=n_pts, ply_bytes=(root / "c.ply").stat().st_size,
+         native_write_ms=native_ms, numpy_write_ms=numpy_ms, native_read_ms=read_ms,
+         ply_bytes_equal_plain=True, opencv_yaml_max_err=yaml_err)
+
+    # phase 35: config 5 through the session; the same 8 uint8 stacks, rig
+    # and settings as ``config5`` (the session's own BA iterations, pg_iters)
+    stacks, poses, truths = orbit
+    scfg = ScanConfig(pattern=cfg, registration=RegistrationConfig(
+        icp_sample_points=C5_SAMPLES, voxel_size=C5_VOXEL), cam_width=CAM_W, cam_height=CAM_H)
+    s5 = root / "config5"
+
+    def session_run(first):
+        """The session path once: (its files' bytes and arrays, stage walls,
+        the launches of reconstruct_all). The first run writes the session;
+        the second opens it from disk."""
+        timer = StageTimer()
+        write_ms = []
+        with warnings.catch_warnings(), timer.stage("open_and_add_scans"):
+            warnings.simplefilter("ignore")
+            if first:
+                sess = Session(s5, scfg, device=dev)
+                sess.set_calibration(cam_d, proj_d)
+                for s in stacks:
+                    write_ms.append(ms_of(lambda: sess.add_scan(s))[1])
+            else:
+                sess = Session(s5, device=dev)
+        with timer.stage("reconstruct_all"):
+            _, n_rec = product(sess.reconstruct_all)
+        with timer.stage("register"):
+            reg, n_reg = product(sess.register)
+        with timer.stage("fuse"):
+            ply, n_fuse = product(sess.fuse)
+        with warnings.catch_warnings(record=True) as grown, timer.stage("fuse_mesh"):
+            warnings.simplefilter("always")
+            obj, n_mesh = product(sess.fuse_mesh)
+        check(n_rec["k1"] == ORBIT_SCANS_CONFIG5 and all(
+            v == 0 for k, v in n_rec.items() if k != "k1"), f"session_config5: launches {n_rec}")
+        out = dict(clouds=[sess.load_cloud(i) for i in range(sess.cloud_count())],
+                   reg=sess.load_registration(), ply=Path(ply).read_bytes(),
+                   obj=Path(obj).read_bytes())
+        check(same_cloud(out["reg"], reg), "session_config5: registration.npz")
+        io = dict(scan_write_ms=write_ms)
+        if first:
+            io["scan_read_ms"] = ms_of(lambda: sess.load_scan(0))[1]
+            io["cloud_read_ms"] = ms_of(lambda: sess.load_cloud(0))[1]
+            io["scan_npz_mb"] = sess.scan_paths()[0].stat().st_size / 1e6
+            io["cloud_npz_mb"] = (s5 / "clouds" / "scan_000.npz").stat().st_size / 1e6
+        return sess, out, timer.summary(), io, dict(
+            reconstruct_all=n_rec, register=n_reg, fuse=n_fuse, fuse_mesh=n_mesh), \
+            [str(w.message) for w in grown]
+
+    sess, run1, stages1, io, n_session, grown = session_run(True)
+    # the direct calls with the session's own arguments
+    rc = scfg.registration
+
+    def direct():
+        clouds = [reconstruct_dense(s, sess.cam, sess.proj, cfg, scfg.decode, scfg.reconstruct)
+                  for s in stacks]
+        reg = rf.register_scans_batched(clouds, rc, use_features=True, cam=sess.cam,
+                                        loop_closures=True)
+        reg = rf.ba_refine(clouds, reg, iters=rc.pg_iters)
+        pts, val, col, n_vox = rf.fuse_scans(clouds, reg, rc, capacity=C5_CAPACITY)
+        sio.write_ply(root / "direct.ply", pts, mask=val, colors=col.expand(-1, 3))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            vol = tsdf.fuse_tsdf(clouds, sess.cam, reg.R, reg.t, size_vox=C5_TSDF,
+                                 voxel=C5_VOXEL)
+        written = tsdf.write_tsdf_mesh_obj(root / "direct.obj", vol)
+        return clouds, reg, pts, val, n_vox, vol, written
+
+    (clouds_d, reg_d, pts_d, val_d, n_vox, vol_d, written), direct_ms = ms_of(direct)
+    check(all(same_cloud(a, b) for a, b in zip(run1["clouds"], clouds_d)),
+          "session_config5: clouds differ from the direct calls'")
+    check(same_cloud(run1["reg"], reg_d), "session_config5: poses differ from the direct call's")
+    check(run1["ply"] == (root / "direct.ply").read_bytes(),
+          "session_config5: fused.ply differs from the direct call's bytes")
+    check(run1["obj"] == (root / "direct.obj").read_bytes(),
+          "session_config5: fused_mesh.obj differs from the direct call's bytes")
+    verts = tsdf.extract_mesh(vol_d)[0]
+    acc = config5_accuracy("session_config5", reg_d, pts_d, val_d, verts, written[1],
+                           clouds_d, poses, truths)
+    # the same bits in a second run, the session opened from disk
+    _, run2, stages2, _, _, _ = session_run(False)
+    same = (run1["ply"] == run2["ply"] and run1["obj"] == run2["obj"]
+            and same_cloud(run1["reg"], run2["reg"])
+            and all(same_cloud(a, b) for a, b in zip(run1["clouds"], run2["clouds"])))
+    check(same, "session_config5: two runs differ")
+    emit("session_config5", scans=ORBIT_SCANS_CONFIG5, launches=n_session,
+         bit_equal_direct_call=True, bit_identical_runs=same, **acc,
+         ba_iters=rc.pg_iters, icp_rms_mm=reg_d.icp_rms.tolist(), n_voxels=int(n_vox),
+         ply_bytes=len(run1["ply"]), obj_bytes=len(run1["obj"]), tsdf_warnings=grown,
+         stage_ms_first=stages1, stage_ms=stages2, session_ms_first=sum(stages1.values()),
+         session_ms=sum(stages2.values()), direct_ms=direct_ms, **io, card=card,
+         stage_timing="host wall (StageTimer), the card synchronised at each end; the first "
+                      "run writes the 8 scans, the second opens the session from disk")
+
+    # phase 36: config 3 at full width through Session.reconstruct, every
+    # route: the direct call's bits and launches
+    frames, frames8, bracket = main_path["frames"], main_path["frames8"], main_path["bracket"]
+    sr = root / "routes"
+    base = dict(pattern=cfg, cam_width=CAM_W, cam_height=CAM_H)
+    sess = Session(sr, ScanConfig(**base), device=dev)
+    sess.set_calibration(cam_d, proj_d)
+    idx = {"float32": sess.add_scan(frames), "uint8": sess.add_scan(frames8),
+           "bracket": sess.add_scan(bracket)}
+    dec0, rec0 = DecodeConfig(), ReconstructConfig()
+    wave = DecodeConfig(spatial_unwrap_mode="wavefront")
+    sor = ReconstructConfig(sor_k=8)
+
+    def dense(f, dec=dec0, rec=rec0, spatial_iters=0):
+        return lambda: reconstruct_dense(f, cam_d, proj_d, cfg, dec, rec,
+                                         spatial_iters=spatial_iters,
+                                         spatial_mode=dec.spatial_unwrap_mode)
+
+    def with_sor(f):
+        c = dense(f, rec=sor)()
+        keep = statistical_outlier_removal(c.points.reshape(-1, 3), c.mask.reshape(-1),
+                                           sor.sor_voxel, k=sor.sor_k,
+                                           std_ratio=sor.sor_std_ratio).reshape(CAM_H, CAM_W)
+        return c._replace(mask=c.mask & keep)
+
+    def checked(f):
+        c = dense(f)()
+        validate_cloud(c).throw()
+        return c
+
+    one_k1 = dict(k1=1)
+    routes = {  # name: (config overrides, scan, reconstruct kwargs, direct call, launches)
+        "float32": ({}, "float32", {}, dense(frames), one_k1),
+        "uint8": ({}, "uint8", {}, dense(frames8), one_k1),
+        "voting": ({}, "float32", dict(spatial_iters=SPATIAL_ITERS),
+                   dense(frames, spatial_iters=SPATIAL_ITERS), dict(k1=1, k4=1)),
+        "wavefront": (dict(decode=wave), "float32", dict(spatial_iters=SPATIAL_ITERS),
+                      dense(frames, dec=wave, spatial_iters=SPATIAL_ITERS), dict(k1=1, k5=8)),
+        "bracket": ({}, "bracket", {}, lambda: reconstruct_scan_hdr(
+            bracket, cam_d, proj_d, cfg, dec0, rec0), dict(k2=1)),
+        "checked": (dict(reconstruct=ReconstructConfig(checked=True)), "float32", {},
+                    lambda: checked(frames), one_k1),
+        "sor": (dict(reconstruct=sor), "float32", {}, lambda: with_sor(frames), one_k1),
+    }
+    results = {}
+    for name, (over, scan, kw, call, expect) in routes.items():
+        s = Session(sr, ScanConfig(**base, **over), device=dev)
+        (c, n), ms = ms_of(lambda: product(lambda: s.reconstruct(idx[scan], **kw)))
+        d, nd = counts_of(call)
+        want = {k: expect.get(k, 0) for k in n}
+        check(n == nd == want, f"session route {name}: launches {n}, direct {nd}, want {want}")
+        check(same_cloud(c, d) and same_cloud(s.load_cloud(idx[scan]), c),
+              f"session route {name}: not the direct call's bits, or not its stage file's")
+        results[name] = dict(launches={k: v for k, v in n.items() if v}, ms=ms,
+                             valid_px=int(c.mask.sum()))
+    # the two-camera pair (uint8, the merge's config-3-width rig)
+    cfg2 = PatternConfig(proj_width=PROJ_W, proj_height=PROJ_H, gray_bits=7, row_gray_bits=6,
+                         phase_steps=4, row_phase_steps=4)
+    rec2 = ReconstructConfig(min_depth=300.0, max_depth=900.0)
+    c1, c2, proj2 = two_camera_rig(CAM_W, CAM_H, PROJ_W, PROJ_H, device=dev)
+    f1, f2 = (quantize_frames(render_scan(
+        c, proj2, spheres_scene(c, CAM_H, CAM_W), cfg2, noise_std=0.003, cast_shadows=True,
+        generator=torch.Generator(device=dev).manual_seed(20 + i)).frames)
+        for i, c in enumerate((c1, c2)))
+    s2 = Session(root / "two_camera", ScanConfig(pattern=cfg2, reconstruct=rec2,
+                                                 cam_width=CAM_W, cam_height=CAM_H), device=dev)
+    s2.set_calibration(c1, proj2, cam2=c2)
+    s2.add_scan(f1, frames2=f2)
+    (c, n), ms = ms_of(lambda: product(lambda: s2.reconstruct(0)))
+    d, nd = counts_of(lambda: reconstruct_two_camera(f1, f2, c1, c2, cfg2, DecodeConfig(), rec2))
+    want = {k: {"k1": 2, "k7": 4}.get(k, 0) for k in n}
+    check(n == nd == want, f"session route two_camera: launches {n}, direct {nd}")
+    check(same_cloud(c, d), "session route two_camera: not the direct call's bits")
+    results["two_camera"] = dict(launches={k: v for k, v in n.items() if v}, ms=ms,
+                                 valid_cells=int(c.mask.sum()))
+    emit("session_routes_1280x1024", bit_equal_direct_calls=True, routes=results,
+         ms_timing="host wall of Session.reconstruct (the .npz read of the scan and the "
+                   "write of its cloud included), one call")
+
+    # phase 37: the stream against the sequential loop on 8 config-3 uint8
+    # stacks (the orbit's), from the host: the same bits; walls in turns
+    host = [s.cpu().numpy() for s in stacks]
+    pinned = [torch.from_numpy(h).pin_memory() for h in host]
+    dec = DecodeConfig()
+
+    def sequential(src):
+        return [reconstruct_dense(torch.as_tensor(h).to(dev), cam_d, proj_d, cfg, dec)
+                for h in src]
+
+    def streamed(src, prefetch):
+        return list(reconstruct_stream(iter(src), cam_d, proj_d, cfg, dec, prefetch=prefetch,
+                                       device=dev))
+
+    ref, _ = counts_of(lambda: sequential(host))
+    stream_runs = {"prefetch1": lambda: streamed(host, 1), "prefetch2": lambda: streamed(host, 2),
+                   "prefetch2_pinned": lambda: streamed(pinned, 2)}
+    for name, fn in stream_runs.items():
+        got, n = product(fn)
+        check(n["k1"] == len(host) and all(same_cloud(a, b) for a, b in zip(got, ref)),
+              f"stream {name}: launches {n['k1']} or bits differ from the sequential loop")
+    runs = {"sequential": lambda: sequential(host), **stream_runs,
+            "resident": lambda: [reconstruct_dense(s, cam_d, proj_d, cfg, dec) for s in stacks]}
+    walls = {k: [] for k in runs}
+    for turn in range(5):
+        for name in (list(runs) if turn % 2 == 0 else list(runs)[::-1]):
+            walls[name].append(ms_of(runs[name])[1])
+    wall = {k: statistics.median(v) for k, v in walls.items()}
+    copy = {"pinned_ms": statistics.median(cuda_ms(
+        lambda: pinned[0].to(dev, non_blocking=True), runs=10)),
+            "pageable_ms": statistics.median(cuda_ms(
+                lambda: torch.from_numpy(host[0]).to(dev), runs=10))}
+    exposed = wall["sequential"] - wall["resident"]
+    emit("stream_config3", scans=len(host), stack_mb=host[0].nbytes / 1e6,
+         bit_equal_sequential=True, wall_ms=wall,
+         wall_ms_spread={k: [min(v), max(v)] for k, v in walls.items()}, copy_ms=copy,
+         copy_hidden_share={k: (wall["sequential"] - wall[k]) / exposed
+                            for k in stream_runs} if exposed > 0 else None,
+         hidden_share_rule="(sequential - stream) / (sequential - stacks already resident)",
+         card=card)
+
+    # phase 38: the CLI's demo in a subprocess, at its own defaults
+    out_dir = root / "demo"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "slr_torch.cli", "demo", "--out",
+                           str(out_dir)], cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=600)
+    demo_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli demo: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    calib_rms = json.loads((out_dir / "calibration.json").read_text())["meta"]["rms"]
+    check(calib_rms < 0.5, f"cli demo: calibration RMS {calib_rms} px")
+    fused_n = sio.read_ply(out_dir / "fused.ply")[0].shape[0]
+    check(fused_n > 0, "cli demo: empty fused.ply")
+    emit("cli_demo", rc=proc.returncode, wall_s=demo_s, calib_rms_px=calib_rms,
+         fused_points=fused_n, stdout=proc.stdout.splitlines())
+
+    # phase 39: the viewer on the fused cloud, on the card and on the CPU
+    pts, col, _ = sio.read_ply(s5 / "fused.ply")
+    on_card, card_ms = ms_of(lambda: render_turntable(pts, col, root / "view_card", frames=2,
+                                                      device=dev))
+    on_cpu, cpu_ms = ms_of(lambda: render_turntable(pts, col, root / "view_cpu", frames=2,
+                                                    device="cpu"))
+    img = render_cloud_image(pts, col, device=dev)
+    check(img.device.type == "cuda" and torch.equal(img.cpu(), render_cloud_image(pts, col))
+          and all(Path(a).read_bytes() == Path(b).read_bytes() for a, b in zip(on_card, on_cpu)),
+          "viewer_fused: the card's image differs from the CPU's")
+    emit("viewer_fused", points=int(pts.shape[0]), views=len(on_card),
+         files=[Path(f).name for f in on_card], bit_equal_cpu=True,
+         lit_share=float((img.sum(-1) > 0).float().mean()), card_ms=card_ms, cpu_ms=cpu_ms)
+    tmp.cleanup()
+    return launches
+
+
 def main():
     wall_start = time.perf_counter()
     # phase 1: the card
@@ -2608,7 +2967,7 @@ def main():
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
 
     # phases 19-23: registration (config 4), K8
-    k1_config5, k8_entry = registration_phases(dev, cam, proj, cfg, counts_of, card)
+    k1_config5, orbit, k8_entry = registration_phases(dev, cam, proj, cfg, counts_of, card)
     launches += k1_config5
 
     # phases 24-30: the two-camera merge, K7 and K6
@@ -2617,6 +2976,11 @@ def main():
 
     # phases 31-33: calibration (config 2)
     calibration_phases(dev, counts_of, card)
+
+    # phases 34-39: the product surface (slice 9)
+    product_launches = product_phases(
+        dev, counts_of, card, dict(cam=cam_d, proj=proj_d, cfg=cfg, cloud=cloud,
+                                   frames=frames, frames8=frames8, bracket=bracket), orbit)
 
     def bound(nbytes=0, instr=0):
         """The least time (ms) for ``nbytes`` of HBM traffic and ``instr``
@@ -2642,7 +3006,7 @@ def main():
     wave_instr_all = {k: c[2] * WAVE_INSTR_CHAIN for k, c in composes.items()}
     emit("wall", s=time.perf_counter() - wall_start)
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fused_decode_triangulate",
         "route": "cuda",
         "source": "slr_torch/kernels/csrc/fused_scan.cu",
@@ -2755,7 +3119,11 @@ def main():
                           for k, (a, b, c) in composes.items()},
         "device_ms": device_ms["k5_rows"],
         "device_ms_cols": device_ms["k5_cols"],
-    }, k8_entry, k7_entry, k6_entry]}), flush=True)
+    }, k8_entry, k7_entry, k6_entry]
+    # the session paths' launches join the main path's
+    for key, entry in zip(("k1", "k2", "k3", "k4", "k5", "k8", "k7", "k6"), kernels):
+        entry["launches"] += product_launches[key]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

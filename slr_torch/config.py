@@ -1,5 +1,5 @@
-"""Typed configuration for the port: the scan, calibration and registration
-slices of ``slr.config``.
+"""Typed configuration for the port: every class of ``slr.config``, with
+``ScanConfig`` saved and loaded as JSON (or YAML by extension).
 
 Restated field for field rather than imported, because importing
 anything under ``slr`` imports JAX, which the GPU machine does not have.
@@ -8,7 +8,9 @@ anything under ``slr`` imports JAX, which the GPU machine does not have.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import json
+from dataclasses import dataclass, field
 from typing import Tuple
 
 
@@ -137,3 +139,68 @@ class RegistrationConfig:
     # pose graph
     pg_iters: int = 20
     pg_damping: float = 1e-6
+
+
+@dataclass(frozen=True)
+class DistConfig:
+    """Device layout: ``pixel_tiles`` shards the image rows of a scan,
+    ``map_blocks`` shards scans and landmark fragments. Either past 1 needs
+    that many GPUs, which the port's multi-GPU tier (ROADMAP slice 8)
+    brings; on one GPU the session runs single-device."""
+
+    pixel_tiles: int = 1
+    map_blocks: int = 1
+    halo: int = 1  # rows exchanged between pixel tiles for the spatial unwrap
+
+
+@dataclass(frozen=True)
+class ScanConfig:
+    """Top-level session config bundling every stage."""
+
+    pattern: PatternConfig = field(default_factory=PatternConfig)
+    decode: DecodeConfig = field(default_factory=DecodeConfig)
+    calib: CalibConfig = field(default_factory=CalibConfig)
+    reconstruct: ReconstructConfig = field(default_factory=ReconstructConfig)
+    registration: RegistrationConfig = field(default_factory=RegistrationConfig)
+    dist: DistConfig = field(default_factory=DistConfig)
+    cam_width: int = 1280
+    cam_height: int = 1024
+
+
+def _to_dict(cfg) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def save_config(cfg: ScanConfig, path) -> None:
+    """JSON, or YAML when the path ends in .yaml/.yml; the file is the
+    reference's byte for byte, so either package opens the other's."""
+    path = str(path)
+    d = _to_dict(cfg)
+    with open(path, "w") as f:
+        if path.endswith((".yaml", ".yml")):
+            import yaml
+
+            yaml.safe_dump(d, f, sort_keys=False)
+        else:
+            json.dump(d, f, indent=2)
+
+
+def load_config(path) -> ScanConfig:
+    path = str(path)
+    with open(path) as f:
+        if path.endswith((".yaml", ".yml")):
+            import yaml
+
+            d = yaml.safe_load(f)
+        else:
+            d = json.load(f)
+    return ScanConfig(
+        pattern=PatternConfig(**d.get("pattern", {})),
+        decode=DecodeConfig(**d.get("decode", {})),
+        calib=CalibConfig(**d.get("calib", {})),
+        reconstruct=ReconstructConfig(**d.get("reconstruct", {})),
+        registration=RegistrationConfig(**d.get("registration", {})),
+        dist=DistConfig(**d.get("dist", {})),
+        cam_width=d.get("cam_width", 1280),
+        cam_height=d.get("cam_height", 1024),
+    )

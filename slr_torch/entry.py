@@ -7,9 +7,8 @@ synthetic scan (the counterpart of ``__graft_entry__.entry``).
 
 from __future__ import annotations
 
-import torch
-
 from slr_torch.config import DecodeConfig, PatternConfig, ReconstructConfig
+from slr_torch.device import require_device
 from slr_torch.pipeline.reconstruct import DenseReconstructor
 from slr_torch.synth.render import default_rig, render_scan
 from slr_torch.synth.scene import bumps_depth
@@ -20,9 +19,7 @@ def entry(device="cuda"):
     4-step phase, with the rig and frames on ``device``: the card unless
     the caller asks for the CPU (``entry("cpu")``). Raises when asked for
     the card and there is none."""
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("entry() runs on the card and no CUDA device is "
-                           "available; pass device='cpu' for the CPU")
+    device = require_device(device)
     CAM_W, CAM_H = 256, 128
     cam, proj = default_rig(cam_w=CAM_W, cam_h=CAM_H, proj_w=256, proj_h=192,
                             baseline=150.0, toe_in_deg=14.0, device=device)

@@ -4,7 +4,9 @@ two-camera merge) against their plain PyTorch versions, on the card; and
 config 5's voxel merge, whose ordered segment sum must give the same bits
 in every call there; and calibration (config 2) on the card: the LM loop
 with no host synchronisation, the solves and the corner detector against
-the CPU.
+the CPU; and the product surface: the stream's side-stream copy,
+``nan_guard`` on card tensors and the session on the card against the
+session on the CPU.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it also runs on a machine without it:
@@ -1169,3 +1171,90 @@ def test_voxel_downsample_on_card_equals_cpu(cuda, capacity):
     assert int(a[3]) == int(cpu[3]) and torch.equal(a[1].cpu(), cpu[1])
     torch.testing.assert_close(a[0].cpu(), cpu[0], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(a[2].cpu(), cpu[2], rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------- product
+
+
+def _cloud_agrees_plain(k, p):
+    """A cloud from K1 against the same call through its plain version
+    (``test_kernel_matches_plain_version``'s tolerances)."""
+    mk, mp = k.mask.cpu(), p.mask.cpu()
+    assert float((mk ^ mp).float().mean()) <= 1e-3
+    both = mk & mp
+    assert float(both.float().mean()) > 0.3
+    dx = (k.x_p.cpu() - p.x_p.cpu()).abs()
+    assert float((both & (dx > 1e-3)).sum()) <= 1e-4 * float(both.sum())
+    agree = both & (dx <= 1e-3)
+    assert float((k.points.cpu() - p.points.cpu()).abs().amax(-1)[agree].max()) <= 1e-2
+    assert float((k.quality.cpu() - p.quality.cpu()).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("prefetch", [1, 2, 3])
+def test_stream_side_stream_copy_gives_sequential_bits(cuda, prefetch):
+    from slr_torch.pipeline import reconstruct_stream
+    from slr_torch.pipeline.reconstruct import reconstruct_dense
+
+    cam, proj, cfg, _ = _scan(torch.device("cpu"), 320, 256, 0.0)
+    stacks = [quantize_frames(_scan(torch.device("cpu"), 320, 256, 0.004 * (k + 1))[3].frames)
+              for k in range(4)]
+    stacks[1] = stacks[1].numpy()            # numpy in, pageable
+    stacks[2] = stacks[2].pin_memory()       # already pinned
+    fs.fused_decode_triangulate.launches = 0
+    got = [tuple(x.clone() for x in c) for c in reconstruct_stream(
+        iter(stacks), cam, proj, cfg, prefetch=prefetch)]
+    torch.cuda.synchronize()
+    assert fs.fused_decode_triangulate.launches == 4
+    cam_d, proj_d = cam.to(cuda), proj.to(cuda)
+    for s, c in zip(stacks, got):
+        ref = reconstruct_dense(torch.as_tensor(s).to(cuda), cam_d, proj_d, cfg)
+        for a, b in zip(c, ref):
+            assert torch.equal(a, b)
+
+
+def test_nan_guard_on_card_tensors(cuda):
+    from slr_torch.pipeline import nan_guard
+    from slr_torch.pipeline.reconstruct import reconstruct_dense
+
+    cam, proj, cfg, scan = _scan(cuda, 320, 256, 0.0)
+    x = torch.tensor([-1.0, 4.0], device=cuda)
+    with nan_guard():
+        with pytest.raises(FloatingPointError):
+            torch.log(x)
+        assert float(torch.sqrt(x[1:])) == 2.0
+        # K1 launches through ctypes: the guard sees no torch op in it
+        cloud = reconstruct_dense(scan.frames, cam, proj, cfg)
+    assert bool(torch.isnan(torch.log(x))[0]) and cloud.mask.any()
+
+
+@pytest.mark.parametrize("route", ["fused", "uint8", "voting", "wavefront", "hdr", "scan",
+                                   "accumulate"])
+def test_session_on_the_card_matches_the_cpu(cuda, tmp_path, route):
+    """One session directory reconstructed on the card and on the CPU: the
+    kernels' float32 tolerances against their plain versions; every stage
+    file the card writes loads back to the returned bits."""
+    from slr_torch.config import ScanConfig
+    from slr_torch.pipeline import Session
+
+    if route == "hdr":
+        cam, proj, cfg, _, frames = _bracket(torch.device("cpu"))
+    else:
+        cam, proj, cfg, scan = _scan(torch.device("cpu"), 320, 256, 0.004)
+        frames = quantize_frames(scan.frames) if route == "uint8" else scan.frames
+    dec = DecodeConfig(spatial_unwrap_mode="wavefront" if route == "wavefront" else "voting")
+    kw = {"voting": dict(spatial_iters=4), "wavefront": dict(spatial_iters=4),
+          "scan": dict(fused=False), "accumulate": dict(accumulate=True)}.get(route, {})
+    root = tmp_path / "s"
+    Session(root, ScanConfig(pattern=cfg, decode=dec), device="cpu").set_calibration(cam, proj)
+    Session(root, device="cpu").add_scan(frames)
+    c_cpu = Session(root, device="cpu").reconstruct(0, **kw)
+    on_card = Session(root, device=cuda)
+    fs.fused_decode_triangulate.launches = fs.fused_decode_triangulate_hdr.launches = 0
+    c_gpu = on_card.reconstruct(0, **kw)
+    torch.cuda.synchronize()
+    assert c_gpu.points.device.type == "cuda"
+    launched = (fs.fused_decode_triangulate.launches, fs.fused_decode_triangulate_hdr.launches)
+    assert launched == {"hdr": (0, 1), "scan": (0, 0)}.get(route, (1, 0))
+    _cloud_agrees_plain(c_gpu, c_cpu)
+    for a, b in zip(on_card.load_cloud(0), c_gpu):
+        assert torch.equal(a, b)

@@ -124,7 +124,12 @@ def test_port_imports_neither_jax_nor_slr():
         "slr_torch.calib, slr_torch.calib.board, slr_torch.calib.homography, "
         "slr_torch.calib.lm, slr_torch.calib.zhang, slr_torch.calib.stereo, "
         "slr_torch.calib.corners, slr_torch.calib.proj_corners, "
-        "slr_torch.calib.pipeline, slr_torch.synth.board\n"
+        "slr_torch.calib.pipeline, slr_torch.synth.board, slr_torch.io, "
+        "slr_torch.io.ply, slr_torch.io.calibio, slr_torch.io.checkpoint, "
+        "slr_torch.io.opencv_fs, slr_torch.io.images, slr_torch.observability, "
+        "slr_torch.pipeline.session, slr_torch.pipeline.stream, "
+        "slr_torch.pipeline.checks, slr_torch.pipeline.viewer, slr_torch.dist.batch, "
+        "slr_torch.cli, slr_torch.device\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'slr' or m.startswith('slr.'))\n"
         "print(bad)\n"
@@ -134,6 +139,25 @@ def test_port_imports_neither_jax_nor_slr():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("modules", [(
+    "slr_torch.dist.batch", "slr_torch.dist", "slr_torch.pipeline.session",
+    "slr_torch.pipeline.stream", "slr_torch.pipeline.checks", "slr_torch.pipeline.viewer",
+    "slr_torch.io", "slr_torch.io.ply", "slr_torch.observability", "slr_torch.cli")])
+def test_port_modules_import_first_in_a_fresh_process(modules):
+    """Each module of the product surface imports as the first of a fresh
+    interpreter (no import cycle through ``slr_torch.pipeline``)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    procs = {m: subprocess.Popen([sys.executable, "-c", f"import {m}"], cwd=REPO, env=env,
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for m in modules}
+    failed = {}
+    for m, proc in procs.items():
+        _, err = proc.communicate(timeout=120)
+        if proc.returncode:
+            failed[m] = err[-500:]
+    assert not failed, failed
 
 
 # ---------------------------------------------------------------- camera
