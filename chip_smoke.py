@@ -47,8 +47,14 @@ reference's 24-view Zhang and stereo solves (``benchmarks/tpu_matrix.py``)
 and the CLI's image route at 1280x1024 (8 rendered board views: corners
 detected, patterns decoded, corners lifted into the projector, camera,
 projector and stereo LM) under the reference's golden gates, twice to the
-same bits. Each path's output is checked against the
-synthetic ground truth and its launches counted; then the kernels, their
+same bits. Then the product surface (the session, the stream, the CLI,
+the viewer), and the parallel tier (``slr_torch.dist``), whose ranks are
+subprocesses of this script (``--dist-rank``): a one-rank NCCL group and
+four Gloo ranks sharing the card drive config 3 through
+``sharded_reconstruct`` (K1 at each rank's row offset, K3/K4 on its haloed
+block), the distributed BA and config 5 over a 2 x 2 layout, each held to
+the unsharded bits or bounds. Each path's output is
+checked against the synthetic ground truth and its launches counted; then the kernels, their
 plain versions and the paths are timed with CUDA events (every kernel also
 by device time, from CUDA-graph replays (K3's cooperative launch too);
 K6 and K7 with their registers, blocks an SM and K7's host launch time),
@@ -62,6 +68,7 @@ import math
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 import warnings
@@ -651,6 +658,29 @@ def stage_times(module, names, fn):
     return out, totals
 
 
+def render_orbit(dev, cam, proj, cfg):
+    """Config 5's orbit: ORBIT_SCANS_CONFIG5 uint8 scans of the rocks scene
+    from a moving config-3 rig. Returns (uint8 stacks, rig poses, truth
+    points), on the card."""
+    from slr_torch.geom.se3 import so3_exp
+    from slr_torch.synth.render import move_rig, quantize_frames, render_scan
+    from slr_torch.synth.scene import rocks_scene
+
+    cam_d, proj_d = cam.to(dev), proj.to(dev)
+    poses, stacks, truths = [], [], []
+    for s in range(ORBIT_SCANS_CONFIG5):
+        R_m = so3_exp(torch.tensor([0.0, 0.025 * s, 0.008 * s], device=dev))
+        t_m = torch.tensor([7.0 * s, -3.0 * s, 0.0], device=dev)
+        cam_s, proj_s = move_rig(cam_d, proj_d, R_m, t_m)
+        sc = render_scan(cam_s, proj_s, rocks_scene(cam_s, CAM_H, CAM_W), cfg,
+                         noise_std=0.003,
+                         generator=torch.Generator(device=dev).manual_seed(40 + s))
+        stacks.append(quantize_frames(sc.frames))
+        poses.append((R_m, t_m))
+        truths.append(sc.points_true)
+    return stacks, poses, truths
+
+
 def registration_phases(dev, cam, proj, cfg, counts_of, card):
     """Phases 19-23, configs 4 and 5: K8 against its plain version, the
     exact search and a brute force at the reference's 256k size; the
@@ -658,8 +688,8 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
     scans of the rocks scene (through K1, then K8); ``register_scans`` on a
     4-scan orbit; config 5 on the 8-scan orbit (``config5_phase``); then
     their times. Returns (config 5's K1 launches, the 8-scan orbit as
-    (uint8 stacks, rig poses, truth points), K8's entry of the ``kernels``
-    line)."""
+    (uint8 stacks, rig poses, truth points), config 5's single-device
+    result (``config5_phase``), K8's entry of the ``kernels`` line)."""
     from slr_torch.config import RegistrationConfig
     from slr_torch.geom.se3 import so3_exp
     from slr_torch.kernels import band_nn as kb
@@ -668,8 +698,6 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
     from slr_torch.registration.band import build_band_target
     from slr_torch.registration.icp import _resolve_nn_method, icp_point_to_plane
     from slr_torch.registration.nn import nearest_neighbors
-    from slr_torch.synth.render import move_rig, quantize_frames, render_scan
-    from slr_torch.synth.scene import rocks_scene
 
     def quiet(n, *allowed):
         return all(v == 0 for k, v in n.items() if k not in allowed)
@@ -739,18 +767,8 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
     # moving config-3 rig, decoded by K1 with the rig's own calibration, so
     # registration has to recover each rig pose; config 4 takes the first
     # ORBIT_SCANS
-    cam_d, proj_d = cam.to(dev), proj.to(dev)
-    poses, stacks, truths = [], [], []
-    for s in range(ORBIT_SCANS_CONFIG5):
-        R_m = so3_exp(torch.tensor([0.0, 0.025 * s, 0.008 * s], device=dev))
-        t_m = torch.tensor([7.0 * s, -3.0 * s, 0.0], device=dev)
-        cam_s, proj_s = move_rig(cam_d, proj_d, R_m, t_m)
-        sc = render_scan(cam_s, proj_s, rocks_scene(cam_s, CAM_H, CAM_W), cfg,
-                         noise_std=0.003,
-                         generator=torch.Generator(device=dev).manual_seed(40 + s))
-        stacks.append(quantize_frames(sc.frames))
-        poses.append((R_m, t_m))
-        truths.append(sc.points_true)
+    cam_d = cam.to(dev)
+    stacks, poses, truths = render_orbit(dev, cam, proj, cfg)
     model = DenseReconstructor(cam, proj, cfg).to(dev)
 
     def decode():
@@ -817,8 +835,9 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
 
     # phase 22b: config 5 on the 8-scan orbit
     mesh_dir = tempfile.TemporaryDirectory()
-    k1_config5, config5 = config5_phase(cam_d, model, stacks, poses, truths, counts_of,
-                                        quiet, Path(mesh_dir.name) / "config5_mesh.obj")
+    k1_config5, config5, config5_one = config5_phase(
+        cam_d, proj.to(dev), cfg, stacks, poses, truths, counts_of, quiet,
+        Path(mesh_dir.name) / "config5_mesh.obj")
 
     # phase 23: times, in turns: K8 (K8_BATCH launches a timed run), its
     # plain version and the exact search at 256k (CUDA events); the band
@@ -854,7 +873,7 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
          k8_fp32_issue_share=pairs * 8 / FP32_ISSUE_PER_S / (ms["k8"] * 1e-3),
          exact_pairs_per_s=N_BIG * N_BIG / (ms["exact_nn"] * 1e-3),
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
-    return k1_config5, (stacks, poses, truths), {"name": "band_nn_sorted", "route": "cuda",
+    return k1_config5, (stacks, poses, truths), config5_one, {"name": "band_nn_sorted", "route": "cuda",
             "source": "slr_torch/kernels/csrc/band_nn.cu",
             "replaces": "slr/registration/band.py:121",
             "launches": launches,
@@ -907,57 +926,73 @@ def config5_accuracy(name, reg, pts, val, verts, n_faces, clouds, poses, truths)
                 mesh_rms_points=int(mesh_sel.shape[0]))
 
 
-def config5_phase(cam, model, stacks, poses, truths, counts_of, quiet, mesh_path):
-    """Phase 22b, config 5 at the reference's size: the ORBIT_SCANS_CONFIG5
-    uint8 scans decoded through ``DenseReconstructor`` (one K1 launch a
-    scan, no other kernel), ``register_scans_batched`` (features, the
-    projective polish, closures), ``ba_refine``, ``fuse_scans``,
-    ``fuse_tsdf``, ``extract_mesh`` and the OBJ writer. Gated: the
+def config5_run(stacks, cam, proj, cfg, mesh=None, stages=None, mesh_path=None):
+    """Config 5 on the orbit, once: ``batched_reconstruct`` (one K1 launch a
+    scan), ``register_scans_batched``, ``ba_refine``, ``fuse_scans``,
+    ``fuse_tsdf``, ``extract_mesh`` and, given ``mesh_path``, the OBJ
+    writer; with a ``mesh`` the batch, the registration's edges and the
+    BA's landmarks over its map blocks. ``stages`` receives each stage's
+    host wall (ms, the card synchronised at each end). Returns (clouds, reg,
+    fused, volume, surface, the writer's counts or None, the TSDF's
+    warnings)."""
+    import warnings
+
+    from slr_torch.config import RegistrationConfig
+    from slr_torch.dist import batched_reconstruct
+    from slr_torch.pipeline import registerfuse as rf
+    from slr_torch.pipeline import tsdf
+    from slr_torch.pipeline.reconstruct import ScanCloud
+
+    stages = {} if stages is None else stages
+    mark = [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[name] = (now - mark[0]) * 1e3
+        mark[0] = now
+
+    torch.cuda.synchronize()
+    mark[0] = time.perf_counter()
+    batch = batched_reconstruct(torch.stack(list(stacks)), cam, proj, cfg, mesh=mesh)
+    clouds = [ScanCloud(*(x[i] for x in batch)) for i in range(len(stacks))]
+    lap("batched_reconstruct")
+    reg = rf.register_scans_batched(clouds, RegistrationConfig(icp_sample_points=C5_SAMPLES),
+                                    use_features=True, cam=cam, mesh=mesh)
+    lap("register_scans_batched")
+    reg = rf.ba_refine(clouds, reg, n_landmarks=C5_LANDMARKS, iters=C5_BA_ITERS, mesh=mesh)
+    lap("ba_refine")
+    fused = rf.fuse_scans(clouds, reg, RegistrationConfig(voxel_size=C5_VOXEL),
+                          capacity=C5_CAPACITY)
+    lap("fuse_scans")
+    with warnings.catch_warnings(record=True) as grown:
+        warnings.simplefilter("always")
+        vol = tsdf.fuse_tsdf(clouds, cam, reg.R, reg.t, size_vox=C5_TSDF, voxel=C5_VOXEL)
+    lap("fuse_tsdf")
+    surface = tsdf.extract_mesh(vol, with_colors=True)
+    lap("extract_mesh")
+    written = None
+    if mesh_path is not None:
+        written = tsdf.write_tsdf_mesh_obj(mesh_path, vol)
+        lap("write_tsdf_mesh_obj")
+    return clouds, reg, fused, vol, surface, written, [str(w.message) for w in grown]
+
+
+def config5_phase(cam, proj, cfg, stacks, poses, truths, counts_of, quiet, mesh_path):
+    """Phase 22b, config 5 at the reference's size: ``config5_run`` on the
+    ORBIT_SCANS_CONFIG5 uint8 scans (one K1 launch a scan, no other
+    kernel), with the OBJ writer. Gated: the
     reference's ok rule (every pose within 0.5 deg and 2 mm, the fused cloud
     below 2.5 mm RMS over its first 8192 points against the union of the
     truth clouds, more than 1000 faces), BA's rms below 1.5, the port's own
     tighter gates (poses within 0.5 mm, the fused cloud within 0.25 mm), the
     mesh's vertices within one voxel edge RMS of the truth union, and the
     same bits in two calls. Returns (K1 launches of the counted run, a
-    function running the pipeline once, for the timed turns)."""
-    import warnings
-
-    from slr_torch.config import RegistrationConfig
-    from slr_torch.pipeline import registerfuse as rf
-    from slr_torch.pipeline import tsdf
-
+    function running the pipeline once, for the timed turns, and the
+    single-device result the parallel tier is held to: its clouds, poses
+    and the second call's stage walls)."""
     def pipeline(stages):
-        """The pipeline once; ``stages`` receives each stage's host wall
-        (ms, the card synchronised at each end)."""
-        mark = [time.perf_counter()]
-
-        def lap(name):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            stages[name] = (now - mark[0]) * 1e3
-            mark[0] = now
-
-        torch.cuda.synchronize()
-        mark[0] = time.perf_counter()
-        clouds = [model(f) for f in stacks]
-        lap("decode")
-        reg = rf.register_scans_batched(clouds, RegistrationConfig(icp_sample_points=C5_SAMPLES),
-                                        use_features=True, cam=cam)
-        lap("register_scans_batched")
-        reg = rf.ba_refine(clouds, reg, n_landmarks=C5_LANDMARKS, iters=C5_BA_ITERS)
-        lap("ba_refine")
-        fused = rf.fuse_scans(clouds, reg, RegistrationConfig(voxel_size=C5_VOXEL),
-                              capacity=C5_CAPACITY)
-        lap("fuse_scans")
-        with warnings.catch_warnings(record=True) as grown:
-            warnings.simplefilter("always")
-            vol = tsdf.fuse_tsdf(clouds, cam, reg.R, reg.t, size_vox=C5_TSDF, voxel=C5_VOXEL)
-        lap("fuse_tsdf")
-        mesh = tsdf.extract_mesh(vol, with_colors=True)
-        lap("extract_mesh")
-        written = tsdf.write_tsdf_mesh_obj(mesh_path, vol)
-        lap("write_tsdf_mesh_obj")
-        return clouds, reg, fused, vol, mesh, written, [str(w.message) for w in grown]
+        return config5_run(stacks, cam, proj, cfg, None, stages, mesh_path)
 
     stages1, stages2 = {}, {}
     out, n = counts_of(lambda: pipeline(stages1))
@@ -1012,7 +1047,7 @@ def config5_phase(cam, model, stacks, poses, truths, counts_of, quiet, mesh_path
          valid_px=[int(c.mask.sum()) for c in clouds],
          stage_ms_first=stages1, stage_ms=stages2,
          stage_timing="host wall, the card synchronised at each end of a stage")
-    return n["k1"], lambda: pipeline({})
+    return n["k1"], lambda: pipeline({}), dict(clouds=clouds, reg=reg, stages=stages2)
 
 
 def crossing_agree(name, got, plain):
@@ -2185,7 +2220,507 @@ def product_phases(dev, counts_of, card, main_path, orbit):
     return launches
 
 
+# --- the parallel tier (slr_torch.dist): ranks as subprocesses of this script
+
+DIST_SWEEPS = 8                # repair sweeps of the sharded config-3 scan (2 exchanges)
+DIST_TILES = 4                 # pixel tiles of the one-card Gloo world: rows 0/256/512/768
+DIST_GLOO_WORLD = 4
+DIST_BA = dict(S=6, L=4096, K=3, iters=10)   # tpu_matrix.py:412-433, schur_ba_S6_L4096_10iter
+DIST_BA_RMS_GATE = 0.05                      # tpu_matrix.py:443
+# the distributed BA against the single-device one (tests/test_dist.py:169-175)
+DIST_T_TOL, DIST_R_TOL, DIST_X_TOL, DIST_RMS_RTOL = 1e-3, 1e-5, 1e-3, 1e-3
+# config 5's poses sharded against unsharded: the batched registration's
+# bounds (tests/test_torch_registerfuse.py:298-300)
+DIST_C5_R_TOL, DIST_C5_T_TOL = 1e-4, 2e-2
+DIST_TIMED = 3                 # timed runs a sharded call, median
+DIST_TIMEOUT_S = 420           # a world's wall and its process group's timeout
+
+
+def digest(*tensors):
+    """SHA-256 of the tensors' shapes, dtypes and bytes: equal digests are
+    equal bits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        t = torch.as_tensor(t).detach().contiguous().cpu()
+        h.update(f"{tuple(t.shape)}{t.dtype}".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_wrappers():
+    from slr_torch.kernels import band_nn as kb
+    from slr_torch.kernels import crossing as kx
+    from slr_torch.kernels import fused_scan as fs
+    from slr_torch.kernels import unwrap_scan as us
+    from slr_torch.kernels import wavefront as wf
+
+    return {"k1": fs.fused_decode_triangulate, "k2": fs.fused_decode_triangulate_hdr,
+            "k3": us.quality_unwrap, "k4": us.quality_unwrap_tiled, "k5": wf.wavefront_pass,
+            "k8": kb.band_nn_sorted, "k6": kx.crossing_bin_sum,
+            "k7": kx.crossing_interp_fused}
+
+
+def dist_counted(fn, staged):
+    """``fn()`` with every launch count and the collectives' counts set to 0
+    just before; returns (result, launches, collective calls, bytes sent)
+    read just after. ``staged`` collects the ops Gloo staged through the
+    host."""
+    from slr_torch.dist import comm
+
+    wrappers = dist_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    comm.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    staged.update(comm.staged)
+    return (out, {k: w.launches for k, w in wrappers.items()}, dict(comm.calls),
+            dict(comm.sent_bytes))
+
+
+def dist_wall_ms(fn, runs=DIST_TIMED):
+    """Median host wall (ms) of ``fn()``, the card synchronised at each
+    end; every rank runs it the same number of times."""
+    ts = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def dist_inputs_camera(inp, prefix, dev):
+    from slr_torch.geom.camera import Camera
+
+    return Camera(*(torch.from_numpy(inp[f"{prefix}_{f}"]).to(dev) for f in Camera._fields))
+
+
+def dist_job_config3(job, inp, dev, staged):
+    """The config-3 stack (float32 and uint8) through ``sharded_reconstruct``
+    at 0 and DIST_SWEEPS sweeps over ``pixel_tiles`` tiles."""
+    from types import SimpleNamespace
+
+    from slr_torch.config import DecodeConfig, PatternConfig
+    from slr_torch.dist import make_mesh, sharded_reconstruct
+
+    mesh = make_mesh(pixel_tiles=job["pixel_tiles"])
+    cam, proj = dist_inputs_camera(inp, "cam", dev), dist_inputs_camera(inp, "proj", dev)
+    cfg = PatternConfig(proj_width=PROJ_W, proj_height=PROJ_H, gray_bits=7, phase_steps=4)
+    truth = SimpleNamespace(points_true=torch.from_numpy(inp["points_true"]).to(dev),
+                            mask_true=torch.from_numpy(inp["mask_true"]).to(dev))
+    out = {"coords": dict(mesh.coords), "shape": dict(mesh.shape)}
+    for name in ("float32", "uint8"):
+        frames = torch.from_numpy(inp[f"frames_{name}"]).to(dev)
+        for it in (0, DIST_SWEEPS):
+            def run():
+                return sharded_reconstruct(frames, cam, proj, cfg, DecodeConfig(), mesh,
+                                           spatial_iters=it)
+
+            res, n, calls, sent = dist_counted(run, staged)
+            rms, valid = rms_vs_truth(res[0], res[1], truth)
+            out[(name, it)] = dict(digest=[digest(t) for t in res], launches=n, calls=calls,
+                                   sent=sent, rms_mm=rms, valid_points=valid,
+                                   again=[digest(t) for t in run()],
+                                   ms=dist_wall_ms(run))
+    return out
+
+
+def dist_ba_problem():
+    """tpu_matrix.py:412-433's BA case (numpy seed 7): S poses, L landmarks
+    seen K times each, 0.01 mm noise, the poses and landmarks perturbed."""
+    from slr_torch.geom.se3 import so3_exp
+
+    r = np.random.default_rng(7)
+    S, L, K = DIST_BA["S"], DIST_BA["L"], DIST_BA["K"]
+    f32 = dict(dtype=torch.float32)
+    R_true = torch.stack([torch.eye(3)] + [so3_exp(torch.tensor(r.uniform(-0.3, 0.3, 3), **f32))
+                                           for _ in range(1, S)])
+    t_true = torch.cat([torch.zeros(1, 3), torch.tensor(r.uniform(-50, 50, (S - 1, 3)), **f32)])
+    X_true = torch.tensor(r.uniform(-100, 100, (L, 3)), **f32)
+    obs_s = torch.tensor(r.integers(0, S, (L, K)), dtype=torch.int64)
+    p = torch.einsum("lkij,lki->lkj", R_true[obs_s], X_true[:, None, :] - t_true[obs_s])
+    p = p + torch.tensor(r.normal(0, 0.01, tuple(p.shape)), **f32)
+    R0 = R_true @ so3_exp(torch.tensor(r.normal(0, 0.02, (S, 3)), **f32))
+    t0 = t_true + torch.tensor(r.normal(0, 2.0, (S, 3)), **f32)
+    X0 = X_true + torch.tensor(r.normal(0, 2.0, (L, 3)), **f32)
+    return dict(ba_R0=R0, ba_t0=t0, ba_X0=X0, ba_s=obs_s, ba_p=p, ba_w=torch.ones(L, K))
+
+
+def dist_job_ba(job, inp, dev, staged):
+    """``distributed_bundle_adjust`` on DIST_BA over ``map_blocks`` blocks,
+    twice, and its time a Gauss-Newton iteration."""
+    from slr_torch.dist import distributed_bundle_adjust, make_mesh
+
+    n = torch.distributed.get_world_size()
+    mesh = make_mesh(pixel_tiles=n // job["map_blocks"], map_blocks=job["map_blocks"])
+    args = [torch.from_numpy(inp[k]).to(dev)
+            for k in ("ba_R0", "ba_t0", "ba_X0", "ba_s", "ba_p", "ba_w")]
+
+    def run():
+        return distributed_bundle_adjust(*args, mesh, iters=DIST_BA["iters"])
+
+    res, launches, calls, sent = dist_counted(run, staged)
+    again = run()
+    return dict(result=[t.cpu() for t in res], again=[digest(t) for t in again],
+                launches=launches, calls=calls, sent=sent,
+                ms_per_iter=dist_wall_ms(run) / DIST_BA["iters"])
+
+
+def dist_job_config5(job, inp, dev, staged):
+    """Config 5 on the orbit over a ``map_blocks`` x ``pixel_tiles`` mesh
+    (``config5_run``): digests of every output, the poses, stage walls;
+    rank 0 also returns the fused cloud and the mesh for the accuracy
+    gates."""
+    from slr_torch.config import PatternConfig
+    from slr_torch.dist import make_mesh
+
+    mesh = make_mesh(pixel_tiles=job["pixel_tiles"], map_blocks=job["map_blocks"])
+    cam, proj = dist_inputs_camera(inp, "cam", dev), dist_inputs_camera(inp, "proj", dev)
+    cfg = PatternConfig(proj_width=PROJ_W, proj_height=PROJ_H, gray_bits=7, phase_steps=4)
+    stacks = torch.from_numpy(inp["orbit"]).to(dev)
+    stages, stages2 = {}, {}
+    t0 = time.perf_counter()
+    (clouds, reg, fused, vol, surface, _, _), n, calls, sent = dist_counted(
+        lambda: config5_run(stacks, cam, proj, cfg, mesh, stages), staged)
+    wall = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    again = config5_run(stacks, cam, proj, cfg, mesh, stages2)
+    wall2 = (time.perf_counter() - t0) * 1e3
+
+    def digests(clouds, reg, fused, vol, surface):
+        return dict(clouds=[digest(*c) for c in clouds], reg_digest=digest(*reg),
+                    fused=digest(*fused), volume=digest(vol.tsdf, vol.weight, vol.color),
+                    surface=digest(*surface))
+
+    out = dict(launches=n, calls=calls, sent=sent, wall_ms_first=wall, wall_ms=wall2,
+               stage_ms_first=stages, stage_ms=stages2, reg=[t.cpu() for t in reg],
+               again=digests(*again[:5]), **digests(clouds, reg, fused, vol, surface))
+    if torch.distributed.get_rank() == 0:
+        out.update(pts=fused[0].cpu(), val=fused[1].cpu(), verts=surface[0].cpu(),
+                   faces=surface[1].cpu())
+    return out
+
+
+DIST_JOBS = {"config3": dist_job_config3, "ba": dist_job_ba, "config5": dist_job_config5}
+
+
+def dist_rank(argv):
+    """One rank: ``chip_smoke.py --dist-rank RANK WORLD BACKEND STORE
+    WORKDIR``. Joins the job (a world of one through a process group of its
+    own, which ``init_distributed`` skips; Gloo ranks all on ``cuda:0``),
+    runs ``WORKDIR/task.json``'s jobs and writes ``WORKDIR/rank<r>.pt``."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from slr_torch.dist import init_distributed
+
+    rank, world, backend, store, workdir = (int(argv[0]), int(argv[1]), argv[2], argv[3],
+                                            Path(argv[4]))
+    task = json.loads((workdir / "task.json").read_text())
+    if world == 1:
+        torch.cuda.set_device(0)
+        dist.init_process_group(backend, init_method=store, world_size=1, rank=0,
+                                timeout=timedelta(seconds=DIST_TIMEOUT_S))
+    else:
+        init_distributed(store, world, rank, backend=backend,
+                         device="cuda:0" if backend == "gloo" else None,
+                         timeout_s=DIST_TIMEOUT_S)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    inp = np.load(workdir / "inputs.npz")
+    staged = set()
+    out = {"rank": rank, "device": str(dev), "backend": dist.get_backend()}
+    for job in task["jobs"]:
+        out[job["name"]] = DIST_JOBS[job["kind"]](job, inp, dev, staged)
+    out["staged"] = sorted(staged)
+    torch.save(out, workdir / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def dist_world(workdir, world, backend, jobs):
+    """Starts ``world`` ranks of this script (their output to log files, not
+    this script's stdout), waits for them (at most DIST_TIMEOUT_S) and
+    returns each rank's results and the world's wall (s); kills every rank
+    if one fails or the world outlives its time."""
+    import shutil
+
+    wd = Path(workdir) / f"{backend}{world}"
+    shutil.rmtree(wd, ignore_errors=True)
+    wd.mkdir(parents=True)
+    (wd / "task.json").write_text(json.dumps({"jobs": jobs}))
+    (wd / "inputs.npz").symlink_to(Path(workdir) / "inputs.npz")
+    store = f"file://{wd / 'store'}"
+    logs = [open(wd / f"rank{r}.log", "wb") for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dist-rank",
+                               str(r), str(world), backend, store, str(wd)],
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    try:
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        for r in range(world):
+            sys.stderr.write(f"--- {backend} rank {r} (rc {rcs[r]}):\n"
+                             + (wd / f"rank{r}.log").read_text()[-4000:] + "\n")
+        check(False, f"a {backend} world of {world} ranks: exit codes {rcs}")
+    return [torch.load(wd / f"rank{r}.pt", weights_only=False) for r in range(world)], wall
+
+
+def dist_phases(dev, card, main_path, orbit, config5_one):
+    """The parallel tier on the card (``slr_torch.dist``), ranks as
+    subprocesses of this script after every kernel is built:
+
+    - ``dist_world1_nccl``: a process group of one rank over NCCL: the
+      config-3 stack (float32 and uint8) through ``sharded_reconstruct`` at
+      0 and DIST_SWEEPS sweeps (K1, then K4 on the haloed 1032-row block),
+      and the distributed BA on DIST_BA (one all-reduce an iteration);
+    - ``dist_one_card_gloo``: DIST_GLOO_WORLD ranks sharing ``cuda:0`` over
+      Gloo (named, as a card shared needs): config 3 over 4 pixel tiles (K1
+      at rows 0/256/512/768, K3 on each 264-row haloed block, 2 ring
+      exchanges a scan), the BA over 4 map blocks, and config 5 on the
+      orbit over a 2 x 2 layout (the batch, the registration's edges and
+      the BA's landmarks over 2 map blocks, then the voxel fuse and the
+      TSDF mesh);
+    - ``dist_nccl_multi_gpu``: an NCCL world of min(GPUs, 4) where the
+      machine has 2 GPUs or more; else one line saying so.
+
+    Gated: sharded config 3 at 0 sweeps equal to the unsharded K1 call bit
+    for bit (digests), at DIST_SWEEPS sweeps equal to the unsharded
+    composition (K1, ``quality_unwrap``, ``triangulate_plane``) on every
+    rank of every world, RMS <= RMS_GATE_MM, K1 once a rank, K3/K4 by their
+    route on the block, the ring's calls and bytes those of
+    ``comm_halo_bytes``; the BA within tests/test_dist.py's bounds of
+    ``bundle_adjust_reference`` on the card, the same bits on every rank
+    and in two runs, one all-reduce an iteration, rms < DIST_BA_RMS_GATE;
+    config 5's clouds the single-device bits, its poses within
+    DIST_C5_R_TOL / DIST_C5_T_TOL of the single-device run, config 5's
+    accuracy gates, every output the same on every rank. Four ranks
+    time-slice one card, so their times are not scaling numbers; the
+    ``dist_scaling_projection`` line projects from the one-rank times and
+    the helpers' bytes at the data sheet's NVLink rate. Returns the K1, K3
+    and K4 launches of the ranks' counted runs."""
+    from slr_torch import observability as ob
+    from slr_torch.codec import unwrap as pu
+    from slr_torch.config import DecodeConfig
+    from slr_torch.dist import bundle_adjust_reference
+    from slr_torch.geom.triangulate import triangulate_plane
+    from slr_torch.kernels import fused_scan as fs
+    from slr_torch.kernels import unwrap_scan as us
+    from slr_torch.pipeline.reconstruct import _pixel_grid
+
+    cam_d, proj_d, cfg = main_path["cam"], main_path["proj"], main_path["cfg"]
+    scan = main_path["scan"]
+    stacks, poses, truths = orbit
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    problem = dist_ba_problem()
+    np.savez(Path(tmp.name) / "inputs.npz",
+             frames_float32=main_path["frames"].cpu().numpy(),
+             frames_uint8=main_path["frames8"].cpu().numpy(),
+             points_true=scan.points_true.cpu().numpy(), mask_true=scan.mask_true.cpu().numpy(),
+             orbit=torch.stack(list(stacks)).cpu().numpy(),
+             **{f"{p}_{f}": x.cpu().numpy() for p, c in (("cam", cam_d), ("proj", proj_d))
+                for f, x in zip(c._fields, c)},
+             **{k: v.numpy() for k, v in problem.items()})
+    setup_s = time.perf_counter() - t0
+
+    # the single-device oracles, on the card
+    H, W = CAM_H, CAM_W
+    oracle3 = {}
+    for name, frames in (("float32", main_path["frames"]), ("uint8", main_path["frames8"])):
+        out = fs.fused_decode_triangulate(frames, cam_d, proj_d, cfg, DecodeConfig())
+        mask = out.mask > 0.5
+        oracle3[(name, 0)] = [digest(t) for t in (out.points.movedim(0, -1), mask, out.x_p,
+                                                 out.quality)]
+        Phi = pu.spatial_quality_unwrap(out.x_p * (2.0 * math.pi / cfg.fringe_pitch),
+                                        out.quality, mask, iters=DIST_SWEEPS)
+        x_p = Phi * (cfg.fringe_pitch / (2.0 * math.pi))
+        pts, _ = triangulate_plane(cam_d, proj_d, *_pixel_grid(H, W, dev), x_p)
+        oracle3[(name, DIST_SWEEPS)] = [digest(t) for t in (pts, mask, x_p, out.quality)]
+    ba_args = [problem[k].to(dev) for k in ("ba_R0", "ba_t0", "ba_X0", "ba_s", "ba_p", "ba_w")]
+    ba_ref = [t.cpu() for t in bundle_adjust_reference(*ba_args, iters=DIST_BA["iters"])]
+    c5_clouds, c5_reg, c5_stages = (config5_one[k] for k in ("clouds", "reg", "stages"))
+    c5_ref_digests = [digest(*c) for c in c5_clouds]
+
+    def block_launches(world, sweeps, h=4):
+        """K3 and K4 launches a rank for ``sweeps`` sweeps in exchanges of
+        ``h`` on its haloed block (``quality_unwrap``'s route)."""
+        rows = H // world + 2 * h
+        k3 = us.takes_resident(rows, W, us.resident_layout(dev.index or 0))
+        n_ex = -(-sweeps // h)
+        return (n_ex, 0) if k3 else (0, n_ex * -(-h // us.MAX_HALO))
+
+    totals = {"k1": 0, "k3": 0, "k4": 0}
+
+    def gate_config3(name, results, world):
+        rows = []
+        for r, res in enumerate(results):
+            c3 = res["config3"]
+            check(c3["coords"]["pixel_tile"] == r % world and c3["shape"]["pixel_tile"] == world,
+                  f"{name}: rank {r} mesh {c3['coords']}")
+            for key, ref in oracle3.items():
+                got = c3[key]
+                check(got["digest"] == ref and got["again"] == ref,
+                      f"{name}: rank {r} {key} differs from the unsharded result")
+                check(got["rms_mm"] <= RMS_GATE_MM, f"{name}: {key} RMS {got['rms_mm']}")
+                k3, k4 = block_launches(world, key[1]) if key[1] else (0, 0)
+                want = dict.fromkeys(got["launches"], 0)
+                want.update(k1=1, k3=k3, k4=k4)
+                check(got["launches"] == want, f"{name}: rank {r} {key} launches "
+                                               f"{got['launches']}, want {want}")
+                n_ex = -(-key[1] // 4) if world > 1 else 0
+                check(got["calls"]["ring"] == n_ex and got["calls"]["all_gather"] == 1
+                      and got["sent"]["ring"] == ob.comm_halo_bytes(W, 4, 4, 3, n_ex),
+                      f"{name}: rank {r} {key} collectives {got['calls']} {got['sent']}")
+                for k in totals:
+                    totals[k] += got["launches"][k]
+            rows.append(c3)
+        return {f"{k[0]}_sweeps{k[1]}": dict(
+            ms=[c[k]["ms"] for c in rows], rms_mm=rows[0][k]["rms_mm"],
+            valid_points=rows[0][k]["valid_points"], launches_rank0=rows[0][k]["launches"],
+            ring_calls=rows[0][k]["calls"]["ring"], ring_bytes=rows[0][k]["sent"]["ring"],
+            gather_bytes=rows[0][k]["sent"]["all_gather"],
+            row_offsets=[c["coords"]["pixel_tile"] * (H // world) for c in rows])
+            for k in oracle3}
+
+    def gate_ba(name, results):
+        first = results[0]["ba"]
+        R, t, X, cost, rms = first["result"]
+        for r, res in enumerate(results):
+            ba = res["ba"]
+            check([digest(x) for x in ba["result"]] == ba["again"]
+                  == [digest(x) for x in first["result"]],
+                  f"{name}: BA rank {r} differs from rank 0 or from its second run")
+            check(ba["calls"]["all_reduce"] == DIST_BA["iters"] and ba["calls"]["all_gather"] == 1
+                  and not any(ba["launches"].values()), f"{name}: BA {ba['calls']}")
+            check(ba["sent"]["all_reduce"] * 2 == ob.comm_schur_bytes(DIST_BA["S"], DIST_BA["iters"]),
+                  f"{name}: BA all-reduce bytes {ba['sent']}")
+        errs = dict(t=float((t - ba_ref[1]).abs().max()), R=float((R - ba_ref[0]).abs().max()),
+                    X=float((X - ba_ref[2]).abs().max()),
+                    rms_rel=abs(float(rms) / float(ba_ref[4]) - 1))
+        check(errs["t"] <= DIST_T_TOL and errs["R"] <= DIST_R_TOL and errs["X"] <= DIST_X_TOL
+              and errs["rms_rel"] <= DIST_RMS_RTOL, f"{name}: BA against the reference {errs}")
+        check(float(rms) < DIST_BA_RMS_GATE, f"{name}: BA rms {float(rms)}")
+        return dict(rms=float(rms), reference_rms=float(ba_ref[4]), vs_reference=errs,
+                    ms_per_iter=[res["ba"]["ms_per_iter"] for res in results],
+                    all_reduce_calls=first["calls"]["all_reduce"],
+                    all_reduce_bytes=first["sent"]["all_reduce"])
+
+    def gate_config5(name, results):
+        first = results[0]["config5"]
+        for r, res in enumerate(results):
+            c5 = res["config5"]
+            check(c5["clouds"] == c5_ref_digests, f"{name}: rank {r} clouds differ from one "
+                                                  "device's")
+            mine = {k: c5[k] for k in c5["again"]}
+            check(mine == c5["again"] == {k: first[k] for k in c5["again"]},
+                  f"{name}: rank {r} differs from rank 0 or from its second run")
+            want = dict.fromkeys(c5["launches"], 0)
+            want["k1"] = ORBIT_SCANS_CONFIG5 // 2
+            check(c5["launches"] == want, f"{name}: config 5 launches {c5['launches']}")
+            totals["k1"] += c5["launches"]["k1"]
+        R, t = first["reg"][0].to(dev), first["reg"][1].to(dev)
+        dR, dt = float((R - c5_reg.R).abs().max()), float((t - c5_reg.t).abs().max())
+        check(dR <= DIST_C5_R_TOL and dt <= DIST_C5_T_TOL,
+              f"{name}: config 5 poses {dR} / {dt} mm from one device's")
+        reg = type(c5_reg)(*(x.to(dev) for x in first["reg"]))
+        acc = config5_accuracy(name, reg, first["pts"].to(dev), first["val"].to(dev),
+                               first["verts"].to(dev), int(first["faces"].shape[0]),
+                               c5_clouds, poses, truths)
+        return dict(poses_vs_one_device=dict(R=dR, t_mm=dt), **acc,
+                    wall_ms=[res["config5"]["wall_ms"] for res in results],
+                    wall_ms_first=[res["config5"]["wall_ms_first"] for res in results],
+                    stage_ms_rank0=first["stage_ms"], one_device_stage_ms=c5_stages,
+                    one_device_wall_ms=sum(v for k, v in c5_stages.items()
+                                           if k != "write_tsdf_mesh_obj"),
+                    wall="a rank's second run (its first, in a fresh process, in "
+                         "wall_ms_first); one device: config5's second call, its OBJ "
+                         "writer left out, as the ranks run none",
+                    gathers=first["calls"]["all_gather"],
+                    all_reduce=first["calls"]["all_reduce"])
+
+    # phase: a real process group of one rank over NCCL
+    jobs = [dict(name="config3", kind="config3", pixel_tiles=1),
+            dict(name="ba", kind="ba", map_blocks=1)]
+    results, wall = dist_world(tmp.name, 1, "nccl", jobs)
+    c3_one = gate_config3("dist_world1_nccl", results, 1)
+    ba_one = gate_ba("dist_world1_nccl", results)
+    emit("dist_world1_nccl", card=card, backend=results[0]["backend"],
+         staged=results[0]["staged"], config3=c3_one, ba=ba_one, world_s=wall,
+         inputs_setup_s=setup_s,
+         timing="host wall a call, median of 3, the card synchronised at each end")
+
+    # phase: DIST_GLOO_WORLD ranks sharing one card over Gloo
+    jobs = [dict(name="config3", kind="config3", pixel_tiles=DIST_TILES),
+            dict(name="ba", kind="ba", map_blocks=DIST_GLOO_WORLD),
+            dict(name="config5", kind="config5", pixel_tiles=2, map_blocks=2)]
+    results, wall = dist_world(tmp.name, DIST_GLOO_WORLD, "gloo", jobs)
+    check(all(r["backend"] == "gloo" and r["device"] == "cuda:0" for r in results),
+          "gloo ranks off cuda:0")
+    emit("dist_one_card_gloo", card=card, backend="gloo", ranks=DIST_GLOO_WORLD,
+         staged=sorted({op for r in results for op in r["staged"]}),
+         config3=gate_config3("dist_one_card_gloo", results, DIST_TILES),
+         ba=gate_ba("dist_one_card_gloo", results),
+         config5=gate_config5("dist_one_card_gloo", results), world_s=wall,
+         timing=f"{DIST_GLOO_WORLD} ranks time-slice one card: not scaling numbers")
+
+    # phase: an NCCL world over several GPUs, where the machine has them
+    gpus = torch.cuda.device_count()
+    if gpus >= 2:
+        world = min(gpus, 4)
+        jobs = [dict(name="config3", kind="config3", pixel_tiles=world),
+                dict(name="ba", kind="ba", map_blocks=world)]
+        if world == 4:
+            jobs.append(dict(name="config5", kind="config5", pixel_tiles=2, map_blocks=2))
+        results, wall = dist_world(tmp.name, world, "nccl", jobs)
+        emit("dist_nccl_multi_gpu", ran=True, card=card, ranks=world,
+             staged=sorted({op for r in results for op in r["staged"]}),
+             config3=gate_config3("dist_nccl_multi_gpu", results, world),
+             ba=gate_ba("dist_nccl_multi_gpu", results),
+             **({"config5": gate_config5("dist_nccl_multi_gpu", results)}
+                if world == 4 else {}), world_s=wall)
+    else:
+        emit("dist_nccl_multi_gpu", ran=False,
+             reason=f"{gpus} GPU on this machine; an NCCL world needs one GPU a rank")
+
+    # a projection, not a measurement: the one-rank times split over
+    # DIST_TILES ranks, plus the helpers' bytes at the data sheet's NVLink
+    # rate and 1 us a collective
+    gather = 27 * H * W * (DIST_TILES - 1) // DIST_TILES   # 27 B a pixel gathered
+    emit("dist_scaling_projection", card=card, ranks=DIST_TILES,
+         source="projection: dist_world1_nccl's one-rank walls / ranks, the bytes of "
+                "comm_halo_bytes, comm_schur_bytes and the gather, NVLink 450 GB/s a "
+                "direction (the data sheet of the H100 SXM: NVIDIA H100 80GB HBM3, "
+                "700 W), 1 us a collective",
+         config3_float32=ob.scaling_projection(
+             c3_one[f"float32_sweeps{DIST_SWEEPS}"]["ms"][0] / DIST_TILES,
+             ob.comm_halo_bytes(W, 4, 4, 3, 2) + gather, 3, ob.NVLINK_GBPS),
+         ba_iteration=ob.scaling_projection(
+             ba_one["ms_per_iter"][0] / DIST_TILES, ob.comm_schur_bytes(DIST_BA["S"]), 1,
+             ob.NVLINK_GBPS))
+    tmp.cleanup()
+    return totals
+
+
 def main():
+    """Every phase."""
     wall_start = time.perf_counter()
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -2967,7 +3502,8 @@ def main():
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
 
     # phases 19-23: registration (config 4), K8
-    k1_config5, orbit, k8_entry = registration_phases(dev, cam, proj, cfg, counts_of, card)
+    k1_config5, orbit, config5_one, k8_entry = registration_phases(dev, cam, proj, cfg,
+                                                                   counts_of, card)
     launches += k1_config5
 
     # phases 24-30: the two-camera merge, K7 and K6
@@ -2981,6 +3517,11 @@ def main():
     product_launches = product_phases(
         dev, counts_of, card, dict(cam=cam_d, proj=proj_d, cfg=cfg, cloud=cloud,
                                    frames=frames, frames8=frames8, bracket=bracket), orbit)
+
+    # phases 40-43: the parallel tier (slr_torch.dist), ranks as subprocesses
+    dist_launches = dist_phases(dev, card, dict(cam=cam_d, proj=proj_d, cfg=cfg, frames=frames,
+                                                frames8=frames8, scan=scan), orbit,
+                                config5_one)
 
     def bound(nbytes=0, instr=0):
         """The least time (ms) for ``nbytes`` of HBM traffic and ``instr``
@@ -3120,9 +3661,9 @@ def main():
         "device_ms": device_ms["k5_rows"],
         "device_ms_cols": device_ms["k5_cols"],
     }, k8_entry, k7_entry, k6_entry]
-    # the session paths' launches join the main path's
+    # the session paths' and the ranks' launches join the main path's
     for key, entry in zip(("k1", "k2", "k3", "k4", "k5", "k8", "k7", "k6"), kernels):
-        entry["launches"] += product_launches[key]
+        entry["launches"] += product_launches[key] + dist_launches.get(key, 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3130,4 +3671,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-rank"]:
+        dist_rank(sys.argv[2:])
+    else:
+        main()

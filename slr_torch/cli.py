@@ -14,10 +14,14 @@ Usage:
 Every command runs on the card (``--device cuda``, the default) and raises
 without one unless given ``--device cpu``. Noise comes from seeded
 ``torch.Generator``s, so a noisy render is not JAX's bit for bit; with
-``--noise 0`` the two CLIs render the same scans. The multi-process and
-sharded options (``--num-procs``, ``--coordinator``, ``--pixel-tiles``,
-``--map-blocks`` past the machine's GPUs) come with multi-GPU (ROADMAP
-slice 8), and ``bench`` with the port's first benchmark.
+``--noise 0`` the two CLIs render the same scans. ``bench`` comes with the
+port's first benchmark.
+
+A job of several processes: start one process a GPU, each with
+``--coordinator HOST:PORT --num-procs N --proc-id R`` (NCCL; rank R on
+``cuda:R``), or with ``--device cpu`` for Gloo ranks on the CPU, and the
+same command. ``demo --pixel-tiles/--map-blocks`` then takes the sharded
+routes when the job has that many ranks; only rank 0 writes the session.
 """
 
 from __future__ import annotations
@@ -30,10 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from slr_torch.device import require_device
 from slr_torch.pipeline import Session
-
-SLICE_8 = "comes with the port's multi-GPU tier (ROADMAP slice 8)"
 
 
 def _generator(device, seed: int) -> torch.Generator:
@@ -179,18 +180,16 @@ def cmd_demo(args):
     """Full synthetic end-to-end: calibrate, then 3 scans -> reconstruct ->
     register -> fuse.
 
-    --pixel-tiles/--map-blocks write a DistConfig into the session; with
-    fewer GPUs than the layout every stage runs on one device
-    (``mesh_fallback``), with that many the sharded routes are refused
-    (slice 8)."""
+    --pixel-tiles/--map-blocks write a DistConfig into the session, so a
+    job of that many ranks takes the sharded routes: pixel-tile sharded
+    reconstruction, batched registration and the distributed Schur BA over
+    the map blocks. A smaller job runs every stage unsharded on each rank
+    (``mesh_fallback``)."""
     ns = argparse.Namespace
     coding = getattr(args, "coding", "gray_phase")
     pixel_tiles = getattr(args, "pixel_tiles", 1)
     map_blocks = getattr(args, "map_blocks", 1)
-    n = pixel_tiles * map_blocks
-    if n > 1 and require_device(args.device).type == "cuda" and torch.cuda.device_count() >= n:
-        raise NotImplementedError(f"demo --pixel-tiles/--map-blocks over {n} GPUs {SLICE_8}")
-    if coding != "gray_phase" or n > 1:
+    if coding != "gray_phase" or pixel_tiles * map_blocks > 1:
         from slr_torch.config import DistConfig, PatternConfig
 
         cfg = Session(args.out, device=args.device).config
@@ -330,9 +329,10 @@ def main(argv=None):
                     help="torch device every command runs on (default: the card; "
                          "'cpu' for the CPU)")
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                    help=f"multi-process job coordinator ({SLICE_8})")
+                    help="multi-process job coordinator (rank 0 listens there; or an "
+                         "init-method URL such as file:///path/store)")
     ap.add_argument("--num-procs", type=int, default=None, dest="num_procs",
-                    help=f"total process count of the distributed job ({SLICE_8})")
+                    help="total process count of the distributed job")
     ap.add_argument("--proc-id", type=int, default=None, dest="proc_id",
                     help="this process's rank in [0, num-procs)")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -386,9 +386,9 @@ def main(argv=None):
                    choices=["gray_phase", "gray", "multifreq"],
                    help="temporal coding family (gray = Gray code only)")
     p.add_argument("--pixel-tiles", type=int, default=1, dest="pixel_tiles",
-                   help=f"shard image rows over this many GPUs ({SLICE_8})")
+                   help="shard image rows over this many ranks")
     p.add_argument("--map-blocks", type=int, default=1, dest="map_blocks",
-                   help=f"shard scans/landmarks over this many GPUs ({SLICE_8})")
+                   help="shard scans/landmarks over this many ranks")
     p.set_defaults(fn=cmd_demo)
 
     p = sub.add_parser("stereo-demo",
@@ -434,8 +434,18 @@ def main(argv=None):
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
-    if (args.num_procs and args.num_procs > 1) or args.coordinator:
-        raise NotImplementedError(f"--num-procs/--coordinator: a multi-process job {SLICE_8}")
+    if args.num_procs and args.num_procs > 1:
+        from slr_torch.dist import init_distributed
+
+        dev = torch.device(args.device)
+        args.device = str(init_distributed(
+            coordinator=args.coordinator, num_processes=args.num_procs,
+            process_id=args.proc_id, device=None if dev == torch.device("cuda") else dev))
+        try:
+            args.fn(args)
+        finally:
+            torch.distributed.destroy_process_group()
+        return
     args.fn(args)
 
 

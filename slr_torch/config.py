@@ -144,9 +144,9 @@ class RegistrationConfig:
 @dataclass(frozen=True)
 class DistConfig:
     """Device layout: ``pixel_tiles`` shards the image rows of a scan,
-    ``map_blocks`` shards scans and landmark fragments. Either past 1 needs
-    that many GPUs, which the port's multi-GPU tier (ROADMAP slice 8)
-    brings; on one GPU the session runs single-device."""
+    ``map_blocks`` shards scans and landmark fragments, over a job of
+    ``pixel_tiles * map_blocks`` ranks (``slr_torch.dist``); in a smaller
+    job the session runs each route unsharded."""
 
     pixel_tiles: int = 1
     map_blocks: int = 1

@@ -1,5 +1,5 @@
-"""Schur-complement bundle adjustment over scanner poses (port of the
-single-device path of ``slr/dist/ba.py``).
+"""Schur-complement bundle adjustment over scanner poses (port of
+``slr/dist/ba.py``).
 
 Model: S scan poses T_s = (R_s, t_s) (scan -> world) and L landmarks X_l
 (world). Observation (l, k): landmark l measured at p in the frame of scan
@@ -14,6 +14,13 @@ system H_red = H_pp - sum_l W_l H_ll^-1 W_l^T, g_red = g_p - W H_ll^-1 g_l,
 solved by Cholesky, then each landmark back-substitutes. The pose-indexed
 sums are float32 products with one-hot matrices, as the reference's, never
 float atomics.
+
+``distributed_bundle_adjust`` splits the landmarks over the ``map_block``
+axis: each block assembles its share of the reduced system, one
+``all_reduce`` of one float32 buffer [H_red, g_red, cost, nres] a
+Gauss-Newton iteration sums it (the reference's four ``psum``s stacked into
+one), every rank solves the small pose system alike, and each block
+back-substitutes its own landmarks.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from slr_torch.dist import comm
 from slr_torch.geom.se3 import _hat, se3_exp
 
 
@@ -138,12 +146,20 @@ def _back_substitute(H_ll_inv, g_l, W, obs_s, dxi, S: int):
 
 
 def _ba_iteration(R, t, X, obs_s, obs_p, obs_w, S: int, damping: float,
-                  huber_delta: float = 0.0, obs_n=None):
+                  huber_delta: float = 0.0, obs_n=None, group=None):
     """One Gauss-Newton step: assemble, anchor pose 0 (1e12 on its diagonal)
     and damp the pose block, solve by Cholesky (no host check), back-
-    substitute the landmarks, update T <- T Exp(dxi)."""
+    substitute the landmarks, update T <- T Exp(dxi). With a ``group`` the
+    assembly is this block's share, summed over the group by one
+    ``all_reduce`` of [H_red, g_red, cost, nres]."""
     H_red, g_red, cost, nres, (H_ll_inv, g_l, W) = _assemble_block(
         R, t, X, obs_s, obs_p, obs_w, S, damping, huber_delta, obs_n)
+    if group is not None:
+        n = 6 * S
+        buf = comm.all_reduce_(torch.cat([H_red.reshape(-1), g_red, cost[None],
+                                          nres[None]]), group)
+        H_red, g_red = buf[:n * n].reshape(n, n), buf[n * n:n * n + n]
+        cost, nres = buf[-2], buf[-1]
     anchor = torch.zeros(6 * S, dtype=H_red.dtype, device=H_red.device)
     anchor[:6] = 1e12
     H_red = H_red + torch.diag(anchor + damping)
@@ -163,4 +179,31 @@ def bundle_adjust_reference(R, t, X, obs_s, obs_p, obs_w, iters: int = 10,
     for _ in range(iters):
         R, t, X, cost, nres = _ba_iteration(R, t, X, obs_s, obs_p, obs_w, S, damping,
                                             huber_delta=huber_delta, obs_n=obs_n)
+    return BAResult(R=R, t=t, X=X, cost=cost, rms=torch.sqrt(cost / nres))
+
+
+def distributed_bundle_adjust(R, t, X, obs_s, obs_p, obs_w, mesh, iters: int = 10,
+                              damping: float = 1e-6, huber_delta: float = 0.0,
+                              obs_n=None) -> BAResult:
+    """The BA with the landmarks split over ``mesh``'s map_block axis (L
+    divisible by its size). Every rank passes the whole problem: the poses
+    (S,3,3), (S,3), the landmarks (L,3) and their observations (L,K),
+    (L,K,3), (L,K) (and normals (L,K,3) for plane rows). One
+    ``all_reduce`` a Gauss-Newton iteration crosses blocks; the pose solve
+    is replicated, the landmark updates block-local, and X is gathered back
+    to (L,3) in block order, so every rank returns the same bits."""
+    nb, b = mesh.shape["map_block"], mesh.coords["map_block"]
+    L = X.shape[0]
+    if L % nb:
+        raise ValueError(f"{L} landmarks do not split over {nb} map blocks")
+    blk = slice(b * (L // nb), (b + 1) * (L // nb))
+    group = mesh.groups["map_block"]
+    obs_s, obs_p, obs_w, X_b = obs_s[blk], obs_p[blk], obs_w[blk], X[blk]
+    obs_n = None if obs_n is None else obs_n[blk]
+    S = R.shape[0]
+    for _ in range(iters):
+        R, t, X_b, cost, nres = _ba_iteration(R, t, X_b, obs_s, obs_p, obs_w, S, damping,
+                                              huber_delta=huber_delta, obs_n=obs_n,
+                                              group=group)
+    X = comm.all_gather_rows([X_b], group)[0]
     return BAResult(R=R, t=t, X=X, cost=cost, rms=torch.sqrt(cost / nres))

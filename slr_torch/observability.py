@@ -6,10 +6,9 @@
 - ``trace()``: a ``torch.profiler`` trace exported as a Chrome trace;
 - ``roofline()``: bytes and flops -> the share of the H100's speed of
   light a measured time reaches;
-- host-0 gating of the log for multi-process runs.
-
-The communicated-bytes helpers of the reference belong to the multi-GPU
-tier (ROADMAP slice 8) and are not here.
+- host-0 gating of the log for multi-process runs;
+- the communicated-bytes helpers of the parallel tier (``slr_torch.dist``)
+  and a scaling projection from them.
 """
 
 from __future__ import annotations
@@ -124,3 +123,60 @@ def trace(logdir: str = "slr_trace"):
     with profile(activities=acts) as prof:
         yield logdir
     prof.export_chrome_trace(str(Path(logdir) / "trace.json"))
+
+
+# ---- communicated-bytes accounting ----------------------------------------
+#
+# Every collective of the parallel tier moves a volume known from the
+# shapes, so a stage's parallel efficiency projects from its measured
+# compute time and those bytes over the interconnect:
+#   eff(N) = t_compute / (t_compute + t_comm(N) + n_coll * latency).
+
+# The data sheet of the NVIDIA H100 SXM (NVIDIA H100 80GB HBM3, 700 W power
+# limit), not a measurement: NVLink 900 GB/s in total, 450 GB/s each way,
+# per card (the rate of an 8-card NVLink/NVSwitch host)
+NVLINK_GBPS = 450.0
+
+
+def comm_halo_bytes(width: int, halo: int, dtype_bytes: int = 4,
+                    n_arrays: int = 1, iters: int = 1) -> int:
+    """Bytes a rank sends per sharded-unwrap call: two ring sends (up and
+    down) of ``halo`` rows per array per exchange (``slr_torch/dist/halo.py``,
+    ``sharded.py``)."""
+    return 2 * halo * width * dtype_bytes * n_arrays * iters
+
+
+def comm_schur_bytes(n_poses: int, iters: int = 1) -> int:
+    """Bytes a rank moves per distributed-BA solve: the reduced (6S x 6S)
+    pose system, its right-hand side and 2 scalars, one float32 buffer
+    all-reduced per Gauss-Newton iteration (``slr_torch/dist/ba.py``); an
+    all-reduce over N ranks moves ~2x the payload a rank (reduce-scatter
+    and all-gather)."""
+    s = 6 * n_poses
+    return (s * s + s + 2) * 4 * 2 * iters
+
+
+def comm_batched_icp_bytes(n_edges_local: int, iters: int = 1) -> int:
+    """A registration round sharded over map_block communicates nothing per
+    edge (edges are block-local); only the round's pose table is gathered:
+    12 floats per edge."""
+    return n_edges_local * 12 * 4 * iters
+
+
+def scaling_projection(compute_ms: float, comm_bytes_per_dev: int,
+                       n_collectives: int, gbps: float,
+                       latency_us: float = 1.0) -> dict:
+    """Projected parallel efficiency of one stage: ``compute_ms`` measured on
+    the card, communication = the exact volume over ``gbps`` plus a latency
+    per collective. Returns the whole accounting."""
+    t_comm_ms = (comm_bytes_per_dev / (gbps * 1e9)) * 1e3 \
+        + n_collectives * latency_us * 1e-3
+    eff = compute_ms / (compute_ms + t_comm_ms)
+    return {
+        "compute_ms": compute_ms,
+        "comm_bytes_per_dev": int(comm_bytes_per_dev),
+        "n_collectives": n_collectives,
+        "interconnect_gbps": gbps,
+        "comm_ms": t_comm_ms,
+        "efficiency": eff,
+    }

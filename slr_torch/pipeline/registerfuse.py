@@ -6,8 +6,9 @@ against an FPFH + RANSAC-initialised ICP, with a projective polish when the
 rig camera is given) into a pose chain, loop-closure edges, then pose-graph
 refinement over every relative measurement. ``register_scans_batched``: the
 same with every edge of a round aligned at once, along a leading edge axis
-(``torch.func.vmap``, as the reference's ``jax.vmap``). ``ba_refine``:
-Schur bundle adjustment over landmarks drawn from every scan.
+(``torch.func.vmap``, as the reference's ``jax.vmap``), the edges split over
+the ``map_block`` ranks of a mesh. ``ba_refine``: Schur bundle adjustment
+over landmarks drawn from every scan, distributed over a mesh's map blocks.
 ``fuse_scans``: every scan in the anchor frame, voxel-merged.
 """
 
@@ -20,7 +21,8 @@ import torch
 from torch.func import vmap
 
 from slr_torch.config import RegistrationConfig
-from slr_torch.dist.ba import bundle_adjust_reference
+from slr_torch.dist import comm
+from slr_torch.dist.ba import bundle_adjust_reference, distributed_bundle_adjust
 from slr_torch.pipeline.reconstruct import ScanCloud
 from slr_torch.registration import features
 from slr_torch.registration.features import draw_categorical, fpfh_features, ransac_align
@@ -255,12 +257,12 @@ def register_scans_batched(
     (inlier fraction < 0.5), as the sequential path. The reference gets
     there in two passes, the first racing with an all-false mask, which
     keeps every result; the port takes the first pass without the race.
-    ``mesh`` (edges sharded over ``map_block``) comes with multi-GPU: any
-    value but None raises ``NotImplementedError``.
+
+    With a ``mesh`` every rank passes every cloud; a round's edges, padded
+    to a multiple of the map blocks, are split over ``map_block``, each rank
+    aligns its block, and the round's results are gathered (the same bits
+    on every rank) before any host decision.
     """
-    if mesh is not None:
-        raise NotImplementedError("register_scans_batched: mesh= (edges sharded over "
-                                  "map_block) is not ported yet; pass mesh=None")
     S = len(clouds)
     dev = clouds[0].points.device if S else torch.device("cpu")
     if S < 2:
@@ -277,18 +279,38 @@ def register_scans_batched(
                  torch.stack([c.mask for c in clouds]),
                  torch.stack([grid_normals(c.points, c.mask) for c in clouds]))
 
+    n_blocks = mesh.shape["map_block"] if mesh is not None else 1
+
     def run_edges(src_i, tgt_i, R0=None, t0=None, race_mask=None, res=None):
         """One round over the edges src_i -> tgt_i: ICP (unless ``res`` is
-        given), then, with features, the race where ``race_mask``."""
+        given), then, with features, the race where ``race_mask``; with map
+        blocks, this rank's block of the padded edges, then the gather."""
         si = torch.tensor(src_i, device=dev)
         ti = torch.tensor(tgt_i, device=dev)
+        E = len(src_i)
+        if n_blocks > 1:
+            pad = (-E) % n_blocks
+            per, b = (E + pad) // n_blocks, mesh.coords["map_block"]
+
+            def block(x):
+                if x is None:
+                    return None
+                if pad:
+                    x = torch.cat([x, x[:1].expand((pad,) + tuple(x.shape[1:]))])
+                return x[b * per:(b + 1) * per]
+
+            si, ti, R0, t0, race_mask = map(block, (si, ti, R0, t0, race_mask))
+            res = None if res is None else ICPResult(*map(block, res))
         if res is None:
             res = _batched_fine(pts[si], pts[ti], nrm[ti], cfg, R0=R0, t0=t0,
                                 grids=grids, cam=cam, tgt_idx=ti)
-        if race_mask is None:
-            return res
-        return _batched_feature_race(pts[si], nrm[si], pts[ti], nrm[ti], res, cfg,
-                                     race_mask, grids=grids, cam=cam, tgt_idx=ti)
+        if race_mask is not None:
+            res = _batched_feature_race(pts[si], nrm[si], pts[ti], nrm[ti], res, cfg,
+                                        race_mask, grids=grids, cam=cam, tgt_idx=ti)
+        if n_blocks > 1:
+            res = ICPResult(*(x[:E] for x in comm.all_gather_rows(
+                list(res), mesh.groups["map_block"])))
+        return res
 
     # round 1: every chain edge (s-1, s), measurement T_{s-1}^-1 T_s
     race_all = torch.ones(S - 1, dtype=torch.bool, device=dev) if use_features else None
@@ -342,13 +364,10 @@ def ba_refine(
     scan's frame) lies within ``corr_dist``; poses and landmarks refine
     jointly by the Schur solver with Huber weights, in ``rounds`` rounds
     with the correspondences re-associated from the refined poses between
-    them. ``pg_rms`` of the result is the BA rms. ``mesh`` (the distributed
-    BA) comes with multi-GPU: any value but None raises
-    ``NotImplementedError``.
+    them. ``pg_rms`` of the result is the BA rms. With a ``mesh`` the
+    solve is ``distributed_bundle_adjust``, the landmarks split over
+    ``map_block`` (``n_landmarks`` divisible by the blocks).
     """
-    if mesh is not None:
-        raise NotImplementedError("ba_refine: mesh= (the distributed BA) is not ported "
-                                  "yet; pass mesh=None")
     S = len(clouds)
     samples = [_subsample(c, 4096, seed=100 + i) for i, c in enumerate(clouds)]
     R_cur, t_cur = reg.R, reg.t
@@ -364,10 +383,11 @@ def ba_refine(
             obs_w.append((d2 < corr_dist * corr_dist).to(torch.float32))
             obs_p.append(pts_s[idx])
             obs_n.append(nrm_s[idx])
-        res = bundle_adjust_reference(
-            R_cur, t_cur, X0, obs_s, torch.stack(obs_p, 1), torch.stack(obs_w, 1),
-            iters=max(1, iters // max(1, rounds)), huber_delta=huber_delta,
-            obs_n=torch.stack(obs_n, 1) if point_to_plane else None)
+        args = (R_cur, t_cur, X0, obs_s, torch.stack(obs_p, 1), torch.stack(obs_w, 1))
+        kw = dict(iters=max(1, iters // max(1, rounds)), huber_delta=huber_delta,
+                  obs_n=torch.stack(obs_n, 1) if point_to_plane else None)
+        res = (bundle_adjust_reference(*args, **kw) if mesh is None
+               else distributed_bundle_adjust(*args, mesh, **kw))
         R_cur, t_cur, X0 = res.R, res.t, res.X
     return RegisteredScans(R=res.R, t=res.t, icp_rms=reg.icp_rms, pg_rms=res.rms)
 

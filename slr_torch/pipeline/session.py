@@ -5,6 +5,15 @@ formats, so either package opens the other's session.
 
 The session runs on the card unless the caller asks for the CPU
 (``Session(root, device="cpu")``); without a card it raises.
+
+In a job of several processes (``slr_torch.dist.init_distributed``) every
+rank opens the same session and calls the same methods in the same order;
+``config.dist`` lays the ranks out as a mesh, the routes the reference
+shards run sharded, every rank ends each call with the same result, and
+only rank 0 writes the session's files, between two barriers (the
+reference's single controller writes once). Every rank reads those files
+back, so in a job across hosts the session's root must be on a filesystem
+that every host shares.
 """
 
 from __future__ import annotations
@@ -16,12 +25,15 @@ import torch
 
 from slr_torch.config import ScanConfig, load_config, save_config
 from slr_torch.device import require_device
+from slr_torch.dist import comm
+from slr_torch.dist.mesh import make_mesh
+from slr_torch.dist.sharded import sharded_reconstruct
 from slr_torch.geom.camera import Camera
 from slr_torch.io import (
     load_calibration, load_stage, peek_stage, save_calibration, save_stage, write_ply)
 from slr_torch.observability import log_event
 from slr_torch.pipeline.reconstruct import (
-    ScanCloud, accumulate_by_projector, reconstruct_dense, reconstruct_scan,
+    ScanCloud, _white_color, accumulate_by_projector, reconstruct_dense, reconstruct_scan,
     reconstruct_scan_hdr)
 from slr_torch.pipeline.checks import validate_cloud
 from slr_torch.pipeline.registerfuse import (
@@ -47,18 +59,21 @@ class Session:
     def __init__(self, root, config: Optional[ScanConfig] = None, device="cuda"):
         self.device = require_device(device)
         self.root = Path(root)
-        self.root.mkdir(parents=True, exist_ok=True)
-        (self.root / "scans").mkdir(exist_ok=True)
-        (self.root / "clouds").mkdir(exist_ok=True)
         cfg_path = self.root / "config.json"
-        if config is not None:
-            self.config = config
-            save_config(config, cfg_path)
-        elif cfg_path.exists():
-            self.config = load_config(cfg_path)
+        # read before any rank writes: every rank sees the same file
+        if config is None and cfg_path.exists():
+            self.config, fresh = load_config(cfg_path), False
         else:
-            self.config = ScanConfig()
-            save_config(self.config, cfg_path)
+            self.config, fresh = config or ScanConfig(), True
+
+        def init_files():
+            for d in (self.root, self.root / "scans", self.root / "clouds"):
+                d.mkdir(parents=True, exist_ok=True)
+            if fresh:
+                save_config(self.config, cfg_path)
+
+        comm.rank0_writes(init_files)
+        self._mesh = None
         self.cam: Optional[Camera] = None
         self.cam2: Optional[Camera] = None  # two-camera rig (optional)
         self.proj: Optional[Camera] = None
@@ -70,21 +85,27 @@ class Session:
 
     @property
     def mesh(self):
-        """The device layout of ``config.dist``. None when the config is
-        single-device, or when the machine has fewer GPUs than the layout
-        asks for (logged as ``mesh_fallback``; every route then runs on one
-        device). With enough GPUs it raises ``NotImplementedError``: the
-        sharded routes come with multi-GPU (ROADMAP slice 8)."""
+        """The rank layout of ``config.dist``, built on first use over the
+        process group's world (``make_mesh``; every rank must ask). None
+        when the config is single-device, or when the world has fewer ranks
+        than the layout (logged as ``mesh_fallback`` with the world's size;
+        every route then runs unsharded on each rank). A world larger than
+        the layout raises ``ValueError``."""
+        if self._mesh is not None:
+            return self._mesh
         d = self.config.dist
         n = d.pixel_tiles * d.map_blocks
         if n <= 1:
             return None
-        available = torch.cuda.device_count() if self.device.type == "cuda" else 0
+        available = comm.world()[1]
         if available < n:
             log_event("mesh_fallback", requested=n, available=available)
             return None
-        raise NotImplementedError(f"Session.mesh: a layout over {n} GPUs (pixel_tiles x "
-                                  "map_blocks) comes with multi-GPU, ROADMAP slice 8")
+        self._mesh = make_mesh(pixel_tiles=d.pixel_tiles, map_blocks=d.map_blocks)
+        return self._mesh
+
+    def _save_stage(self, path, **arrays):
+        comm.rank0_writes(lambda: save_stage(path, **arrays))
 
     # --- calibration ---
     def set_calibration(self, cam: Camera, proj: Camera, meta=None,
@@ -92,7 +113,8 @@ class Session:
         self.cam, self.proj = cam.to(self.device), proj.to(self.device)
         self.cam2 = None if cam2 is None else cam2.to(self.device)
         self.calib_meta = meta or {}
-        save_calibration(self.root / "calibration.json", cam, proj, meta, cam2=cam2)
+        comm.rank0_writes(lambda: save_calibration(self.root / "calibration.json", cam, proj,
+                                                   meta, cam2=cam2))
 
     # --- scans ---
     def add_scan(self, frames, frames2=None) -> int:
@@ -102,7 +124,7 @@ class Session:
         stage = dict(frames=frames)
         if frames2 is not None:
             stage["frames2"] = frames2
-        save_stage(self.root / "scans" / f"scan_{idx:03d}.npz", **stage)
+        self._save_stage(self.root / "scans" / f"scan_{idx:03d}.npz", **stage)
         return idx
 
     def scan_paths(self):
@@ -138,15 +160,17 @@ class Session:
           1. HDR bracket (frames.ndim == 4) -> reconstruct_scan_hdr (K2).
              A bracket with a second camera raises ``ValueError``.
           2. two-camera (frames2 + cam2) -> reconstruct_two_camera.
-          3. K1 serves the pattern and ``fused`` -> reconstruct_dense
+          3. a mesh with pixel tiles that divide the rows ->
+             sharded_reconstruct (K1 a rank at its row offset; with
+             ``spatial_iters`` the haloed sweeps, K3/K4).
+          4. K1 serves the pattern and ``fused`` -> reconstruct_dense
              (K1; with ``spatial_iters`` K3/K4 or K5).
-          4. else reconstruct_scan.
-        The reference's pixel-tile route comes with multi-GPU (``mesh``)."""
+          5. else reconstruct_scan."""
         if self.cam is None:
             raise RuntimeError("calibrate or set_calibration first")
         frames, frames2 = self._load_scan_pair(idx)
         p = self.config.pattern
-        self.mesh  # noqa: B018 -- logs the fallback of a multi-device layout
+        mesh = self.mesh
         if frames.dim() == 4 and frames2 is not None:
             raise ValueError(
                 "scan %d has both an exposure bracket and a second-camera "
@@ -161,6 +185,13 @@ class Session:
             cloud = reconstruct_two_camera(
                 frames, frames2, self.cam, self.cam2, p,
                 self.config.decode, self.config.reconstruct)
+        elif (mesh is not None and mesh.shape["pixel_tile"] > 1
+                and frames.shape[1] % mesh.shape["pixel_tile"] == 0):
+            pts, mask, x_p, quality = sharded_reconstruct(
+                frames, self.cam, self.proj, p, self.config.decode, mesh,
+                spatial_iters=spatial_iters)
+            cloud = ScanCloud(points=pts, mask=mask, colors=_white_color(frames),
+                              quality=quality, x_p=x_p)
         elif fused and p.phase_steps > 0 and (p.use_inverse or p.coding == "multifreq"):
             cloud = reconstruct_dense(
                 frames, self.cam, self.proj, p, self.config.decode,
@@ -184,20 +215,23 @@ class Session:
         if accumulate:
             acc_pts, acc_mask, acc_col = accumulate_by_projector(cloud, p.proj_width)
             stage.update(acc_points=acc_pts, acc_mask=acc_mask, acc_colors=acc_col)
-        save_stage(self.root / "clouds" / f"scan_{idx:03d}.npz", **stage)
+        self._save_stage(self.root / "clouds" / f"scan_{idx:03d}.npz", **stage)
         return cloud
 
     def reconstruct_all(self, fused: bool = True) -> int:
         """Reconstruct every captured scan in one batch
-        (``batched_reconstruct``: one K1 launch a scan). Brackets and
-        two-camera scans go through ``reconstruct`` one by one. Returns the
+        (``batched_reconstruct``: one K1 launch a scan; with a mesh's map
+        blocks, the batch padded to their count with copies of the last scan
+        and split over them). Brackets, two-camera scans and a mesh with
+        pixel tiles go through ``reconstruct`` one by one. Returns the
         number of scans reconstructed."""
         n = len(self.scan_paths())
         if n == 0:
             return 0
-        self.mesh  # noqa: B018 -- logs the fallback of a multi-device layout
+        mesh = self.mesh
         scan0_ndim = len(peek_stage(self.scan_paths()[0])["frames"])
-        if self.cam2 is not None or scan0_ndim == 4:
+        if self.cam2 is not None or scan0_ndim == 4 or (
+                mesh is not None and mesh.shape["pixel_tile"] > 1):
             for i in range(n):
                 self.reconstruct(i, fused=fused)
             return n
@@ -205,13 +239,16 @@ class Session:
         from slr_torch.dist.batch import batched_reconstruct
 
         p = self.config.pattern
+        frames = torch.stack([self.load_scan(i) for i in range(n)])
+        pad = (-n) % (mesh.shape["map_block"] if mesh is not None else 1)
+        if pad:
+            frames = torch.cat([frames, frames[-1:].expand((pad,) + frames.shape[1:])])
         clouds = batched_reconstruct(
-            torch.stack([self.load_scan(i) for i in range(n)]), self.cam, self.proj, p,
-            self.config.decode, self.config.reconstruct,
-            fused=fused and p.phase_steps > 0 and p.use_inverse)
+            frames, self.cam, self.proj, p, self.config.decode, self.config.reconstruct,
+            mesh=mesh, fused=fused and p.phase_steps > 0 and p.use_inverse)
         for i in range(n):
-            save_stage(self.root / "clouds" / f"scan_{i:03d}.npz",
-                       **{k: v[i] for k, v in clouds._asdict().items()})
+            self._save_stage(self.root / "clouds" / f"scan_{i:03d}.npz",
+                             **{k: v[i] for k, v in clouds._asdict().items()})
         return n
 
     def load_cloud(self, idx: int) -> ScanCloud:
@@ -226,20 +263,25 @@ class Session:
                  refine_ba: bool = True,
                  loop_closures: bool = True) -> RegisteredScans:
         """Align every reconstructed scan: ``register_scans_batched`` (one
-        round of edges at a time) from 4 clouds, else ``register_scans``;
-        then, past 2 clouds, ``ba_refine`` with ``pg_iters`` iterations."""
+        round of edges at a time) from 4 clouds or with a mesh of map
+        blocks (the edges split over them), else ``register_scans``; then,
+        past 2 clouds, ``ba_refine`` with ``pg_iters`` iterations (over the
+        map blocks when there are any)."""
         clouds = [self.load_cloud(i) for i in range(self.cloud_count())]
-        self.mesh  # noqa: B018 -- logs the fallback of a multi-device layout
+        mesh = self.mesh
+        if mesh is not None and mesh.shape["map_block"] <= 1:
+            mesh = None
         rcfg = self.config.registration
-        if len(clouds) >= 4:
+        if len(clouds) >= 4 or mesh is not None:
             reg = register_scans_batched(clouds, rcfg, use_features=use_features,
-                                         cam=self.cam, loop_closures=loop_closures)
+                                         cam=self.cam, loop_closures=loop_closures,
+                                         mesh=mesh)
         else:
             reg = register_scans(clouds, rcfg, use_features=use_features, cam=self.cam,
                                  loop_closures=loop_closures)
         if refine_ba and len(clouds) > 2:
-            reg = ba_refine(clouds, reg, iters=rcfg.pg_iters)
-        save_stage(self.root / "registration.npz", **reg._asdict())
+            reg = ba_refine(clouds, reg, iters=rcfg.pg_iters, mesh=mesh)
+        self._save_stage(self.root / "registration.npz", **reg._asdict())
         return reg
 
     def load_registration(self) -> RegisteredScans:
@@ -255,8 +297,10 @@ class Session:
         reg = self.load_registration()
         vol = fuse_tsdf(clouds, self.cam, reg.R, reg.t, size_vox=size_vox, voxel=voxel)
         out = self.root / "fused_mesh.obj"
-        nv, nf = write_tsdf_mesh_obj(out, vol)
-        log_event("fuse_mesh", n_verts=nv, n_faces=nf, voxel=voxel)
+        written = []
+        comm.rank0_writes(lambda: written.extend(write_tsdf_mesh_obj(out, vol)))
+        if written:
+            log_event("fuse_mesh", n_verts=written[0], n_faces=written[1], voxel=voxel)
         return str(out)
 
     def fuse(self, capacity: int = 1 << 20) -> str:
@@ -266,5 +310,6 @@ class Session:
         pts, val, col, n_vox = fuse_scans(clouds, reg, self.config.registration,
                                           capacity=capacity)
         out = self.root / "fused.ply"
-        write_ply(out, pts, mask=val, colors=col.expand(col.shape[0], 3))
+        comm.rank0_writes(lambda: write_ply(out, pts, mask=val,
+                                            colors=col.expand(col.shape[0], 3)))
         return str(out)

@@ -22,6 +22,7 @@ from slr.synth import spheres_scene
 from slr.synth.render import default_rig, render_scan
 from slr_torch import observability as obs
 from slr_torch.config import DecodeConfig, PatternConfig
+from slr_torch.dist import make_mesh
 from slr_torch.dist.batch import batched_reconstruct
 from slr_torch.geom.camera import camera_from_numpy
 from slr_torch.pipeline import checked_reconstruct, nan_guard, reconstruct_stream
@@ -220,8 +221,10 @@ def test_batched_reconstruct_equals_per_scan(scene, fused):
     route = reconstruct_dense if fused else reconstruct_scan
     for i in range(3):
         _bits_equal([x[i] for x in clouds], route(batch[i], cam, proj, cfg))
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        batched_reconstruct(batch, cam, proj, cfg, mesh=object())
+    # a mesh of one rank (no process group) splits nothing: the same bits
+    for a, b in zip(batched_reconstruct(batch, cam, proj, cfg, mesh=make_mesh(), fused=fused),
+                    clouds):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("prefetch", [1, 2, 3])

@@ -1258,3 +1258,77 @@ def test_session_on_the_card_matches_the_cpu(cuda, tmp_path, route):
     _cloud_agrees_plain(c_gpu, c_cpu)
     for a, b in zip(on_card.load_cloud(0), c_gpu):
         assert torch.equal(a, b)
+
+
+# --- the parallel tier in a process group of one rank over NCCL ----------------
+
+
+@pytest.fixture
+def nccl_world1(cuda, tmp_path):
+    """A real NCCL process group of one rank (``init_distributed`` skips a
+    single process), and its mesh; destroyed after the test."""
+    import torch.distributed as dist
+
+    from slr_torch.dist import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}",
+                            world_size=1, rank=0)
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("spatial_iters", [0, 8])
+@pytest.mark.parametrize("uint8", [False, True])
+def test_sharded_reconstruct_in_a_world_of_one_rank(nccl_world1, spatial_iters, uint8):
+    """``sharded_reconstruct`` on one rank: K1 once, then the haloed sweeps
+    (K4 on the 1032-row block by the route rule, one launch an exchange),
+    the unsharded composition's bits."""
+    from slr_torch.dist import comm, sharded_reconstruct
+    from slr_torch.geom.triangulate import triangulate_plane
+    from slr_torch.pipeline.reconstruct import _pixel_grid
+
+    dev = torch.device("cuda")
+    cam, proj = default_rig(1280, 1024, device=dev)
+    cfg = PatternConfig(proj_width=1024, proj_height=768, gray_bits=7, phase_steps=4)
+    scan = render_scan(cam, proj, bumps_depth(1024, 1280, base=480.0, amp=30.0, device=dev),
+                       cfg, noise_std=0.005, generator=torch.Generator(device=dev).manual_seed(0))
+    frames = quantize_frames(scan.frames) if uint8 else scan.frames
+    out = fs.fused_decode_triangulate(frames, cam, proj, cfg, DecodeConfig())
+    mask, x_p, pts = out.mask > 0.5, out.x_p, out.points.movedim(0, -1)
+    if spatial_iters:
+        Phi = us.quality_unwrap(x_p * (2 * math.pi / cfg.fringe_pitch), out.quality, mask,
+                                iters=spatial_iters)
+        x_p = Phi * (cfg.fringe_pitch / (2 * math.pi))
+        pts, _ = triangulate_plane(cam, proj, *_pixel_grid(1024, 1280, dev), x_p)
+    for w in (fs.fused_decode_triangulate, us.quality_unwrap, us.quality_unwrap_tiled):
+        w.launches = 0
+    comm.reset()
+    got = sharded_reconstruct(frames, cam, proj, cfg, DecodeConfig(), nccl_world1,
+                              spatial_iters=spatial_iters)
+    for a, b in zip(got, (pts, mask, x_p, out.quality), strict=True):
+        assert torch.equal(a, b)
+    assert (fs.fused_decode_triangulate.launches, us.quality_unwrap.launches,
+            us.quality_unwrap_tiled.launches) == (1, 0, spatial_iters // 4)
+    assert comm.calls["all_gather"] == 1 and comm.calls["ring"] == 0
+
+
+@pytest.mark.parametrize("plane", [False, True])
+def test_distributed_ba_in_a_world_of_one_rank(nccl_world1, plane):
+    """The distributed BA on one rank over NCCL: one all-reduce an
+    iteration, ``bundle_adjust_reference``'s bits on the card."""
+    from chip_smoke import dist_ba_problem
+    from slr_torch.dist import bundle_adjust_reference, comm, distributed_bundle_adjust
+
+    pr = dist_ba_problem()
+    args = [pr[k].cuda() for k in ("ba_R0", "ba_t0", "ba_X0", "ba_s", "ba_p", "ba_w")]
+    n = torch.nn.functional.normalize(torch.randn(args[4].shape, generator=torch.Generator()
+                                                  .manual_seed(0)), dim=-1).cuda()
+    kw = dict(iters=6, huber_delta=1.0, obs_n=n if plane else None)
+    comm.reset()
+    got = distributed_bundle_adjust(*args, nccl_world1, **kw)
+    assert comm.calls["all_reduce"] == 6 and comm.calls["all_gather"] == 1
+    for a, b in zip(got, bundle_adjust_reference(*args, **kw)):
+        assert torch.equal(a, b)

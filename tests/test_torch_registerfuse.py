@@ -302,14 +302,20 @@ def test_register_scans_batched_enters_solver_once_per_round(config4, monkeypatc
             assert rot < 0.5 and tr < 2.0, (rot, tr)
 
 
-def test_mesh_other_than_none_raises(config4):
-    clouds = [scan_cloud_from_numpy(*c) for c in config4[0][:2]]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        treg.register_scans_batched(clouds, mesh=object())
-    reg = treg.registered_scans_from_numpy(np.stack([np.eye(3)] * 2), np.zeros((2, 3)),
-                                           np.zeros(1), 0.0)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        treg.ba_refine(clouds, reg, mesh=object())
+def test_a_mesh_of_one_rank_changes_nothing(config4):
+    """``mesh=`` on one rank (no process group): one map block, so the
+    batched registration and the distributed BA give the unsharded bits
+    (worlds of several ranks: tests/test_torch_dist_product.py)."""
+    from slr_torch.dist import make_mesh
+
+    clouds = [scan_cloud_from_numpy(*c) for c in config4[0]]
+    rc = tcfg.RegistrationConfig(**RC5)
+    reg = treg.register_scans_batched(clouds, rc, use_features=False, mesh=make_mesh())
+    ref = treg.register_scans_batched(clouds, rc, use_features=False)
+    assert all(torch.equal(a, b) for a, b in zip(reg, ref))
+    ba = treg.ba_refine(clouds, ref, n_landmarks=96, iters=2, mesh=make_mesh())
+    ba_ref = treg.ba_refine(clouds, ref, n_landmarks=96, iters=2)
+    assert all(torch.equal(a, b) for a, b in zip(ba, ba_ref))
 
 
 def test_config5_end_to_end(config4, config5, tmp_path):

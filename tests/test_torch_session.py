@@ -226,7 +226,7 @@ def test_session_two_camera_route(scene, tmp_path, capsys):
     capsys.readouterr()
     ct = ts.reconstruct(0)
     events = [json.loads(line) for line in capsys.readouterr().err.splitlines()]
-    assert any(e["event"] == "mesh_fallback" and e["requested"] == 2 and e["available"] == 0
+    assert any(e["event"] == "mesh_fallback" and e["requested"] == 2 and e["available"] == 1
                for e in events)
     direct = reconstruct_two_camera(torch.from_numpy(f1), torch.from_numpy(f2),
                                     _port_cam(c1), _port_cam(c2), cfg_t.pattern,
