@@ -1903,7 +1903,7 @@ def product_phases(dev, counts_of, card, main_path, orbit):
     from slr_torch.geom.camera import make_camera
     from slr_torch.io import ply as sply
     from slr_torch.kernels.build import build_host_library
-    from slr_torch.observability import StageTimer
+    from slr_torch import observability as ob
     from slr_torch.pipeline import Session, reconstruct_stream
     from slr_torch.pipeline import registerfuse as rf
     from slr_torch.pipeline import tsdf
@@ -1987,9 +1987,10 @@ def product_phases(dev, counts_of, card, main_path, orbit):
         """The session path once: (its files' bytes and arrays, stage walls,
         the launches of reconstruct_all). The first run writes the session;
         the second opens it from disk."""
-        timer = StageTimer()
+        stage = {name: ob.span(name) for name in (
+            "open_and_add_scans", "reconstruct_all", "register", "fuse", "fuse_mesh")}
         write_ms = []
-        with warnings.catch_warnings(), timer.stage("open_and_add_scans"):
+        with warnings.catch_warnings(), stage["open_and_add_scans"]:
             warnings.simplefilter("ignore")
             if first:
                 sess = Session(s5, scfg, device=dev)
@@ -1998,13 +1999,13 @@ def product_phases(dev, counts_of, card, main_path, orbit):
                     write_ms.append(ms_of(lambda: sess.add_scan(s))[1])
             else:
                 sess = Session(s5, device=dev)
-        with timer.stage("reconstruct_all"):
+        with stage["reconstruct_all"]:
             _, n_rec = product(sess.reconstruct_all)
-        with timer.stage("register"):
+        with stage["register"]:
             reg, n_reg = product(sess.register)
-        with timer.stage("fuse"):
+        with stage["fuse"]:
             ply, n_fuse = product(sess.fuse)
-        with warnings.catch_warnings(record=True) as grown, timer.stage("fuse_mesh"):
+        with warnings.catch_warnings(record=True) as grown, stage["fuse_mesh"]:
             warnings.simplefilter("always")
             obj, n_mesh = product(sess.fuse_mesh)
         check(n_rec["k1"] == ORBIT_SCANS_CONFIG5 and all(
@@ -2019,7 +2020,10 @@ def product_phases(dev, counts_of, card, main_path, orbit):
             io["cloud_read_ms"] = ms_of(lambda: sess.load_cloud(0))[1]
             io["scan_npz_mb"] = sess.scan_paths()[0].stat().st_size / 1e6
             io["cloud_npz_mb"] = (s5 / "clouds" / "scan_000.npz").stat().st_size / 1e6
-        return sess, out, timer.summary(), io, dict(
+        held = {x.id: x for x in ob.snapshot().spans}
+        walls = {name: (held[sp.id].end_ns - held[sp.id].start_ns) / 1e6
+                 for name, sp in stage.items()}
+        return sess, out, walls, io, dict(
             reconstruct_all=n_rec, register=n_reg, fuse=n_fuse, fuse_mesh=n_mesh), \
             [str(w.message) for w in grown]
 
@@ -2065,8 +2069,8 @@ def product_phases(dev, counts_of, card, main_path, orbit):
          ply_bytes=len(run1["ply"]), obj_bytes=len(run1["obj"]), tsdf_warnings=grown,
          stage_ms_first=stages1, stage_ms=stages2, session_ms_first=sum(stages1.values()),
          session_ms=sum(stages2.values()), direct_ms=direct_ms, **io, card=card,
-         stage_timing="host wall (StageTimer), the card synchronised at each end; the first "
-                      "run writes the 8 scans, the second opens the session from disk")
+         stage_timing="host wall (the recorder's spans), the card synchronised at each end; "
+                      "the first run writes the 8 scans, the second opens the session from disk")
 
     # phase 36: config 3 at full width through Session.reconstruct, every
     # route: the direct call's bits and launches
@@ -2249,17 +2253,26 @@ def digest(*tensors):
     return h.hexdigest()
 
 
-def dist_wrappers():
-    from slr_torch.kernels import band_nn as kb
-    from slr_torch.kernels import crossing as kx
-    from slr_torch.kernels import fused_scan as fs
-    from slr_torch.kernels import unwrap_scan as us
-    from slr_torch.kernels import wavefront as wf
+KERNELS = ("k1", "k2", "k3", "k4", "k5", "k8", "k6", "k7")
 
-    return {"k1": fs.fused_decode_triangulate, "k2": fs.fused_decode_triangulate_hdr,
-            "k3": us.quality_unwrap, "k4": us.quality_unwrap_tiled, "k5": wf.wavefront_pass,
-            "k8": kb.band_nn_sorted, "k6": kx.crossing_bin_sum,
-            "k7": kx.crossing_interp_fused}
+
+def launch_counts() -> dict:
+    """Every kernel's launches so far, from the recorder's ``launches.*``
+    counters."""
+    from slr_torch import observability as ob
+
+    counts = ob.snapshot().counts
+    return {k: counts.get(f"launches.{k}", 0) for k in KERNELS}
+
+
+def launches_of(fn):
+    """(``fn()``, the launches of each kernel in it); the card is waited on
+    before they are read."""
+    before = launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return out, {k: after[k] - before[k] for k in KERNELS}
 
 
 def dist_counted(fn, staged):
@@ -2269,15 +2282,10 @@ def dist_counted(fn, staged):
     host."""
     from slr_torch.dist import comm
 
-    wrappers = dist_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
     comm.reset()
-    out = fn()
-    torch.cuda.synchronize()
+    out, launches = launches_of(fn)
     staged.update(comm.staged)
-    return (out, {k: w.launches for k, w in wrappers.items()}, dict(comm.calls),
-            dict(comm.sent_bytes))
+    return out, launches, dict(comm.calls), dict(comm.sent_bytes)
 
 
 def dist_wall_ms(fn, runs=DIST_TIMED):
@@ -2512,10 +2520,8 @@ def dist_phases(dev, card, main_path, orbit, config5_one):
     config 5's clouds the single-device bits, its poses within
     DIST_C5_R_TOL / DIST_C5_T_TOL of the single-device run, config 5's
     accuracy gates, every output the same on every rank. Four ranks
-    time-slice one card, so their times are not scaling numbers; the
-    ``dist_scaling_projection`` line projects from the one-rank times and
-    the helpers' bytes at the data sheet's NVLink rate. Returns the K1, K3
-    and K4 launches of the ranks' counted runs."""
+    time-slice one card, so their times are not scaling numbers. Returns
+    the K1, K3 and K4 launches of the ranks' counted runs."""
     from slr_torch import observability as ob
     from slr_torch.codec import unwrap as pu
     from slr_torch.config import DecodeConfig
@@ -2700,21 +2706,6 @@ def dist_phases(dev, card, main_path, orbit, config5_one):
         emit("dist_nccl_multi_gpu", ran=False,
              reason=f"{gpus} GPU on this machine; an NCCL world needs one GPU a rank")
 
-    # a projection, not a measurement: the one-rank times split over
-    # DIST_TILES ranks, plus the helpers' bytes at the data sheet's NVLink
-    # rate and 1 us a collective
-    gather = 27 * H * W * (DIST_TILES - 1) // DIST_TILES   # 27 B a pixel gathered
-    emit("dist_scaling_projection", card=card, ranks=DIST_TILES,
-         source="projection: dist_world1_nccl's one-rank walls / ranks, the bytes of "
-                "comm_halo_bytes, comm_schur_bytes and the gather, NVLink 450 GB/s a "
-                "direction (the data sheet of the H100 SXM: NVIDIA H100 80GB HBM3, "
-                "700 W), 1 us a collective",
-         config3_float32=ob.scaling_projection(
-             c3_one[f"float32_sweeps{DIST_SWEEPS}"]["ms"][0] / DIST_TILES,
-             ob.comm_halo_bytes(W, 4, 4, 3, 2) + gather, 3, ob.NVLINK_GBPS),
-         ba_iteration=ob.scaling_projection(
-             ba_one["ms_per_iter"][0] / DIST_TILES, ob.comm_schur_bytes(DIST_BA["S"]), 1,
-             ob.NVLINK_GBPS))
     tmp.cleanup()
     return totals
 
@@ -2748,24 +2739,12 @@ def main():
 
     kernel = fs.fused_decode_triangulate
     kernel_hdr = fs.fused_decode_triangulate_hdr
-    # every kernel wrapper's launch count, by kernel
-    wrappers = {"k1": kernel, "k2": kernel_hdr, "k3": us.quality_unwrap,
-                "k4": us.quality_unwrap_tiled, "k5": wf.wavefront_pass,
-                "k8": kb.band_nn_sorted, "k6": kx.crossing_bin_sum,
-                "k7": kx.crossing_interp_fused}
     dev = torch.device("cuda")
     dec = DecodeConfig()
     # points_max_abs_err (K1, K2), |dPhi| (K3-K5) of every comparison
     errs = {"k1": [], "k2": [], "k3": [], "k4": [], "k5": []}
 
-    def counts_of(fn):
-        """Run ``fn`` with every launch count set to 0 just before; returns
-        (result, {kernel: launches}) read just after."""
-        for w in wrappers.values():
-            w.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {k: w.launches for k, w in wrappers.items()}
+    counts_of = launches_of
 
     def counted(fn):
         """``counts_of`` for a scan path without the spatial repair: checks

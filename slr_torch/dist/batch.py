@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from slr_torch import observability as obs
 from slr_torch.config import DecodeConfig, PatternConfig, ReconstructConfig
 from slr_torch.dist import comm
 from slr_torch.pipeline.reconstruct import ScanCloud, reconstruct_dense, reconstruct_scan
@@ -41,8 +42,9 @@ def batched_reconstruct(
                              f"{nb} map blocks")
         per = len(scans) // nb
         scans = scans[b * per:(b + 1) * per]
-    clouds = [f(frames_batch[i], cam, proj, cfg, dec, rec) for i in scans]
-    out = [torch.stack(x) for x in zip(*clouds)]
-    if mesh is not None:
-        out = comm.all_gather_rows(out, mesh.groups["map_block"])
+    with obs.span("decode"):
+        clouds = [f(frames_batch[i], cam, proj, cfg, dec, rec) for i in scans]
+        out = [torch.stack(x) for x in zip(*clouds)]
+        if mesh is not None:
+            out = comm.all_gather_rows(out, mesh.groups["map_block"])
     return ScanCloud(*out)

@@ -12,8 +12,8 @@ caller names it.
 - ``barrier``.
 
 ``calls`` counts the calls of each kind and ``sent_bytes`` the bytes a rank
-handed to each, as the kernel wrappers count ``.launches``; a group of None
-(a trivial mesh) is an identity and counts nothing.
+handed to each; a group of None (a trivial mesh) is an identity and counts
+nothing.
 
 Gloo's send and receive hand the tensor's memory to its TCP transport as
 is, so a CUDA tensor cannot travel by them: under Gloo the ring's tensors

@@ -19,8 +19,8 @@ each product and sum rounded once, in the same order in the kernel and in
 its plain version, so the two agree bit for bit.
 
 ``band_nn_sorted`` takes the plain version for a CPU tensor and launches
-K8 for a CUDA tensor, or raises; ``band_nn_sorted.launches`` counts K8's
-launches.
+K8 for a CUDA tensor, or raises; the recorder's counter ``launches.k8``
+(``slr_torch.observability``) counts K8's launches.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from slr_torch import observability as obs
 from slr_torch.kernels.build import load_library
 
 QT = 128                # queries per K8 block (SLR_BAND_QT in csrc/band_nn.cu)
@@ -176,7 +177,7 @@ def launch_band_nn(qc, q_valid, bt: BandTarget, max_corr_dist: float):
     if err != 0:
         raise RuntimeError("K8 band_nn kernel launch failed: "
                            + lib.slr_cuda_error_string(err).decode())
-    band_nn_sorted.launches += 1
+    obs.count("launches.k8")
     return d2, pts, nrm, idx
 
 
@@ -192,5 +193,3 @@ def band_nn_sorted(qc, q_valid, bt: BandTarget, max_corr_dist: float,
         return band_nn_sorted_reference(qc, q_valid, bt, max_corr_dist, qt=qt)
     return launch_band_nn(qc, q_valid, bt, max_corr_dist)
 
-
-band_nn_sorted.launches = 0

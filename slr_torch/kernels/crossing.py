@@ -32,8 +32,9 @@ the activity table do not exist here; the tiling knobs (``utile``,
 and ignored. The sums are float32 adds, no matrix product.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
-kernel for a CUDA tensor, or raises; ``crossing_bin_sum.launches`` and
-``crossing_interp_fused.launches`` count the launches.
+kernel for a CUDA tensor, or raises; the recorder's counters
+``launches.k6`` and ``launches.k7`` (``slr_torch.observability``) count
+the launches.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import functools
 
 import torch
 
+from slr_torch import observability as obs
 from slr_torch.kernels.build import load_library
 
 MAX_CHANNELS = 8     # SLR_XING_MAX_C in csrc/crossing.cu
@@ -221,7 +223,7 @@ def launch_bin_sum(code_lo, code_hi, payload, num_bins: int):
         _raise_on(lib, "K6 crossing_bin_sum", lib.slr_crossing_bin_sum(
             lo, hi, pay, R, min(chunk, U - u0), U, N, num_bins, int(u0 > 0),
             out.data_ptr(), payload.device.index, _stream(payload)))
-        crossing_bin_sum.launches += 1
+        obs.count("launches.k6")
     return out
 
 
@@ -325,7 +327,7 @@ def launch_interp_fused(code, valid, channels, num_bins: int, interp: tuple,
         code.data_ptr(), valid.data_ptr(), channels.data_ptr(), R, U, C, num_bins,
         mask, len(gates), ctypes.addressof(gate_ch), ctypes.addressof(gate_thr), dmin,
         dmax, cnt.data_ptr(), vals.data_ptr(), code.device.index, _stream(code)))
-    crossing_interp_fused.launches += 1
+    obs.count("launches.k7")
     return cnt, vals
 
 
@@ -346,6 +348,3 @@ def crossing_interp_fused(code, valid, channels, num_bins: int, interp: tuple,
         code = code.to(torch.float32)
     return launch_interp_fused(code, valid, channels, num_bins, interp, gates, dmin, dmax)
 
-
-crossing_bin_sum.launches = 0
-crossing_interp_fused.launches = 0

@@ -41,6 +41,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from slr_torch import observability as obs
 from slr_torch.codec.graycode import gray_decode_int
 from slr_torch.config import DecodeConfig, PatternConfig
 from slr_torch.geom.camera import Camera, undistort_iterative
@@ -448,7 +449,9 @@ def scan_params(cam: Camera, proj: Optional[Camera], cfg: PatternConfig,
     K2's). The calibration is brought to the host in one transfer."""
     proj = cam if proj is None else proj   # decode_only reads no projector
     fields = [x.reshape(-1).to(torch.float32) for x in (*cam, *proj)]
-    flat = torch.cat(fields).cpu().split([f.numel() for f in fields])
+    with obs.wait("params.read"):
+        flat = torch.cat(fields).cpu()
+    flat = flat.split([f.numel() for f in fields])
     cam_h = Camera(*(x.reshape(s.shape) for x, s in zip(flat[:7], cam)))
     proj_h = Camera(*(x.reshape(s.shape) for x, s in zip(flat[7:], proj)))
     if not decode_only:
@@ -536,7 +539,7 @@ def launch_fused_scan(frames, params: _ScanParams) -> FusedScanOut:
     if params.exposures:
         raise ValueError("an HDR parameter block: use launch_fused_scan_hdr")
     out = _launch("slr_fused_scan", frames, params)
-    fused_decode_triangulate.launches += 1
+    obs.count("launches.k1")
     return out
 
 
@@ -545,7 +548,7 @@ def launch_fused_scan_hdr(stacks, params: _ScanParams) -> FusedScanOut:
     if not params.exposures:
         raise ValueError("a single-exposure parameter block: use launch_fused_scan")
     out = _launch("slr_fused_scan_hdr", stacks, params)
-    fused_decode_triangulate_hdr.launches += 1
+    obs.count("launches.k2")
     return out
 
 
@@ -556,7 +559,7 @@ def fused_decode_triangulate(
     decode_only: bool = False,
 ) -> FusedScanOut:
     """One-pass scan reconstruction (K1). A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (``.launches`` counts them).
+    version; a CUDA tensor launches the kernel (counted as ``launches.k1``).
     ``bit_depth``: the ADC's bits for integer frames in a wider container
     (12-bit data in uint16); ``row_offset``: the global row of frame row 0;
     ``decode_only``: codes only, points 0, no projector needed."""
@@ -566,10 +569,12 @@ def fused_decode_triangulate(
             frames, cam, proj, cfg, dec, z_bounds, undistort_iters, bit_depth,
             row_offset, decode_only)
     H, W = frames.shape[-2:]
-    return launch_fused_scan(frames, scan_params(
-        cam, proj, cfg, dec, z_bounds, undistort_iters, H, W,
-        dtype=frames.dtype, bit_depth=bit_depth, row_offset=row_offset,
-        decode_only=decode_only))
+    with obs.span("k1.params"):
+        params = scan_params(cam, proj, cfg, dec, z_bounds, undistort_iters, H, W,
+                             dtype=frames.dtype, bit_depth=bit_depth,
+                             row_offset=row_offset, decode_only=decode_only)
+    with obs.span("k1.launch"):
+        return launch_fused_scan(frames, params)
 
 
 def fused_decode_triangulate_hdr(
@@ -580,7 +585,7 @@ def fused_decode_triangulate_hdr(
 ) -> FusedScanOut:
     """Exposure-bracketed one-pass reconstruction (K2) of (E, F, H, W)
     stacks. A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel (``.launches`` counts them)."""
+    the kernel (counted as ``launches.k2``)."""
     _check_hdr_contract(stacks, cfg, fuse)
     if stacks.device.type == "cpu":
         return fused_decode_triangulate_hdr_reference(
@@ -592,6 +597,3 @@ def fused_decode_triangulate_hdr(
         dtype=stacks.dtype, bit_depth=bit_depth, row_offset=row_offset,
         exposures=E, saturation=saturation, fuse=fuse))
 
-
-fused_decode_triangulate.launches = 0
-fused_decode_triangulate_hdr.launches = 0

@@ -37,6 +37,7 @@ import functools
 
 import torch
 
+from slr_torch import observability as obs
 from slr_torch.codec.unwrap import spatial_quality_unwrap
 from slr_torch.kernels.build import load_library
 
@@ -132,7 +133,7 @@ def launch_vote_resident(Phi, mask, iters: int):
     check_launch(lib, "K3 vote_resident", lib.slr_vote_resident(
         Phi.data_ptr(), mask.data_ptr(), out.data_ptr(), exchange.data_ptr(),
         H, W, iters, dev, _stream(Phi)))
-    quality_unwrap.launches += 1
+    obs.count("launches.k3")
     return out
 
 
@@ -148,7 +149,7 @@ def launch_vote_tiled(Phi, mask, sweeps: int):
     check_launch(lib, "K4 vote_tiled", lib.slr_vote_tiled(
         Phi.data_ptr(), mask.data_ptr(), out.data_ptr(), H, W, sweeps,
         Phi.device.index, _stream(Phi)))
-    quality_unwrap_tiled.launches += 1
+    obs.count("launches.k4")
     return out
 
 
@@ -186,8 +187,8 @@ def takes_resident(H: int, W: int, layout: tuple[int, int, int, int]) -> bool:
 def quality_unwrap(Phi, quality, mask, iters: int = 8):
     """``spatial_quality_unwrap`` on the card: K3 for maps within the
     reference's budget whose tiles one wave holds, K4 for the others (a
-    CPU tensor: the plain version). ``.launches`` counts K3's launches,
-    ``quality_unwrap_tiled.launches`` K4's."""
+    CPU tensor: the plain version). The recorder counts K3's launches as
+    ``launches.k3``, K4's as ``launches.k4``."""
     if Phi.device.type == "cpu":
         return spatial_quality_unwrap(Phi, quality, mask, iters)
     if not takes_resident(*Phi.shape, resident_layout(Phi.device.index)):
@@ -197,6 +198,3 @@ def quality_unwrap(Phi, quality, mask, iters: int = 8):
         return Phi.clone()
     return launch_vote_resident(Phi, mask, iters)
 
-
-quality_unwrap.launches = 0
-quality_unwrap_tiled.launches = 0

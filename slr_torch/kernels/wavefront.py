@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from slr_torch import observability as obs
 from slr_torch.codec.unwrap import directional_pass, repair_trust, wavefront
 from slr_torch.kernels.unwrap_scan import check_launch, check_maps, library
 
@@ -46,7 +47,7 @@ def launch_wavefront_pass(phi, elig, Phi, done, axis: int, reverse: bool):
         phi.data_ptr(), elig.data_ptr(), Phi.data_ptr(), done.data_ptr(),
         Phi_out.data_ptr(), done_out.data_ptr(), H, W, axis, int(reverse),
         phi.device.index, torch.cuda.current_stream(phi.device).cuda_stream))
-    wavefront_pass.launches += 1
+    obs.count("launches.k5")
     return Phi_out, done_out
 
 
@@ -67,7 +68,7 @@ def cycles_mismatches(device) -> tuple[int, int]:
 
 def wavefront_pass(phi, elig, Phi, done, axis: int, reverse: bool):
     """One directional pass: the plain version for a CPU tensor, K5 for a
-    CUDA tensor (``.launches`` counts them)."""
+    CUDA tensor (counted as ``launches.k5``)."""
     if phi.device.type == "cpu":
         return directional_pass(phi, elig, Phi, done, axis, reverse)
     return launch_wavefront_pass(phi, elig, Phi, done, axis, reverse)
@@ -94,5 +95,3 @@ def wavefront_repair(Phi, quality, mask, trust_quantile: float = 0.5,
     return wavefront_unwrap(phi, quality, mask, Phi_init=Phi, trust=trust,
                             levels=levels, rounds_per_level=rounds_per_level)[0]
 
-
-wavefront_pass.launches = 0

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from slr_torch import observability as obs
 from slr_torch.codec.exposure import decode_multi_exposure
 from slr_torch.codec.patterns import DecodeResult, decode_stack
 from slr_torch.codec.unwrap import TWO_PI
@@ -129,14 +130,17 @@ def spatial_repair(x_p, quality, mask, pitch: float, spatial_iters: int,
     if spatial_mode not in SPATIAL_MODES:
         raise ValueError(f"spatial_mode must be one of {SPATIAL_MODES}, "
                          f"got {spatial_mode!r}")
-    Phi = x_p * (TWO_PI / pitch)
-    if spatial_mode == "wavefront":
-        Phi = wavefront_repair(Phi, quality, mask,
-                               rounds_per_level=max(1, spatial_iters // 4))
-    else:
-        Phi = quality_unwrap(Phi, quality, mask, iters=spatial_iters)
-    x_p2 = Phi * (pitch / TWO_PI)
-    return x_p2, mask & ((x_p2 - x_p).abs() > pitch / 2)
+    with obs.span("repair.phase"):
+        Phi = x_p * (TWO_PI / pitch)
+    with obs.span("repair.vote"):
+        if spatial_mode == "wavefront":
+            Phi = wavefront_repair(Phi, quality, mask,
+                                   rounds_per_level=max(1, spatial_iters // 4))
+        else:
+            Phi = quality_unwrap(Phi, quality, mask, iters=spatial_iters)
+    with obs.span("repair.phase"):
+        x_p2 = Phi * (pitch / TWO_PI)
+        return x_p2, mask & ((x_p2 - x_p).abs() > pitch / 2)
 
 
 def reconstruct_dense(
@@ -159,23 +163,26 @@ def reconstruct_dense(
     With ``spatial_iters`` 0, ``points`` is a (H, W, 3) view of the
     kernel's (3, H, W) output.
     """
-    out = fused_decode_triangulate(
-        frames, cam, proj, cfg, dec, z_bounds=(rec.min_depth, rec.max_depth))
-    mask = out.mask > 0.5
-    x_p = out.x_p
-    pts = out.points.movedim(0, -1)
-    if spatial_iters:
-        pitch = (cfg.mf_pitches[-1] if cfg.coding == "multifreq"
-                 else cfg.fringe_pitch)
-        x_p2, changed = spatial_repair(x_p, out.quality, mask, pitch,
-                                       spatial_iters, spatial_mode)
-        u, v = _pixel_grid(*x_p.shape, x_p.device)
-        pts2, depth2 = triangulate_plane(cam, proj, u, v, x_p2)
-        ok2 = (depth2 > rec.min_depth) & (depth2 < rec.max_depth)
-        pts = torch.where((changed & ok2)[..., None], pts2, pts)
-        x_p = torch.where(changed, x_p2, x_p)
-    return ScanCloud(points=pts, mask=mask, colors=_white_color(frames),
-                     quality=out.quality, x_p=x_p)
+    with obs.span("scan"):
+        out = fused_decode_triangulate(
+            frames, cam, proj, cfg, dec, z_bounds=(rec.min_depth, rec.max_depth))
+        mask = out.mask > 0.5
+        x_p = out.x_p
+        pts = out.points.movedim(0, -1)
+        if spatial_iters:
+            with obs.span("repair"):
+                pitch = (cfg.mf_pitches[-1] if cfg.coding == "multifreq"
+                         else cfg.fringe_pitch)
+                x_p2, changed = spatial_repair(x_p, out.quality, mask, pitch,
+                                               spatial_iters, spatial_mode)
+                with obs.span("repair.retriangulate"):
+                    u, v = _pixel_grid(*x_p.shape, x_p.device)
+                    pts2, depth2 = triangulate_plane(cam, proj, u, v, x_p2)
+                    ok2 = (depth2 > rec.min_depth) & (depth2 < rec.max_depth)
+                    pts = torch.where((changed & ok2)[..., None], pts2, pts)
+                    x_p = torch.where(changed, x_p2, x_p)
+        return ScanCloud(points=pts, mask=mask, colors=_white_color(frames),
+                         quality=out.quality, x_p=x_p)
 
 
 def accumulate_by_projector(cloud: ScanCloud, proj_width: int):

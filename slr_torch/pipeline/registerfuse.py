@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from slr_torch import observability as obs
 from slr_torch.config import RegistrationConfig
 from slr_torch.dist import comm
 from slr_torch.dist.ba import bundle_adjust_reference, distributed_bundle_adjust
@@ -44,7 +45,7 @@ class RegisteredScans(NamedTuple):
 def registered_scans_from_numpy(R, t, icp_rms, pg_rms, device="cpu") -> RegisteredScans:
     """Poses given as numpy arrays (the JAX ``RegisteredScans`` after
     ``jax.tree.map(np.asarray, reg)``) -> the port's ``RegisteredScans``."""
-    return RegisteredScans(*(torch.as_tensor(np.array(x, np.float32), device=device)
+    return RegisteredScans(*(obs.upload("poses.upload", np.array(x, np.float32), device)
                              for x in (R, t, icp_rms, pg_rms)))
 
 
@@ -192,10 +193,11 @@ def _batched_fine(src, tgt_p, tgt_n, cfg, R0=None, t0=None, grids=None, cam=None
         return icp_point_to_plane(s, tp, tn, R0=R_i, t0=t_i, iters=cfg.icp_iters,
                                   max_corr_dist=cfg.icp_max_corr_dist)
 
-    if _resolve_nn_method("auto", N, tgt_p.shape[1], dev) == "exact":
-        res = vmap(one)(src, tgt_p, tgt_n, R0, t0)
-    else:
-        res = ICPResult(*map(torch.stack, zip(*map(one, src, tgt_p, tgt_n, R0, t0))))
+    with obs.span("icp"):
+        if _resolve_nn_method("auto", N, tgt_p.shape[1], dev) == "exact":
+            res = vmap(one)(src, tgt_p, tgt_n, R0, t0)
+        else:
+            res = ICPResult(*map(torch.stack, zip(*map(one, src, tgt_p, tgt_n, R0, t0))))
     if grids is not None:
         g_pts, g_mask, g_nrm = grids
         ones = torch.ones(N, dtype=torch.bool, device=dev)
@@ -205,8 +207,9 @@ def _batched_fine(src, tgt_p, tgt_n, cfg, R0=None, t0=None, grids=None, cam=None
                                   iters=max(8, cfg.icp_iters // 2),
                                   max_corr_dist=cfg.icp_max_corr_dist)
 
-        res = vmap(polish)(src, g_pts[tgt_idx], g_mask[tgt_idx], g_nrm[tgt_idx],
-                           res.R, res.t)
+        with obs.span("icp.polish"):
+            res = vmap(polish)(src, g_pts[tgt_idx], g_mask[tgt_idx], g_nrm[tgt_idx],
+                               res.R, res.t)
     return res
 
 
@@ -220,15 +223,19 @@ def _batched_feature_race(src, src_n, tgt_p, tgt_n, res, cfg, race_mask, grids=N
     Each edge draws its hypotheses as a call of its own with a fresh
     generator seeded 0 would: the reference's vmapped RANSAC draws every
     edge with ``PRNGKey(0)``."""
-    f_src = vmap(fpfh_features)(src, src_n)
-    f_tgt = vmap(fpfh_features)(tgt_p, tgt_n)
-    fwd, mutual, match_w, probs = vmap(features._ransac_matches)(f_src, f_tgt)
-    sel = torch.stack([features._draw_hypotheses(
-        p, cfg.ransac_iters, torch.Generator(device=p.device).manual_seed(0))
-        for p in probs])
-    matched = torch.take_along_dim(tgt_p, fwd[..., None], dim=1)
-    R0, t0, _ = vmap(features._ransac_fit, in_dims=(0, 0, 0, 0, 0, None))(
-        src, matched, mutual, match_w, sel, cfg.ransac_inlier_dist)
+    with obs.span("features.fpfh"):
+        f_src = vmap(fpfh_features)(src, src_n)
+        f_tgt = vmap(fpfh_features)(tgt_p, tgt_n)
+    with obs.span("features.match"):
+        fwd, mutual, match_w, probs = vmap(features._ransac_matches)(f_src, f_tgt)
+    with obs.span("features.draws"):
+        sel = torch.stack([features._draw_hypotheses(
+            p, cfg.ransac_iters, torch.Generator(device=p.device).manual_seed(0))
+            for p in probs])
+    with obs.span("features.fit"):
+        matched = torch.take_along_dim(tgt_p, fwd[..., None], dim=1)
+        R0, t0, _ = vmap(features._ransac_fit, in_dims=(0, 0, 0, 0, 0, None))(
+            src, matched, mutual, match_w, sel, cfg.ransac_inlier_dist)
     res_f = _batched_fine(src, tgt_p, tgt_n, cfg, R0=R0, t0=t0, grids=grids, cam=cam,
                           tgt_idx=tgt_idx)
     better = (res_f.inlier_frac > res.inlier_frac) | (
@@ -263,86 +270,92 @@ def register_scans_batched(
     aligns its block, and the round's results are gathered (the same bits
     on every rank) before any host decision.
     """
-    S = len(clouds)
-    dev = clouds[0].points.device if S else torch.device("cpu")
-    if S < 2:
-        return RegisteredScans(R=torch.eye(3, device=dev).expand(S, 3, 3),
-                               t=torch.zeros(S, 3, device=dev),
-                               icp_rms=torch.zeros(0, device=dev),
-                               pg_rms=torch.zeros((), device=dev))
-    samples = [_subsample(c, cfg.icp_sample_points, seed=i) for i, c in enumerate(clouds)]
-    pts = torch.stack([p for p, _ in samples])          # (S, N, 3)
-    nrm = torch.stack([n for _, n in samples])
-    grids = None
-    if cam is not None:
-        grids = (torch.stack([c.points for c in clouds]),
-                 torch.stack([c.mask for c in clouds]),
-                 torch.stack([grid_normals(c.points, c.mask) for c in clouds]))
+    with obs.span("register"):
+        S = len(clouds)
+        dev = clouds[0].points.device if S else torch.device("cpu")
+        if S < 2:
+            return RegisteredScans(R=torch.eye(3, device=dev).expand(S, 3, 3),
+                                   t=torch.zeros(S, 3, device=dev),
+                                   icp_rms=torch.zeros(0, device=dev),
+                                   pg_rms=torch.zeros((), device=dev))
+        with obs.span("register.samples"):
+            samples = [_subsample(c, cfg.icp_sample_points, seed=i)
+                       for i, c in enumerate(clouds)]
+            pts = torch.stack([p for p, _ in samples])          # (S, N, 3)
+            nrm = torch.stack([n for _, n in samples])
+            grids = None
+            if cam is not None:
+                grids = (torch.stack([c.points for c in clouds]),
+                         torch.stack([c.mask for c in clouds]),
+                         torch.stack([grid_normals(c.points, c.mask) for c in clouds]))
 
-    n_blocks = mesh.shape["map_block"] if mesh is not None else 1
+        n_blocks = mesh.shape["map_block"] if mesh is not None else 1
 
-    def run_edges(src_i, tgt_i, R0=None, t0=None, race_mask=None, res=None):
-        """One round over the edges src_i -> tgt_i: ICP (unless ``res`` is
-        given), then, with features, the race where ``race_mask``; with map
-        blocks, this rank's block of the padded edges, then the gather."""
-        si = torch.tensor(src_i, device=dev)
-        ti = torch.tensor(tgt_i, device=dev)
-        E = len(src_i)
-        if n_blocks > 1:
-            pad = (-E) % n_blocks
-            per, b = (E + pad) // n_blocks, mesh.coords["map_block"]
+        def run_edges(src_i, tgt_i, R0=None, t0=None, race_mask=None, res=None):
+            """One round over the edges src_i -> tgt_i: ICP (unless ``res`` is
+            given), then, with features, the race where ``race_mask``; with map
+            blocks, this rank's block of the padded edges, then the gather."""
+            with obs.span("register.round"):
+                si = obs.upload("register.upload", src_i, dev)
+                ti = obs.upload("register.upload", tgt_i, dev)
+                E = len(src_i)
+                if n_blocks > 1:
+                    pad = (-E) % n_blocks
+                    per, b = (E + pad) // n_blocks, mesh.coords["map_block"]
 
-            def block(x):
-                if x is None:
-                    return None
-                if pad:
-                    x = torch.cat([x, x[:1].expand((pad,) + tuple(x.shape[1:]))])
-                return x[b * per:(b + 1) * per]
+                    def block(x):
+                        if x is None:
+                            return None
+                        if pad:
+                            x = torch.cat([x, x[:1].expand((pad,) + tuple(x.shape[1:]))])
+                        return x[b * per:(b + 1) * per]
 
-            si, ti, R0, t0, race_mask = map(block, (si, ti, R0, t0, race_mask))
-            res = None if res is None else ICPResult(*map(block, res))
-        if res is None:
-            res = _batched_fine(pts[si], pts[ti], nrm[ti], cfg, R0=R0, t0=t0,
-                                grids=grids, cam=cam, tgt_idx=ti)
-        if race_mask is not None:
-            res = _batched_feature_race(pts[si], nrm[si], pts[ti], nrm[ti], res, cfg,
-                                        race_mask, grids=grids, cam=cam, tgt_idx=ti)
-        if n_blocks > 1:
-            res = ICPResult(*(x[:E] for x in comm.all_gather_rows(
-                list(res), mesh.groups["map_block"])))
-        return res
+                    si, ti, R0, t0, race_mask = map(block, (si, ti, R0, t0, race_mask))
+                    res = None if res is None else ICPResult(*map(block, res))
+                if res is None:
+                    res = _batched_fine(pts[si], pts[ti], nrm[ti], cfg, R0=R0, t0=t0,
+                                        grids=grids, cam=cam, tgt_idx=ti)
+                if race_mask is not None:
+                    res = _batched_feature_race(pts[si], nrm[si], pts[ti], nrm[ti], res, cfg,
+                                                race_mask, grids=grids, cam=cam, tgt_idx=ti)
+                if n_blocks > 1:
+                    res = ICPResult(*(x[:E] for x in comm.all_gather_rows(
+                        list(res), mesh.groups["map_block"])))
+                return res
 
-    # round 1: every chain edge (s-1, s), measurement T_{s-1}^-1 T_s
-    race_all = torch.ones(S - 1, dtype=torch.bool, device=dev) if use_features else None
-    chain = run_edges(list(range(1, S)), list(range(0, S - 1)), race_mask=race_all)
-    edges = [(s - 1, s) for s in range(1, S)]
-    R_init, t_init = _chain_init(chain.R, chain.t)
-    Zr, Zt = list(chain.R), list(chain.t)
+        # round 1: every chain edge (s-1, s), measurement T_{s-1}^-1 T_s
+        race_all = torch.ones(S - 1, dtype=torch.bool, device=dev) if use_features else None
+        chain = run_edges(list(range(1, S)), list(range(0, S - 1)), race_mask=race_all)
+        edges = [(s - 1, s) for s in range(1, S)]
+        R_init, t_init = _chain_init(chain.R, chain.t)
+        Zr, Zt = list(chain.R), list(chain.t)
 
-    # round 2: loop closures from the chain-predicted relative poses
-    if loop_closures and S >= 3:
-        pairs = [(0, S - 1)] + [(i, i + 2) for i in range(0, S - 2, 2)]
-        pairs = [p for p in pairs if p not in edges]
-        if pairs:
-            src_i, tgt_i = [j for _, j in pairs], [i for i, _ in pairs]
-            R0 = torch.stack([R_init[i].T @ R_init[j] for i, j in pairs])
-            t0 = torch.stack([R_init[i].T @ (t_init[j] - t_init[i]) for i, j in pairs])
-            res = run_edges(src_i, tgt_i, R0=R0, t0=t0)
-            if use_features:
-                res = run_edges(src_i, tgt_i, race_mask=res.inlier_frac < 0.5, res=res)
-            accept = (res.inlier_frac >= 0.3).tolist()
-            for e, (i, j) in enumerate(pairs):
-                if accept[e]:
-                    edges.append((i, j))
-                    Zr.append(res.R[e])
-                    Zt.append(res.t[e])
+        # round 2: loop closures from the chain-predicted relative poses
+        if loop_closures and S >= 3:
+            pairs = [(0, S - 1)] + [(i, i + 2) for i in range(0, S - 2, 2)]
+            pairs = [p for p in pairs if p not in edges]
+            if pairs:
+                src_i, tgt_i = [j for _, j in pairs], [i for i, _ in pairs]
+                R0 = torch.stack([R_init[i].T @ R_init[j] for i, j in pairs])
+                t0 = torch.stack([R_init[i].T @ (t_init[j] - t_init[i]) for i, j in pairs])
+                res = run_edges(src_i, tgt_i, R0=R0, t0=t0)
+                if use_features:
+                    res = run_edges(src_i, tgt_i, race_mask=res.inlier_frac < 0.5, res=res)
+                with obs.wait("register.accept"):
+                    accept = (res.inlier_frac >= 0.3).tolist()
+                for e, (i, j) in enumerate(pairs):
+                    if accept[e]:
+                        edges.append((i, j))
+                        Zr.append(res.R[e])
+                        Zt.append(res.t[e])
 
-    ei = torch.tensor([e[0] for e in edges], device=dev)
-    ej = torch.tensor([e[1] for e in edges], device=dev)
-    pg = pose_graph_optimize(torch.stack(R_init), torch.stack(t_init), ei, ej,
-                             torch.stack(Zr), torch.stack(Zt),
-                             iters=cfg.pg_iters, damping=cfg.pg_damping)
-    return RegisteredScans(R=pg.R, t=pg.t, icp_rms=chain.rms, pg_rms=pg.rms)
+        with obs.span("pose_graph"):
+            ei = obs.upload("register.upload", [e[0] for e in edges], dev)
+            ej = obs.upload("register.upload", [e[1] for e in edges], dev)
+            pg = pose_graph_optimize(torch.stack(R_init), torch.stack(t_init), ei, ej,
+                                     torch.stack(Zr), torch.stack(Zt),
+                                     iters=cfg.pg_iters, damping=cfg.pg_damping)
+        return RegisteredScans(R=pg.R, t=pg.t, icp_rms=chain.rms, pg_rms=pg.rms)
 
 
 def ba_refine(
@@ -368,28 +381,33 @@ def ba_refine(
     solve is ``distributed_bundle_adjust``, the landmarks split over
     ``map_block`` (``n_landmarks`` divisible by the blocks).
     """
-    S = len(clouds)
-    samples = [_subsample(c, 4096, seed=100 + i) for i, c in enumerate(clouds)]
-    R_cur, t_cur = reg.R, reg.t
-    per = [n_landmarks // S + (1 if i < n_landmarks % S else 0) for i in range(S)]
-    X0 = torch.cat([samples[s][0][:per[s]] @ R_cur[s].T + t_cur[s] for s in range(S)])
-    obs_s = torch.arange(S, device=X0.device).expand(n_landmarks, S)
-    res = None
-    for _ in range(max(1, rounds)):
-        obs_p, obs_n, obs_w = [], [], []
-        for s, (pts_s, nrm_s) in enumerate(samples):
-            # the landmarks in scan s's frame: R_s^T (X - t_s)
-            idx, d2 = nearest_neighbors((X0 - t_cur[s]) @ R_cur[s], pts_s, tile=2048)
-            obs_w.append((d2 < corr_dist * corr_dist).to(torch.float32))
-            obs_p.append(pts_s[idx])
-            obs_n.append(nrm_s[idx])
-        args = (R_cur, t_cur, X0, obs_s, torch.stack(obs_p, 1), torch.stack(obs_w, 1))
-        kw = dict(iters=max(1, iters // max(1, rounds)), huber_delta=huber_delta,
-                  obs_n=torch.stack(obs_n, 1) if point_to_plane else None)
-        res = (bundle_adjust_reference(*args, **kw) if mesh is None
-               else distributed_bundle_adjust(*args, mesh, **kw))
-        R_cur, t_cur, X0 = res.R, res.t, res.X
-    return RegisteredScans(R=res.R, t=res.t, icp_rms=reg.icp_rms, pg_rms=res.rms)
+    with obs.span("ba"):
+        S = len(clouds)
+        samples = [_subsample(c, 4096, seed=100 + i) for i, c in enumerate(clouds)]
+        R_cur, t_cur = reg.R, reg.t
+        per = [n_landmarks // S + (1 if i < n_landmarks % S else 0) for i in range(S)]
+        X0 = torch.cat([samples[s][0][:per[s]] @ R_cur[s].T + t_cur[s] for s in range(S)])
+        obs_s = torch.arange(S, device=X0.device).expand(n_landmarks, S)
+        res = None
+        for _ in range(max(1, rounds)):
+            with obs.span("ba.associate"):
+                obs_p, obs_n, obs_w = [], [], []
+                for s, (pts_s, nrm_s) in enumerate(samples):
+                    # the landmarks in scan s's frame: R_s^T (X - t_s)
+                    idx, d2 = nearest_neighbors((X0 - t_cur[s]) @ R_cur[s], pts_s,
+                                                tile=2048)
+                    obs_w.append((d2 < corr_dist * corr_dist).to(torch.float32))
+                    obs_p.append(pts_s[idx])
+                    obs_n.append(nrm_s[idx])
+                args = (R_cur, t_cur, X0, obs_s, torch.stack(obs_p, 1),
+                        torch.stack(obs_w, 1))
+                kw = dict(iters=max(1, iters // max(1, rounds)), huber_delta=huber_delta,
+                          obs_n=torch.stack(obs_n, 1) if point_to_plane else None)
+            with obs.span("ba.solve"):
+                res = (bundle_adjust_reference(*args, **kw) if mesh is None
+                       else distributed_bundle_adjust(*args, mesh, **kw))
+            R_cur, t_cur, X0 = res.R, res.t, res.X
+        return RegisteredScans(R=res.R, t=res.t, icp_rms=reg.icp_rms, pg_rms=res.rms)
 
 
 def fuse_scans(
@@ -401,8 +419,9 @@ def fuse_scans(
     """Every scan in the anchor frame, voxel-merged (voxel edge
     ``cfg.voxel_size``). Returns (points (capacity, 3), valid (capacity,),
     colors (capacity, 1), n_voxels)."""
-    pts = torch.cat([c.points.reshape(-1, 3) @ reg.R[s].T + reg.t[s]
-                     for s, c in enumerate(clouds)])
-    val = torch.cat([c.mask.reshape(-1) for c in clouds])
-    col = torch.cat([c.colors.reshape(-1, 1) for c in clouds])
-    return voxel_downsample(pts, val, cfg.voxel_size, capacity=capacity, attrs=col)
+    with obs.span("fuse"):
+        pts = torch.cat([c.points.reshape(-1, 3) @ reg.R[s].T + reg.t[s]
+                         for s, c in enumerate(clouds)])
+        val = torch.cat([c.mask.reshape(-1) for c in clouds])
+        col = torch.cat([c.colors.reshape(-1, 1) for c in clouds])
+        return voxel_downsample(pts, val, cfg.voxel_size, capacity=capacity, attrs=col)

@@ -9,8 +9,12 @@ stream waits on the copy's event, and the stack is ``record_stream``-ed on
 the compute stream so the allocator does not reuse it early. At most
 ``prefetch`` stacks are in flight, which bounds device memory. The
 parameter block of K1 is read to the host on the compute stream at each
-launch (``kernels.fused_scan.scan_params``), so the host waits there for
-the previous scan's work, not for the next copy.
+launch (``kernels.fused_scan.scan_params``), behind the compute stream's
+wait on this stack's copy: the host waits there for the rest of that copy
+and for the previous scan's work, not for the next copy, which is enqueued
+after the launch. A copy enqueued a scan ahead has little left by then:
+0.06 ms of a config-3 scan's ~0.5 ms on the host at prefetch 2 (one
+H100; the wait spans of ``slr_torch.observability``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from slr_torch import observability as obs
 from slr_torch.config import DecodeConfig, PatternConfig, ReconstructConfig
 from slr_torch.device import require_device
 from slr_torch.geom.camera import Camera
@@ -60,30 +65,33 @@ def reconstruct_stream(
             host = next(it)
         except StopIteration:
             return False
-        host = torch.from_numpy(host) if isinstance(host, np.ndarray) else host
-        if not on_card:
-            buf.append((host.to(device), None))
-            return True
-        if not host.is_pinned():
-            host = host.pin_memory()
-        with torch.cuda.stream(copy_stream):
-            frames = host.to(device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(copy_stream)
-        buf.append((frames, done))
+        # the enqueue's request is the scan's that reconstructs the stack
+        with obs.span("stream.enqueue") as sp:
+            host = torch.from_numpy(host) if isinstance(host, np.ndarray) else host
+            if not on_card:
+                buf.append((host.to(device), None, sp.request))
+                return True
+            if not host.is_pinned():
+                host = host.pin_memory()
+            with torch.cuda.stream(copy_stream):
+                frames = host.to(device, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(copy_stream)
+            buf.append((frames, done, sp.request))
         return True
 
     for _ in range(prefetch):
         if not pull():
             break
     while buf:
-        frames, done = buf.popleft()
+        frames, done, rid = buf.popleft()
         if done is not None:
             compute = torch.cuda.current_stream(device)
             compute.wait_event(done)
             frames.record_stream(compute)
-        cloud = reconstruct_dense(frames, cam, proj, cfg, dec, rec,
-                                  spatial_iters=spatial_iters)
+        with obs.request(rid):
+            cloud = reconstruct_dense(frames, cam, proj, cfg, dec, rec,
+                                      spatial_iters=spatial_iters)
         # enqueue the next copy before the caller blocks on this cloud
         pull()
         yield cloud

@@ -18,6 +18,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
+from slr_torch import observability as obs
 from slr_torch.geom.camera import Camera, project
 from slr_torch.pipeline.reconstruct import ScanCloud
 
@@ -35,14 +36,14 @@ def make_volume(origin, size_vox=(128, 128, 128), voxel: float = 2.0,
                 trunc: float | None = None, device=None) -> TSDFVolume:
     """Empty volume on ``device`` (default: ``origin``'s, or the CPU for an
     array); grid index order (z, y, x) -> axes (D, H, W)."""
-    origin = torch.as_tensor(origin, dtype=torch.float32, device=device)
+    origin = obs.upload("tsdf.upload", origin, device, torch.float32)
     dev = origin.device
     D, H, W = size_vox
     if trunc is None:
         trunc = 3.0 * voxel
 
     def scalar(x):
-        return torch.tensor(x, dtype=torch.float32, device=dev)
+        return obs.upload("tsdf.upload", x, dev, torch.float32)
 
     return TSDFVolume(tsdf=torch.ones((D, H, W), device=dev),
                       weight=torch.zeros((D, H, W), device=dev),
@@ -134,31 +135,36 @@ def fuse_tsdf(clouds: List[ScanCloud], cam: Camera, Rs, ts, size_vox=(128, 128, 
     than cropping the model; an anchor scan with no valid point raises
     ``ValueError``.
     """
-    dev = clouds[0].points.device
-    if origin is None:
-        p, m = clouds[0].points, clouds[0].mask[..., None]
-        b = torch.cat([torch.where(m, p, float("inf")).amin(dim=(0, 1)),
-                       torch.where(m, p, float("-inf")).amax(dim=(0, 1))]).cpu().numpy()
-        if not np.isfinite(b).all():
-            raise ValueError("fuse_tsdf: anchor scan has no valid points — cannot "
-                             "auto-place the volume (pass origin= explicitly)")
-        lo, hi = b[:3] - margin, b[3:] + margin
-        D, H, W = size_vox
-        span = hi - lo
-        need = np.array([W, H, D], np.float32) * voxel
-        if np.any(span > need):
-            grow = float(np.max(span / need))
-            voxel = voxel * grow
-            need = need * grow
-            warnings.warn(f"fuse_tsdf: scene span {span} exceeds the {size_vox} x "
-                          f"{voxel / grow:.3g} volume; growing voxel size to "
-                          f"{voxel:.3g} to fit", stacklevel=2)
-        origin = lo - np.maximum(need - span, 0.0) / 2.0
-    vol = make_volume(origin, size_vox=size_vox, voxel=voxel, device=dev)
-    for s, c in enumerate(clouds):
-        vol = tsdf_integrate(vol, c, cam, torch.as_tensor(Rs[s], dtype=torch.float32, device=dev),
-                             torch.as_tensor(ts[s], dtype=torch.float32, device=dev))
-    return vol
+    with obs.span("tsdf"):
+        dev = clouds[0].points.device
+        if origin is None:
+            p, m = clouds[0].points, clouds[0].mask[..., None]
+            b = torch.cat([torch.where(m, p, float("inf")).amin(dim=(0, 1)),
+                           torch.where(m, p, float("-inf")).amax(dim=(0, 1))])
+            with obs.wait("tsdf.bounds"):
+                b = b.cpu().numpy()
+            if not np.isfinite(b).all():
+                raise ValueError("fuse_tsdf: anchor scan has no valid points — cannot "
+                                 "auto-place the volume (pass origin= explicitly)")
+            lo, hi = b[:3] - margin, b[3:] + margin
+            D, H, W = size_vox
+            span = hi - lo
+            need = np.array([W, H, D], np.float32) * voxel
+            if np.any(span > need):
+                grow = float(np.max(span / need))
+                voxel = voxel * grow
+                need = need * grow
+                warnings.warn(f"fuse_tsdf: scene span {span} exceeds the {size_vox} x "
+                              f"{voxel / grow:.3g} volume; growing voxel size to "
+                              f"{voxel:.3g} to fit", stacklevel=2)
+            origin = lo - np.maximum(need - span, 0.0) / 2.0
+        vol = make_volume(origin, size_vox=size_vox, voxel=voxel, device=dev)
+        for s, c in enumerate(clouds):
+            with obs.span("tsdf.integrate"):
+                vol = tsdf_integrate(
+                    vol, c, cam, torch.as_tensor(Rs[s], dtype=torch.float32, device=dev),
+                    torch.as_tensor(ts[s], dtype=torch.float32, device=dev))
+        return vol
 
 
 # --- marching tetrahedra ---------------------------------------------------
@@ -216,10 +222,8 @@ def _march_tets(vol: TSDFVolume, cube_idx):
     the (z, y, x) of a cube's low corner. Returns (tris (n*12, 3, 3) world
     coordinates, valid (n*12,)), ordered by cube, tet, then triangle."""
     dev = vol.tsdf.device
-    cube = torch.tensor(_CUBE, device=dev)
-    tets = torch.tensor(_TETS, device=dev)
-    edges = torch.tensor(_EDGES, device=dev)
-    table = torch.as_tensor(_TRI_TABLE, device=dev)
+    cube, tets, edges, table = (obs.upload("mesh.table", x, dev, torch.int64)
+                                for x in (_CUBE, _TETS, _EDGES, _TRI_TABLE))
     cz, cy, cx = cube_idx.unbind(1)
     D, H, W = vol.tsdf.shape
     flat = vol.tsdf.reshape(-1)
@@ -275,32 +279,44 @@ def extract_mesh(vol: TSDFVolume, with_colors: bool = False):
     reference's order.
     """
     dev = vol.tsdf.device
-    idx = torch.nonzero(_active_cubes(vol))
-    tris, ok = _march_tets(vol, idx)
-    verts = tris[ok].reshape(-1, 3)
-    faces = torch.arange(verts.shape[0], dtype=torch.int32, device=dev).reshape(-1, 3)
-    if with_colors:
-        return verts, faces, _sample_color(vol, verts)
-    return verts, faces
+    with obs.span("mesh.extract"):
+        active = _active_cubes(vol)
+        with obs.wait("mesh.count"):
+            idx = torch.nonzero(active)
+        tris, ok = _march_tets(vol, idx)
+        with obs.wait("mesh.mask"):
+            verts = tris[ok]
+        verts = verts.reshape(-1, 3)
+        faces = torch.arange(verts.shape[0], dtype=torch.int32, device=dev).reshape(-1, 3)
+        if with_colors:
+            return verts, faces, _sample_color(vol, verts)
+        return verts, faces
 
 
 def write_tsdf_mesh_obj(path, vol: TSDFVolume, with_colors: bool = True) -> tuple[int, int]:
     """Extract and write the fused surface as OBJ; returns (n_verts,
     n_faces). Vertex colours (the integrated white-frame intensity, clipped
     to [0, 1]) ride along as the common 'v x y z r g b' extension."""
-    if with_colors:
-        verts, faces, cols = extract_mesh(vol, with_colors=True)
-        cols = torch.clamp(cols, 0.0, 1.0).tolist()
-    else:
-        verts, faces = extract_mesh(vol)
-    v = verts.tolist()
-    if with_colors:
-        lines = [f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} {c:.4f} {c:.4f} {c:.4f}\n"
-                 for p, c in zip(v, cols)]
-    else:
-        lines = [f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n" for p in v]
-    lines += [f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in faces.tolist()]
-    with open(path, "w") as fh:
-        fh.write("# slr tsdf mesh export\n")
-        fh.writelines(lines)
-    return len(v), int(faces.shape[0])
+    with obs.span("mesh_write"):
+        if with_colors:
+            verts, faces, cols = extract_mesh(vol, with_colors=True)
+            cols = torch.clamp(cols, 0.0, 1.0)
+            with obs.wait("mesh.read"):
+                cols = cols.tolist()
+        else:
+            verts, faces = extract_mesh(vol)
+        with obs.wait("mesh.read"):
+            v = verts.tolist()
+        with obs.wait("mesh.read"):
+            tri = faces.tolist()
+        with obs.span("mesh.text"):
+            if with_colors:
+                lines = [f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} {c:.4f} {c:.4f} {c:.4f}\n"
+                         for p, c in zip(v, cols)]
+            else:
+                lines = [f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n" for p in v]
+            lines += [f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in tri]
+        with obs.span("mesh.file"), open(path, "w") as fh:
+            fh.write("# slr tsdf mesh export\n")
+            fh.writelines(lines)
+        return len(v), int(faces.shape[0])

@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from slr_torch import observability as obs
+
 
 def _knn(query, target, k: int, tile: int = 2048):
     """k nearest neighbours by tiled distance blocks and a running top-k
@@ -88,7 +90,10 @@ def _kabsch(P, Q, w):
     cq = torch.sum(Q * w[..., None], dim=-2) / ws
     P0, Q0 = P - cp[..., None, :], Q - cq[..., None, :]
     H = (P0 * w[..., None]).transpose(-1, -2) @ Q0
-    U, _, Vt = torch.linalg.svd(H)
+    # its checks read the card twice: torch 2.11's, counted on an H100 by
+    # torch.cuda.set_sync_debug_mode; another torch may read another number
+    with obs.wait("kabsch.svd", syncs=2):
+        U, _, Vt = torch.linalg.svd(H)
     V, Ut = Vt.transpose(-1, -2), U.transpose(-1, -2)
     # D = diag(1, 1, sign), built without an in-place write: batched
     # registration runs this under torch.func.vmap
@@ -145,15 +150,22 @@ def _ransac_matches(src_feat, tgt_feat):
     return fwd, mutual, match_w, probs / torch.sum(probs)
 
 
+def _edges(X):
+    """The 3 pairwise edges of each sample of 3 points, X (n, 3, 3); each
+    list of indices is a copy to the card that the host waits for (two
+    syncs: torch 2.11's, counted on an H100 by set_sync_debug_mode)."""
+    with obs.wait("ransac.edges", syncs=2):
+        return X[:, [0, 0, 1]] - X[:, [1, 2, 2]]
+
+
 def _ransac_fit(P, Q, mutual, match_w, sel, inlier_dist: float):
     """Score the hypotheses ``sel`` (n_iters, 3) on the matched pairs P -> Q
     and refit the winner twice on its inliers: (R, t, inlier_frac)."""
     d2_thresh = inlier_dist * inlier_dist
     Ps, Qs = P[sel], Q[sel]                            # (n_iters, 3, 3)
     # rigid length-consistency test on the 3 pairwise edges
-    ip, jp = [0, 0, 1], [1, 2, 2]
-    dp = torch.linalg.norm(Ps[:, ip] - Ps[:, jp], dim=-1)
-    dq = torch.linalg.norm(Qs[:, ip] - Qs[:, jp], dim=-1)
+    dp = torch.linalg.norm(_edges(Ps), dim=-1)
+    dq = torch.linalg.norm(_edges(Qs), dim=-1)
     tol = torch.clamp(0.1 * torch.maximum(dp, dq), min=inlier_dist)
     consistent = torch.all(torch.abs(dp - dq) < tol, dim=1)
     # near-collinear samples fit any rotation: reject

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from slr_torch import observability as obs
+
 
 def _shift(a, dy: int, dx: int):
     """``a`` rolled by (dy, dx) over its first two axes, with the row or
@@ -48,5 +50,6 @@ def grid_normals(points, mask=None):
     n = torch.where(flip, -n, n)
     degenerate = (norm[..., 0] < 1e-12) | ~mask
     down = torch.zeros(3, dtype=n.dtype, device=n.device)
-    down[2] = -1.0
+    with obs.wait("normals.axis"):          # a scalar from the host
+        down[2] = -1.0
     return torch.where(degenerate[..., None], down, n)

@@ -110,14 +110,18 @@ def test_nan_guard_catches_a_produced_nan_and_restores():
 # ----------------------------------------------------------- observability
 
 def test_observability(capsys):
-    t = obs.StageTimer()
+    before = [r.id for r in obs.snapshot().spans if r.name == "aux.mul"]
     x = torch.ones((64, 64))
-    with t.stage("mul", result_to_block=x):
+    with obs.span("aux.mul") as sp:
         y = x * 2
-    assert "mul" in t.summary() and t.summary()["mul"] >= 0.0
+    rec = [r for r in obs.snapshot().spans if r.id == sp.id][0]
+    assert rec.name == "aux.mul" and rec.end_ns >= rec.start_ns and not rec.wait
+    took = [r for r in obs.snapshot().spans if r.name == "aux.mul" and r.id not in before]
+    assert len(took) == 1 and took[0].end_ns - took[0].start_ns == rec.end_ns - rec.start_ns
     assert bool((y == 2).all())
+    obs.log_event("stage", name="aux.mul", ms=(rec.end_ns - rec.start_ns) / 1e6)
     rec = json.loads(capsys.readouterr().err.splitlines()[-1])
-    assert rec["event"] == "stage" and rec["name"] == "mul"
+    assert rec["event"] == "stage" and rec["name"] == "aux.mul"
     r = obs.roofline(bytes_accessed=1e9, flops=1e9, measured_ms=2.0)
     assert r["bound"] == "memory"
     assert 0 < r["sol_fraction"] <= 1.0

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from slr.kernels import crossing as jx
+from slr_torch import observability as obs
 from slr_torch.kernels import crossing as tx
 
 torch.set_num_threads(2)
@@ -197,14 +198,18 @@ def test_wrappers_take_the_plain_version_on_cpu():
     reference's tiling knobs change nothing."""
     code, valid, ch_q = _random_case(6, 80, seed=11)
     code_t, valid_t, ch_t = _torch(code, valid, ch_q)
-    before = (tx.crossing_bin_sum.launches, tx.crossing_interp_fused.launches)
+    def launches():
+        counts = obs.snapshot().counts
+        return counts.get("launches.k6", 0), counts.get("launches.k7", 0)
+
+    before = launches()
     a = tx.crossing_interp_fused(code_t, valid_t, ch_t, 60, INTERP, gates=((1, 20.0),), rt=3)
     b = tx.crossing_interp(code_t, valid_t, ch_t, 60, INTERP)
     lo, hi = code_t[:, :-1], code_t[:, 1:]
     pay = ch_t[:, :, :-1].permute(1, 0, 2).contiguous()
     c = tx.crossing_bin_sum(lo, hi, pay, 60, utile=128, rt=4, usub=64, ksub=32, ktile=16)
     assert torch.equal(c, tx.crossing_bin_sum_reference(lo, hi, pay, 60))
-    assert (tx.crossing_bin_sum.launches, tx.crossing_interp_fused.launches) == before
+    assert launches() == before
     assert a[0].shape == b[0].shape == (6, 60)
     with pytest.raises(ValueError, match="CUDA"):
         tx.launch_interp_fused(code_t, valid_t, ch_t, 60, INTERP)

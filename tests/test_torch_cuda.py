@@ -24,6 +24,7 @@ import torch
 
 from chip_smoke import (box_exposures, corner_fronts, cu_constant, hdr_best_exposure, k2_box,
                         long_range_pairs)
+from slr_torch import observability as obs
 from slr_torch.codec import unwrap as pu
 from slr_torch.config import DecodeConfig, PatternConfig
 from slr_torch.geom.camera import make_camera
@@ -43,6 +44,14 @@ from slr_torch.synth.scene import bumps_depth, checker_albedo, spheres_scene
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
+
+
+def launches(*kernels):
+    """The launches so far of each kernel ("k1" .. "k8"), from the
+    recorder's ``launches.*`` counters; of one kernel, a number."""
+    counts = obs.snapshot().counts
+    got = tuple(counts.get(f"launches.{k}", 0) for k in kernels)
+    return got[0] if len(got) == 1 else got
 
 
 @pytest.fixture
@@ -68,9 +77,9 @@ def _scan(device, w, h, noise):
 def test_kernel_matches_plain_version(cuda, w, h, noise):
     cam, proj, cfg, scan = _scan(cuda, w, h, noise)
     dec = DecodeConfig()
-    before = fs.fused_decode_triangulate.launches
+    before = launches("k1")
     k = fs.fused_decode_triangulate(scan.frames, cam, proj, cfg, dec)
-    assert fs.fused_decode_triangulate.launches == before + 1
+    assert launches("k1") == before + 1
     p = fs.fused_decode_triangulate_reference(scan.frames, cam, proj, cfg, dec)
     torch.cuda.synchronize()
     mk, mp = k.mask > 0.5, p.mask > 0.5
@@ -92,10 +101,10 @@ def test_dense_reconstructor_launches_kernel_once(cuda):
     cam, proj, cfg, scan = _scan(torch.device("cpu"), 320, 256, 0.0)
     model = DenseReconstructor(cam, proj, cfg).to(cuda)
     frames = scan.frames.to(cuda)
-    fs.fused_decode_triangulate.launches = 0
+    n = launches("k1")
     cloud = model(frames)
     torch.cuda.synchronize()
-    assert fs.fused_decode_triangulate.launches == 1
+    assert launches("k1") - n == 1
     valid = cloud.mask.cpu() & scan.mask_true
     err = torch.linalg.norm(cloud.points.cpu() - scan.points_true, dim=-1)[valid]
     assert float(err.square().mean().sqrt()) < 0.5
@@ -175,9 +184,9 @@ def test_kernel_branch_matches_plain_version(cuda, branch):
                           device=cuda)
         proj, kw = None, dict(decode_only=True)
     dec = DecodeConfig()
-    before = fs.fused_decode_triangulate.launches
+    before = launches("k1")
     k = fs.fused_decode_triangulate(frames, cam, proj, cfg, dec, **kw)
-    assert fs.fused_decode_triangulate.launches == before + 1
+    assert launches("k1") == before + 1
     p = fs.fused_decode_triangulate_reference(frames, cam, proj, cfg, dec, **kw)
     torch.cuda.synchronize()
     _agrees(k, p, rows=cfg.row_gray_bits > 0)
@@ -210,9 +219,9 @@ def test_integer_kernel_layouts_match_plain_version(cuda, dtype, w, h, offset):
         frames = buf[offset:].view(frames.shape)
         assert frames.is_contiguous() and frames.data_ptr() % 4 == offset
     dec = DecodeConfig()
-    before = fs.fused_decode_triangulate.launches
+    before = launches("k1")
     k = fs.fused_decode_triangulate(frames, cam, proj, cfg, dec, **kw)
-    assert fs.fused_decode_triangulate.launches == before + 1
+    assert launches("k1") == before + 1
     p = fs.fused_decode_triangulate_reference(frames, cam, proj, cfg, dec, **kw)
     torch.cuda.synchronize()
     _agrees(k, p, rows=False)
@@ -238,9 +247,9 @@ def _bracket(device, gains=(1.0, 3.2, 10.0)):
 def test_hdr_kernel_matches_plain_version(cuda, fuse):
     cam, proj, cfg, _, bracket = _bracket(cuda)
     dec = DecodeConfig()
-    before = fs.fused_decode_triangulate_hdr.launches
+    before = launches("k2")
     k = fs.fused_decode_triangulate_hdr(bracket, cam, proj, cfg, dec, fuse=fuse)
-    assert fs.fused_decode_triangulate_hdr.launches == before + 1
+    assert launches("k2") == before + 1
     p = fs.fused_decode_triangulate_hdr_reference(bracket, cam, proj, cfg, dec,
                                                   fuse=fuse)
     torch.cuda.synchronize()
@@ -284,9 +293,9 @@ def test_hdr_kernel_layouts_match_plain_version(cuda, case):
         assert float((chosen >= 2).float().mean()) > 0.5
     dec = DecodeConfig()
     for fuse in ("sum", "select"):
-        before = fs.fused_decode_triangulate_hdr.launches
+        before = launches("k2")
         k = fs.fused_decode_triangulate_hdr(bracket, cam, proj, cfg, dec, fuse=fuse, **kw)
-        assert fs.fused_decode_triangulate_hdr.launches == before + 1
+        assert launches("k2") == before + 1
         p = fs.fused_decode_triangulate_hdr_reference(bracket, cam, proj, cfg, dec, fuse=fuse,
                                                       **kw)
         torch.cuda.synchronize()
@@ -298,12 +307,10 @@ def test_dense_reconstructor_launches_once_on_uint8_and_bracket(cuda):
     model = DenseReconstructor(cam, proj, cfg).to(cuda)
     # the unit-gain exposure alone (no saturated cells), then the bracket
     for frames, k1, k2 in ((bracket[0], 1, 0), (bracket, 0, 1)):
-        fs.fused_decode_triangulate.launches = 0
-        fs.fused_decode_triangulate_hdr.launches = 0
+        n1, n2 = launches("k1", "k2")
         cloud = model(frames.to(cuda))
         torch.cuda.synchronize()
-        assert (fs.fused_decode_triangulate.launches,
-                fs.fused_decode_triangulate_hdr.launches) == (k1, k2)
+        assert (launches("k1") - n1, launches("k2") - n2) == (k1, k2)
         valid = cloud.mask.cpu() & scan.mask_true
         err = torch.linalg.norm(cloud.points.cpu() - scan.points_true, dim=-1)[valid]
         assert float(err.square().mean().sqrt()) < 0.5
@@ -339,14 +346,14 @@ def test_vote_kernels_match_plain_version(cuda, H, W, iters, partial):
     plain = pu.spatial_quality_unwrap(Phi_n, q, mask, iters)
     assert torch.equal(plain.cpu(), pu.spatial_quality_unwrap(
         Phi_n.cpu(), q.cpu(), mask.cpu(), iters))
-    before = (us.quality_unwrap.launches, us.quality_unwrap_tiled.launches)
+    before = (launches("k3"), launches("k4"))
     k3 = us.launch_vote_resident(Phi_n, mask, iters)
-    assert us.quality_unwrap.launches == before[0] + 1
+    assert launches("k3") == before[0] + 1
     for tile_h, halo in ((64, None), (16, 5), (128, 8)):
-        n = us.quality_unwrap_tiled.launches
+        n = launches("k4")
         k4 = us.quality_unwrap_tiled(Phi_n, q, mask, iters, tile_h=tile_h, halo=halo)
         chunk = halo or min(iters, us.MAX_HALO)
-        assert us.quality_unwrap_tiled.launches - n == -(-iters // chunk)
+        assert launches("k4") - n == -(-iters // chunk)
         torch.cuda.synchronize()
         assert torch.equal(k4, plain), (tile_h, halo)
     assert torch.equal(k3, plain)
@@ -396,9 +403,9 @@ def test_vote_kernels_on_layouts_and_values(cuda, case, iters):
             assert Phi_n.data_ptr() % 16 == 4
     q = torch.ones_like(Phi_n)
     plain = pu.spatial_quality_unwrap(Phi_n, q, mask, iters)
-    n = us.quality_unwrap_tiled.launches
+    n = launches("k4")
     k4 = us.quality_unwrap_tiled(Phi_n, q, mask, iters)
-    assert us.quality_unwrap_tiled.launches - n == -(-iters // us.MAX_HALO)
+    assert launches("k4") - n == -(-iters // us.MAX_HALO)
     k3 = us.launch_vote_resident(Phi_n, mask, iters)
     torch.cuda.synchronize()
     for got in (k4, k3):
@@ -419,10 +426,10 @@ def test_k3_matches_plain_version_on_maps_of_its_route(cuda, H, W, iters):
     assert not us.takes_tiled(H, W)
     _, Phi_n, q, mask, _ = _phase_map(cuda, H, W, 3, partial=True)
     plain = pu.spatial_quality_unwrap(Phi_n, q, mask, iters)
-    n = us.quality_unwrap.launches
+    n = launches("k3")
     k3 = us.quality_unwrap(Phi_n, q, mask, iters)
     torch.cuda.synchronize()
-    assert us.quality_unwrap.launches == n + 1
+    assert launches("k3") == n + 1
     assert torch.equal(k3.view(torch.int32), plain.view(torch.int32))
     assert not torch.equal(plain, Phi_n)
 
@@ -483,20 +490,20 @@ def test_k3_refuses_a_map_past_one_wave(cuda):
     _, Phi_n, _, mask, _ = _phase_map(cuda, 2048, 2448, 5)
     wave, _, ow, oh = us.resident_layout(cuda.index or 0)
     assert us.resident_tiles(2048, 2448, ow, oh) > wave
-    n = us.quality_unwrap.launches
+    n = launches("k3")
     with pytest.raises(ValueError, match=f"at most {wave} tiles"):
         us.launch_vote_resident(Phi_n, mask, 4)
-    assert us.quality_unwrap.launches == n
+    assert launches("k3") == n
 
 
 def test_quality_unwrap_dispatch(cuda):
     """The reference's rule: a 1280x1024 map takes K4, a smaller one K3."""
     for (H, W), kernel in (((1024, 1280), "tiled"), ((215, 300), "resident")):
         _, Phi_n, q, mask, _ = _phase_map(cuda, H, W, 1)
-        us.quality_unwrap.launches = us.quality_unwrap_tiled.launches = 0
+        n3, n4 = launches("k3", "k4")
         out = us.quality_unwrap(Phi_n, q, mask, iters=4)
         torch.cuda.synchronize()
-        assert (us.quality_unwrap.launches, us.quality_unwrap_tiled.launches) == (
+        assert (launches("k3") - n3, launches("k4") - n4) == (
             (0, 1) if kernel == "tiled" else (1, 0))
         assert torch.equal(out, pu.spatial_quality_unwrap(Phi_n, q, mask, 4))
 
@@ -509,10 +516,10 @@ def test_quality_unwrap_past_one_wave_takes_k4(cuda):
     _, Phi_n, q, mask, _ = _phase_map(cuda, H, W, 9, partial=True)
     wave, _, ow, oh = us.resident_layout(cuda.index or 0)
     assert not us.takes_tiled(H, W) and us.resident_tiles(H, W, ow, oh) > wave
-    us.quality_unwrap.launches = us.quality_unwrap_tiled.launches = 0
+    n3, n4 = launches("k3", "k4")
     out = us.quality_unwrap(Phi_n, q, mask, iters=8)
     torch.cuda.synchronize()
-    assert (us.quality_unwrap.launches, us.quality_unwrap_tiled.launches) == (0, 1)
+    assert (launches("k3") - n3, launches("k4") - n4) == (0, 1)
     plain = pu.spatial_quality_unwrap(Phi_n, q, mask, 8)
     assert torch.equal(out.view(torch.int32), plain.view(torch.int32))
     with pytest.raises(ValueError, match=f"at most {wave} tiles"):
@@ -530,9 +537,9 @@ def test_wavefront_pass_matches_plain_version(cuda, H, W):
             (phi, elig, np.where(done, Phi, phi).astype(np.float32), done)]
     for axis in (1, 0):
         for reverse in (False, True):
-            before = wf.wavefront_pass.launches
+            before = launches("k5")
             Pk, dk = wf.wavefront_pass(*args, axis, reverse)
-            assert wf.wavefront_pass.launches == before + 1
+            assert launches("k5") == before + 1
             Pp, dp = pu.directional_pass(*args, axis, reverse)
             torch.cuda.synchronize()
             assert dk.dtype == torch.bool and torch.equal(dk, dp)
@@ -592,9 +599,9 @@ def test_wavefront_unwrap_and_repair_match_plain_version(cuda, H, W):
     repaired."""
     Phi, Phi_n, q, mask, _ = _phase_map(cuda, H, W, 3, blob=True)
     for levels, rounds in ((2, 1), (4, 2)):
-        wf.wavefront_pass.launches = 0
+        n = launches("k5")
         out = wf.wavefront_repair(Phi_n, q, mask, levels=levels, rounds_per_level=rounds)
-        assert wf.wavefront_pass.launches == 4 * levels * rounds
+        assert launches("k5") - n == 4 * levels * rounds
         ref = pu.quality_guided_repair(Phi_n, q, mask, levels=levels, rounds_per_level=rounds)
         torch.cuda.synchronize()
         assert float((out - ref).abs().max()) <= 1e-3
@@ -631,13 +638,11 @@ def test_dense_reconstructor_spatial_launches(cuda, mode):
     dec = DecodeConfig(spatial_unwrap_mode=mode)
     model = DenseReconstructor(cam, proj, cfg, dec, spatial_iters=4).to(cuda)
     base = DenseReconstructor(cam, proj, cfg).to(cuda)(scan.frames.to(cuda))
-    counts = (fs.fused_decode_triangulate, us.quality_unwrap, us.quality_unwrap_tiled,
-              wf.wavefront_pass)
-    for fn in counts:
-        fn.launches = 0
+    kernels = ("k1", "k3", "k4", "k5")
+    before = launches(*kernels)
     cloud = model(scan.frames.to(cuda))
     torch.cuda.synchronize()
-    assert [fn.launches for fn in counts] == (
+    assert [a - b for a, b in zip(launches(*kernels), before)] == (
         [1, 1, 0, 0] if mode == "voting" else [1, 0, 0, 8])
     assert torch.equal(cloud.mask, base.mask)
     fixed = (cloud.x_p - base.x_p).abs() > cfg.fringe_pitch / 2
@@ -704,9 +709,9 @@ def test_band_kernel_matches_plain_version_and_brute_force(cuda, case):
     if case == "wider_than_cap":   # the reference's cap, measured at one end
         cap = rb.suggest_b_max(qc[:, :1].T.expand(200, 3), tgt, r)
         assert int(widths.max()) > cap
-    before = rb.band_nn_sorted.launches
+    before = launches("k8")
     k = rb.band_nn_sorted(qc, qv, bt, r, b_max=1)
-    assert rb.band_nn_sorted.launches == before + 1
+    assert launches("k8") == before + 1
     p = kb.band_nn_sorted_reference(qc, qv, bt, r)
     torch.cuda.synchronize()
     assert torch.equal(k[3], p[3])
@@ -768,7 +773,7 @@ def test_band_icp_launches_once_per_iteration_without_host_sync(cuda):
     n_tgt = (n0 @ R_true.T).astype(np.float32)
     args = [torch.from_numpy(a) for a in (src, tgt, n_tgt)]
     on_card = [a.to(cuda) for a in args]
-    rb.band_nn_sorted.launches = 0
+    n = launches("k8")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -776,7 +781,7 @@ def test_band_icp_launches_once_per_iteration_without_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert rb.band_nn_sorted.launches == 6
+    assert launches("k8") - n == 6
     ref = icp_point_to_plane(*args, iters=6, max_corr_dist=8.0, nn_method="band")
     np.testing.assert_allclose(res.R.cpu().numpy(), ref.R.numpy(), atol=1e-5)
     np.testing.assert_allclose(res.t.cpu().numpy(), ref.t.numpy(), atol=1e-3)
@@ -812,11 +817,11 @@ def _crossing_agree(cnt, vals, cnt_p, vals_p):
 def test_crossing_kernels_match_plain_versions(cuda, R, U, K, wiggle):
     code, valid, ch = _crossing_case(cuda, R, U, R + U, wiggle)
     gates = ((1, 25.0),)
-    before = (kx.crossing_interp_fused.launches, kx.crossing_bin_sum.launches)
+    before = (launches("k7"), launches("k6"))
     cnt, vals = kx.crossing_interp_fused(code, valid, ch, K, INTERP, gates=gates)
     gate = (ch[1][:, 1:] - ch[1][:, :-1]).abs() < 25.0
     cnt6, vals6 = kx.crossing_interp(code, valid, ch, K, INTERP, pair_gate=gate)
-    assert (kx.crossing_interp_fused.launches, kx.crossing_bin_sum.launches) == (
+    assert (launches("k7"), launches("k6")) == (
         before[0] + 1, before[1] + 1)
     cnt_p, vals_p = kx.crossing_interp_fused_reference(code, valid, ch, K, INTERP, gates=gates)
     torch.cuda.synchronize()
@@ -935,14 +940,14 @@ def test_crossing_kernels_at_the_shared_memory_limit(cuda):
     while lib.slr_bin_sum_smem(Up + 1, 1024) <= kx.SMEM_MAX:
         Up += 1
     assert kx.bin_sum_chunk(1024) == Up
-    for U6, launches in ((Up + 1, 1), (Up + 2, 2)):
+    for U6, chunks in ((Up + 1, 1), (Up + 2, 2)):
         lo, hi, pay, _ = kx.crossing_pairs(*_crossing_case(cuda, 5, U6, 6, 0.3)[:3], INTERP)
-        n = kx.crossing_bin_sum.launches
+        n = launches("k6")
         out = kx.launch_bin_sum(lo, hi, pay, 1024)
         ref = kx.crossing_bin_sum_reference(lo, hi, pay, 1024)
         torch.cuda.synchronize()
         assert torch.equal(out, ref)
-        assert kx.crossing_bin_sum.launches - n == launches
+        assert launches("k6") - n == chunks
 
 
 def test_bin_sum_kernel_in_chunks_of_pairs(cuda):
@@ -953,11 +958,11 @@ def test_bin_sum_kernel_in_chunks_of_pairs(cuda):
     lo, hi, pay = long_range_pairs(cuda, R, U, N, K)
     chunk = kx.bin_sum_chunk(K)
     assert chunk < U
-    n = kx.crossing_bin_sum.launches
+    n = launches("k6")
     out = kx.crossing_bin_sum(lo, hi, pay, K)
     ref = kx.crossing_bin_sum_reference(lo, hi, pay, K)
     torch.cuda.synchronize()
-    assert kx.crossing_bin_sum.launches - n == -(-U // chunk)
+    assert launches("k6") - n == -(-U // chunk)
     assert torch.equal(out, ref)
     fires = kx.crossing_bin_sum_reference(lo, hi, torch.ones_like(pay[:, :1]), K)
     assert float(fires.max()) >= 20
@@ -1018,11 +1023,11 @@ def test_merge_launches_k1_twice_and_k7_four_times(cuda, dtype):
     for both passes of both; the plain route agrees, and two calls give the
     same bits."""
     cfg, c1, c2, (f1, f2) = _two_camera(cuda, 320, 256, dtype)
-    counts = [fs.fused_decode_triangulate, kx.crossing_interp_fused, kx.crossing_bin_sum]
-    before = [w.launches for w in counts]
+    kernels = ("k1", "k7", "k6")
+    before = launches(*kernels)
     a = reconstruct_two_camera(f1, f2, c1, c2, cfg)
     torch.cuda.synchronize()
-    assert [w.launches - b for w, b in zip(counts, before)] == [2, 4, 0]
+    assert [x - b for x, b in zip(launches(*kernels), before)] == [2, 4, 0]
     b = reconstruct_two_camera(f1, f2, c1, c2, cfg)
     assert torch.equal(a.points, b.points) and torch.equal(a.mask, b.mask)
     p = reconstruct_two_camera(f1, f2, c1, c2, cfg, merge_kernel=False)
@@ -1039,11 +1044,11 @@ def test_tiled_route_launches_k6(cuda, monkeypatch):
 
     monkeypatch.setattr(twocam, "FUSED_BUDGET", 0)
     cfg, c1, c2, (f1, f2) = _two_camera(cuda, 320, 256)
-    before = (kx.crossing_interp_fused.launches, kx.crossing_bin_sum.launches)
+    before = (launches("k7"), launches("k6"))
     a = reconstruct_two_camera(f1, f2, c1, c2, cfg)
     torch.cuda.synchronize()
-    assert (kx.crossing_interp_fused.launches - before[0],
-            kx.crossing_bin_sum.launches - before[1]) == (0, 4)
+    assert (launches("k7") - before[0],
+            launches("k6") - before[1]) == (0, 4)
     monkeypatch.setattr(twocam, "FUSED_BUDGET", 8 * 2 ** 20)
     b = reconstruct_two_camera(f1, f2, c1, c2, cfg)
     assert torch.equal(a.mask, b.mask)
@@ -1200,11 +1205,11 @@ def test_stream_side_stream_copy_gives_sequential_bits(cuda, prefetch):
               for k in range(4)]
     stacks[1] = stacks[1].numpy()            # numpy in, pageable
     stacks[2] = stacks[2].pin_memory()       # already pinned
-    fs.fused_decode_triangulate.launches = 0
+    n = launches("k1")
     got = [tuple(x.clone() for x in c) for c in reconstruct_stream(
         iter(stacks), cam, proj, cfg, prefetch=prefetch)]
     torch.cuda.synchronize()
-    assert fs.fused_decode_triangulate.launches == 4
+    assert launches("k1") - n == 4
     cam_d, proj_d = cam.to(cuda), proj.to(cuda)
     for s, c in zip(stacks, got):
         ref = reconstruct_dense(torch.as_tensor(s).to(cuda), cam_d, proj_d, cfg)
@@ -1249,11 +1254,11 @@ def test_session_on_the_card_matches_the_cpu(cuda, tmp_path, route):
     Session(root, device="cpu").add_scan(frames)
     c_cpu = Session(root, device="cpu").reconstruct(0, **kw)
     on_card = Session(root, device=cuda)
-    fs.fused_decode_triangulate.launches = fs.fused_decode_triangulate_hdr.launches = 0
+    n1, n2 = launches("k1", "k2")
     c_gpu = on_card.reconstruct(0, **kw)
     torch.cuda.synchronize()
     assert c_gpu.points.device.type == "cuda"
-    launched = (fs.fused_decode_triangulate.launches, fs.fused_decode_triangulate_hdr.launches)
+    launched = (launches("k1") - n1, launches("k2") - n2)
     assert launched == {"hdr": (0, 1), "scan": (0, 0)}.get(route, (1, 0))
     _cloud_agrees_plain(c_gpu, c_cpu)
     for a, b in zip(on_card.load_cloud(0), c_gpu):
@@ -1303,15 +1308,14 @@ def test_sharded_reconstruct_in_a_world_of_one_rank(nccl_world1, spatial_iters, 
                                 iters=spatial_iters)
         x_p = Phi * (cfg.fringe_pitch / (2 * math.pi))
         pts, _ = triangulate_plane(cam, proj, *_pixel_grid(1024, 1280, dev), x_p)
-    for w in (fs.fused_decode_triangulate, us.quality_unwrap, us.quality_unwrap_tiled):
-        w.launches = 0
+    before = launches("k1", "k3", "k4")
     comm.reset()
     got = sharded_reconstruct(frames, cam, proj, cfg, DecodeConfig(), nccl_world1,
                               spatial_iters=spatial_iters)
     for a, b in zip(got, (pts, mask, x_p, out.quality), strict=True):
         assert torch.equal(a, b)
-    assert (fs.fused_decode_triangulate.launches, us.quality_unwrap.launches,
-            us.quality_unwrap_tiled.launches) == (1, 0, spatial_iters // 4)
+    assert tuple(a - b for a, b in zip(launches("k1", "k3", "k4"), before)) == (
+        1, 0, spatial_iters // 4)
     assert comm.calls["all_gather"] == 1 and comm.calls["ring"] == 0
 
 

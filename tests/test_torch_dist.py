@@ -226,9 +226,6 @@ def test_comm_bytes_helpers_match_reference(shape):
     assert tobs.comm_schur_bytes(width % 13 + 1, iters) == jobs.comm_schur_bytes(
         width % 13 + 1, iters)
     assert tobs.comm_batched_icp_bytes(halo, iters) == jobs.comm_batched_icp_bytes(halo, iters)
-    a = tobs.scaling_projection(2.5, 1 << 20, 4, tobs.NVLINK_GBPS)
-    b = jobs.scaling_projection(2.5, 1 << 20, 4, tobs.NVLINK_GBPS)
-    assert a == b and a["interconnect_gbps"] == 450.0
 
 
 def test_mesh_shapes_and_defaults(world4, world2):

@@ -27,6 +27,7 @@ from slr.config import PatternConfig as JPatternConfig
 from slr.kernels import fused_decode_triangulate as jax_fused
 from slr.synth import bumps_depth
 from slr.synth.render import default_rig, render_scan
+from slr_torch import observability as obs
 from slr_torch.codec.patterns import decode_stack
 from slr_torch.config import DecodeConfig, PatternConfig
 from slr_torch.geom.camera import camera_from_numpy
@@ -118,10 +119,10 @@ def test_cpu_wrapper_takes_plain_route():
     _, _, frames, cam, proj, _, _ = _render(160, 128, 20.0, 0.0)
     cfg, dec = PatternConfig(**CFG), DecodeConfig()
     ft = torch.from_numpy(frames)
-    before = fs.fused_decode_triangulate.launches
+    before = obs.snapshot().counts.get("launches.k1", 0)
     a = fs.fused_decode_triangulate(ft, cam, proj, cfg, dec)
     b = fs.fused_decode_triangulate_reference(ft, cam, proj, cfg, dec)
-    assert fs.fused_decode_triangulate.launches == before  # no kernel launch
+    assert obs.snapshot().counts.get("launches.k1", 0) == before  # no kernel launch
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     with pytest.raises(ValueError, match="CUDA tensor"):

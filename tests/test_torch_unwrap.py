@@ -24,12 +24,21 @@ from chip_smoke import corner_fronts, cu_constant
 from slr.codec import unwrap as ju
 from slr.kernels.unwrap_scan import quality_unwrap_pallas, quality_unwrap_tiled
 from slr.kernels.wavefront import wavefront_repair_pallas
+from slr_torch import observability as obs
 from slr_torch.codec import unwrap as tu
 from slr_torch.kernels import unwrap_scan as tus
 from slr_torch.kernels import wavefront as twf
 from slr_torch.pipeline.reconstruct import spatial_repair
 
 torch.set_num_threads(2)
+
+
+def _launches(*kernels):
+    """The launches so far of each kernel ("k1" .. "k8"), from the
+    recorder's ``launches.*`` counters; of one kernel, a number."""
+    counts = obs.snapshot().counts
+    got = tuple(counts.get(f"launches.{k}", 0) for k in kernels)
+    return got[0] if len(got) == 1 else got
 
 
 def _voting_map(partial: bool):
@@ -111,11 +120,11 @@ def test_voting_matches_pallas_kernels(partial):
     k3 = np.asarray(quality_unwrap_pallas(pj, qj, mj, iters=6))
     k4 = np.asarray(quality_unwrap_tiled(pj, qj, mj, iters=6, tile_h=16))
     plain = tu.spatial_quality_unwrap(pt, qt, mt, iters=6)
-    before = (tus.quality_unwrap.launches, tus.quality_unwrap_tiled.launches)
+    before = _launches("k3", "k4")
     for out in (tus.quality_unwrap(pt, qt, mt, iters=6),
                 tus.quality_unwrap_tiled(pt, qt, mt, iters=6, halo=4)):
         assert torch.equal(out, plain)
-    assert (tus.quality_unwrap.launches, tus.quality_unwrap_tiled.launches) == before
+    assert _launches("k3", "k4") == before
     for ref in (k3, k4):
         np.testing.assert_allclose(plain.numpy(), ref, rtol=0, atol=1e-5)
 
@@ -375,10 +384,10 @@ def test_directional_pass_matches_reference(axis, reverse):
     assert rt.numpy().sum() > done.sum()
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=0, atol=1e-4)
     # the kernel wrapper takes this plain version on the CPU
-    before = twf.wavefront_pass.launches
+    before = _launches("k5")
     ow, rw = twf.wavefront_pass(pht, et, Pt, dt, axis, reverse)
     assert torch.equal(ow, ot) and torch.equal(rw, rt)
-    assert twf.wavefront_pass.launches == before
+    assert _launches("k5") == before
 
 
 def test_quality_guided_unwrap_matches_reference():
