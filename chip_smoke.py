@@ -96,7 +96,8 @@ TIMED_RUNS = 20
 HBM_PEAK_TBS = 3.35        # H100 SXM data sheet
 HDR_GAINS = (1.0, 3.2, 10.0)
 PROJ_DIST = [-0.08, 0.02, 0.001, -0.001, 0.0]
-LIBRARIES = ("fused_scan", "unwrap", "band_nn", "crossing")   # csrc/<name>.cu, one nvcc each
+# csrc/<name>.cu, one nvcc each
+LIBRARIES = ("fused_scan", "unwrap", "band_nn", "crossing", "obj_text")
 K1_UINT8_RMS_RECORDED = "0.0463"   # mm, config 3 uint8 (PERF.md)
 # K1's layouts, at 215 rows (the last 2-row box partial): rows of 299 and
 # 301 uint8 or uint16 pixels, not a multiple of 16 bytes, so no box is
@@ -145,6 +146,13 @@ C5_MESH_GATE_MM = 2.0                 # mesh vertices to the truth union: one vo
 # a pair costs K8 8 fp32 instructions (3 sub, 3 mul, 2 add; no FMA); the
 # card issues 33.5e12 a second, half its 67 TFLOP/s (an FMA counts 2)
 FP32_ISSUE_PER_S = 33.5e12
+# the OBJ text formatter's digit of a 32-bit value: obj_write_kernel's
+# digit loop in its sm_90a SASS (cuobjdump -sass), unrolled by 4, issues 30
+# instructions for 4 digits (a multiply-high, a shift, the remainder, the
+# '0', the store); the card issues 16.7e12 integer instructions a second
+# (64 INT32 lanes an SM, 132 SMs, 1.98 GHz)
+OBJ_DIGIT_INSTR, INT32_ISSUE_PER_S = 7.5, 16.7e12
+OBJ_HEADER = b"# slr tsdf mesh export\n"
 # bounds: instructions of one strict-consensus sweep a pixel, the least
 # work of the function (the operations of csrc/unwrap.cu's edge_vote,
 # vote_round and vote_consensus). A sweep rounds 2 edges a pixel, the one
@@ -686,10 +694,11 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
     exact search and a brute force at the reference's 256k size; the
     15-iteration band ICP (15 K8 launches); ICP between two dense config-3
     scans of the rocks scene (through K1, then K8); ``register_scans`` on a
-    4-scan orbit; config 5 on the 8-scan orbit (``config5_phase``); then
-    their times. Returns (config 5's K1 launches, the 8-scan orbit as
+    4-scan orbit; config 5 on the 8-scan orbit (``config5_phase``) and
+    its OBJ text (``obj_text_phase``); then their times. Returns (config 5's K1 launches, the 8-scan orbit as
     (uint8 stacks, rig poses, truth points), config 5's single-device
-    result (``config5_phase``), K8's entry of the ``kernels`` line)."""
+    result (``config5_phase``), the OBJ text kernel's and K8's entries of
+    the ``kernels`` line)."""
     from slr_torch.config import RegistrationConfig
     from slr_torch.geom.se3 import so3_exp
     from slr_torch.kernels import band_nn as kb
@@ -835,9 +844,11 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
 
     # phase 22b: config 5 on the 8-scan orbit
     mesh_dir = tempfile.TemporaryDirectory()
-    k1_config5, config5, config5_one = config5_phase(
+    n5, config5, config5_one = config5_phase(
         cam_d, proj.to(dev), cfg, stacks, poses, truths, counts_of, quiet,
         Path(mesh_dir.name) / "config5_mesh.obj")
+    obj_entry = obj_text_phase(*config5_one["surface"], Path(mesh_dir.name) / "config5_mesh.obj",
+                               main_launches=n5["obj_text"])
 
     # phase 23: times, in turns: K8 (K8_BATCH launches a timed run), its
     # plain version and the exact search at 256k (CUDA events); the band
@@ -873,7 +884,8 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
          k8_fp32_issue_share=pairs * 8 / FP32_ISSUE_PER_S / (ms["k8"] * 1e-3),
          exact_pairs_per_s=N_BIG * N_BIG / (ms["exact_nn"] * 1e-3),
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
-    return k1_config5, (stacks, poses, truths), config5_one, {"name": "band_nn_sorted", "route": "cuda",
+    return n5["k1"], (stacks, poses, truths), config5_one, obj_entry, {
+            "name": "band_nn_sorted", "route": "cuda",
             "source": "slr_torch/kernels/csrc/band_nn.cu",
             "replaces": "slr/registration/band.py:121",
             "launches": launches,
@@ -978,6 +990,164 @@ def config5_run(stacks, cam, proj, cfg, mesh=None, stages=None, mesh_path=None):
     return clouds, reg, fused, vol, surface, written, [str(w.message) for w in grown]
 
 
+def fstring_obj_lines(verts, cols, faces) -> bytes:
+    """The OBJ writer's lines as the port formatted them in Python before
+    the formatter kernel (``.tolist()``, then f-strings): the spec the
+    kernel's bytes are held to."""
+    v = verts.tolist()
+    if cols is not None:
+        lines = [f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} {c:.4f} {c:.4f} {c:.4f}\n"
+                 for p, c in zip(v, cols.tolist())]
+    else:
+        lines = [f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n" for p in v]
+    lines += [f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in faces.tolist()]
+    return "".join(lines).encode()
+
+
+def obj_domain_edge(k):
+    """(the largest float32 inside the OBJ formatter's domain |x| * 10^k <
+    2^63, the smallest beyond it); both are whole numbers at this size."""
+    c = np.float32(2.0 ** 63 / 10 ** k)
+    if int(c) * 10 ** k < 2 ** 63:
+        return c, np.nextafter(c, np.float32(np.inf))
+    return np.nextafter(c, np.float32(0)), c
+
+
+def _f32(*xs):
+    return np.array(xs, np.float32)
+
+
+(OBJ_LIMIT6, OBJ_BEYOND6), (OBJ_LIMIT4, OBJ_BEYOND4) = obj_domain_edge(6), obj_domain_edge(4)
+# the edges of the OBJ formatter's arithmetic, by kind
+OBJ_EDGES = {
+    "signed_zeros": _f32(0.0, -0.0),
+    "tiny_negatives": _f32(-1e-7, -4.9999e-7, -5e-7, -1e-30, -1e-5),
+    "ties_7th_decimal": _f32(1 / 128, 3 / 128, -1 / 128, 1 / 2 ** 20, 5 / 2 ** 20, 0.5, 2.5),
+    "ties_5th_decimal": _f32(1 / 32, 3 / 32, -1 / 32, 1 / 2 ** 14, 0.125, 0.375),
+    "carries": _f32(0.99999994, -0.99999994, 9.9999995, 99.99999, 999.99994, 0.99995,
+                    9.99995, -0.99995),
+    "subnormals": _f32(1e-45, -1e-45, 1e-40, -1.1754942e-38, 1.1754944e-38),
+    "largest_in_domain": _f32(OBJ_LIMIT6, -OBJ_LIMIT6, 16777216.0, 3.4e9, -1.0e12),
+    "nan_and_infinities": np.array([np.nan, -np.nan, np.inf, -np.inf], np.float32),
+    "mm_coordinates": _f32(-123.456789, 480.0001, 1e-3, 2.675, 1.0000001, 65504.0),
+}
+# face tables: the smallest index, indices up to 2^31 - 2, and negative ones
+OBJ_EDGE_FACES = [
+    [[0, 1, 2]],
+    [[2 ** 31 - 2, 2 ** 31 - 3, 0], [9, 99, 999], [123456789, 7, 2 ** 30]],
+    [[-1, -2, -(2 ** 31)], [2 ** 31 - 1, 0, 10 ** 9]],
+]
+
+
+def obj_edge_case(device):
+    """(verts, cols, faces) of every value of ``OBJ_EDGES`` in each column,
+    the colours the same values after the largest inside the colours'
+    domain (10^4), and every face of ``OBJ_EDGE_FACES``."""
+    x = np.concatenate(list(OBJ_EDGES.values()))
+    verts = np.stack([x, np.roll(x, 1), np.roll(x, 2)], 1)
+    cols = np.concatenate([[OBJ_LIMIT4, -OBJ_LIMIT4], x[:-2]]).astype(np.float32)
+    faces = np.array(sum(OBJ_EDGE_FACES, []), np.int32)
+    return (torch.from_numpy(np.ascontiguousarray(verts)).to(device),
+            torch.from_numpy(cols).to(device), torch.from_numpy(faces).to(device))
+
+
+def obj_text_phase(verts, faces, cols, mesh_path=None, main_launches=0):
+    """Phase 22c, ``obj_text_vs_plain``: the OBJ text formatter
+    (``slr_torch.kernels.obj_text``, two launches a text) on config 5's
+    mesh, with and without colours, and on ``obj_edge_case``: its bytes
+    equal to its plain version's on the CPU (gated), config 5's also to
+    Python's f-strings (the writer before the kernel) and, given
+    ``mesh_path``, the writer's file to the header and those bytes (gated);
+    ``launches.obj_text`` 2 a text (gated); a position past the domain
+    refused with ``ValueError`` (gated). Then times at config 5's shapes:
+    each kernel's device time (CUDA-graph replay), the wrapper (both
+    launches and both reads, host wall), the text's read into page-locked
+    and into pageable memory (in turns), the plain version and the
+    f-strings. Returns the kernel's entry of the ``kernels`` line, its
+    launches the main path's (``main_launches``: config 5's writer); this
+    phase's own are its gate."""
+    from slr_torch import observability as ob
+    from slr_torch.kernels import obj_text as ot
+
+    def n_launches():
+        return ob.snapshot().counts.get("launches.obj_text", 0)
+
+    dev = verts.device
+    cols = torch.clamp(cols, 0.0, 1.0)
+    cases = {"config5": (verts, cols, faces), "config5_no_colors": (verts, None, faces),
+             "edges": obj_edge_case(dev)}
+    texts, agree = {}, {}
+    for name, case in cases.items():
+        before = n_launches()
+        got = ot.format_obj(*case)
+        launched = n_launches() - before
+        plain = ot.format_obj(*(None if t is None else t.cpu() for t in case))
+        same = torch.equal(got, plain)
+        check(same and launched == 2, f"obj_text {name}: bit_equal {same}, launches {launched}")
+        texts[name] = got
+        agree[name] = dict(lines=sum(int(t.shape[0]) for t in case[::2]),
+                           bytes=int(got.shape[0]), launches=launched, bit_equal=same)
+    spec = fstring_obj_lines(verts, cols, faces)
+    check(texts["config5"].numpy().tobytes() == spec, "obj_text: config 5 differs from f-strings")
+    file_same = None
+    if mesh_path is not None:
+        file_same = Path(mesh_path).read_bytes() == OBJ_HEADER + spec
+        check(file_same, "obj_text: the writer's file differs from the f-string writer's")
+    try:
+        ot.format_obj(torch.tensor([[1e13, 0.0, 0.0]], device=dev), None, faces[:0])
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "obj_text: 1e13 mm formatted, not refused")
+    # times at config 5's shapes
+    v, c, f = cases["config5"]
+    ends = ot.line_ends(v, c, f)
+    n_bytes = ot.text_length(ends)
+    text = ot.write_text(v, c, f, ends, n_bytes)
+    lens = torch.zeros_like(ends)
+    device_ms = {
+        "lengths": statistics.median(graph_ms(
+            lambda: ot._launch("slr_obj_lengths", "length", v, c, f, lens))),
+        "write": statistics.median(graph_ms(
+            lambda: ot._launch("slr_obj_write", "write", v, c, f, ends, text)))}
+    reads = {"pinned": [], "pageable": []}
+    for name in ("pinned", "pageable", "pageable", "pinned"):
+        fn = (lambda: ot.to_host(text)) if name == "pinned" else text.cpu
+        fn()
+        reads[name] += [host_ms(fn, 10)]
+    cpu = [t.cpu() for t in (v, c, f)]
+    ms = {"wrapper": host_ms(lambda: ot.format_obj(v, c, f)),
+          "plain": host_ms(lambda: ot.format_obj(*cpu), 3),
+          "fstrings": host_ms(lambda: fstring_obj_lines(v, c, f), 3),
+          **{f"read_{k}": statistics.median(t) for k, t in reads.items()}}
+    # the digits the write pass computes, a floor on its operations: a
+    # vertex's colour once (it is copied twice); each a step of the 32-bit
+    # loop (no integer part here passes 2^32)
+    def n_digits(text):
+        host = text.numpy()
+        return int(((host >= 48) & (host <= 57)).sum())
+
+    plain_digits = n_digits(texts["config5_no_colors"])
+    digits = plain_digits + (n_digits(texts["config5"]) - plain_digits) // 3
+    moved = 16 * v.shape[0] + 12 * f.shape[0] + n_bytes   # inputs read once, text written
+    bound = {"bytes": moved / (HBM_PEAK_TBS * 1e12) * 1e3,
+             "operations": digits * OBJ_DIGIT_INSTR / INT32_ISSUE_PER_S * 1e3}
+    emit("obj_text_vs_plain", cases=agree, fstring_equal=True, writer_file_equal=file_same,
+         refused_outside_domain=refused, device_ms=device_ms,
+         device_ms_total=sum(device_ms.values()), **{f"{k}_ms": x for k, x in ms.items()},
+         read_ms_turns=reads, digits=digits, moved_bytes=moved, bound_ms=bound,
+         timing="device: CUDA-graph replay of 20 launches; the rest host wall from an "
+                "idle card, medians")
+    return {"name": "obj_text", "route": "cuda", "source": "slr_torch/kernels/csrc/obj_text.cu",
+            "replaces": None, "launches": main_launches,
+            "launches_phase": sum(a["launches"] for a in agree.values()),
+            "max_abs_err": 0, "max_abs_err_of": "bytes against the plain version: equal",
+            "ms": ms["wrapper"], "plain_ms": ms["plain"], "fstrings_ms": ms["fstrings"],
+            "device_ms": sum(device_ms.values()),
+            "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get),
+            "library_ms": None}
+
+
 def config5_phase(cam, proj, cfg, stacks, poses, truths, counts_of, quiet, mesh_path):
     """Phase 22b, config 5 at the reference's size: ``config5_run`` on the
     ORBIT_SCANS_CONFIG5 uint8 scans (one K1 launch a scan, no other
@@ -987,8 +1157,9 @@ def config5_phase(cam, proj, cfg, stacks, poses, truths, counts_of, quiet, mesh_
     truth clouds, more than 1000 faces), BA's rms below 1.5, the port's own
     tighter gates (poses within 0.5 mm, the fused cloud within 0.25 mm), the
     mesh's vertices within one voxel edge RMS of the truth union, and the
-    same bits in two calls. Returns (K1 launches of the counted run, a
-    function running the pipeline once, for the timed turns, and the
+    same bits in two calls; the counted run launches K1 once a scan and the
+    OBJ text kernels twice, and nothing else. Returns (the counted run's
+    launches of each kernel, a function running the pipeline once, for the timed turns, and the
     single-device result the parallel tier is held to: its clouds, poses
     and the second call's stage walls)."""
     def pipeline(stages):
@@ -996,7 +1167,8 @@ def config5_phase(cam, proj, cfg, stacks, poses, truths, counts_of, quiet, mesh_
 
     stages1, stages2 = {}, {}
     out, n = counts_of(lambda: pipeline(stages1))
-    check(n["k1"] == ORBIT_SCANS_CONFIG5 and quiet(n, "k1"), f"config5: launches {n}")
+    check(n["k1"] == ORBIT_SCANS_CONFIG5 and n["obj_text"] == 2 and quiet(n, "k1", "obj_text"),
+          f"config5: launches {n}")
     clouds, reg, (pts, val, col, n_vox), vol, (verts, faces, cols), written, grown = out
     n_faces = int(faces.shape[0])
     check(written == (int(verts.shape[0]), n_faces), f"config5: mesh {written}")
@@ -1036,7 +1208,8 @@ def config5_phase(cam, proj, cfg, stacks, poses, truths, counts_of, quiet, mesh_
                            for a in host_top},
          profiled="one run under torch.profiler (its walls include the profiler's cost)")
     emit("config5", scans=ORBIT_SCANS_CONFIG5, samples=C5_SAMPLES, landmarks=C5_LANDMARKS,
-         ba_iters=C5_BA_ITERS, launches=n["k1"], bit_identical_calls=same, **acc,
+         ba_iters=C5_BA_ITERS, launches=n["k1"], obj_text_launches=n["obj_text"],
+         bit_identical_calls=same, **acc,
          rot_gate_deg=ROT_GATE_DEG, t_gate_mm=T_GATE_MM, t_tight_gate_mm=C5_T_TIGHT_MM,
          icp_rms_mm=reg.icp_rms.tolist(), ba_rms_gate=C5_BA_RMS_GATE,
          n_voxels=int(n_vox), fused_gate_mm=C5_FUSED_GATE_MM,
@@ -1047,7 +1220,8 @@ def config5_phase(cam, proj, cfg, stacks, poses, truths, counts_of, quiet, mesh_
          valid_px=[int(c.mask.sum()) for c in clouds],
          stage_ms_first=stages1, stage_ms=stages2,
          stage_timing="host wall, the card synchronised at each end of a stage")
-    return n["k1"], lambda: pipeline({}), dict(clouds=clouds, reg=reg, stages=stages2)
+    return n, lambda: pipeline({}), dict(clouds=clouds, reg=reg, stages=stages2,
+                                         surface=(verts, faces, cols))
 
 
 def crossing_agree(name, got, plain):
@@ -1915,7 +2089,7 @@ def product_phases(dev, counts_of, card, main_path, orbit):
     from slr_torch.synth.render import quantize_frames, render_scan, two_camera_rig
     from slr_torch.synth.scene import spheres_scene
 
-    launches = dict.fromkeys(("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8"), 0)
+    launches = dict.fromkeys(KERNELS, 0)
 
     def product(fn):
         """``counts_of`` on a product path; its launches join the kernels
@@ -2010,6 +2184,9 @@ def product_phases(dev, counts_of, card, main_path, orbit):
             obj, n_mesh = product(sess.fuse_mesh)
         check(n_rec["k1"] == ORBIT_SCANS_CONFIG5 and all(
             v == 0 for k, v in n_rec.items() if k != "k1"), f"session_config5: launches {n_rec}")
+        check(n_mesh["obj_text"] == 2 and all(v == 0 for k, v in n_mesh.items()
+                                              if k != "obj_text"),
+              f"session_config5: fuse_mesh launches {n_mesh}")
         out = dict(clouds=[sess.load_cloud(i) for i in range(sess.cloud_count())],
                    reg=sess.load_registration(), ply=Path(ply).read_bytes(),
                    obj=Path(obj).read_bytes())
@@ -2043,7 +2220,10 @@ def product_phases(dev, counts_of, card, main_path, orbit):
             warnings.simplefilter("ignore")
             vol = tsdf.fuse_tsdf(clouds, sess.cam, reg.R, reg.t, size_vox=C5_TSDF,
                                  voxel=C5_VOXEL)
-        written = tsdf.write_tsdf_mesh_obj(root / "direct.obj", vol)
+        written, n_obj = product(lambda: tsdf.write_tsdf_mesh_obj(root / "direct.obj", vol))
+        check(n_obj["obj_text"] == 2 and all(v == 0 for k, v in n_obj.items()
+                                             if k != "obj_text"),
+              f"session_config5: the direct writer's launches {n_obj}")
         return clouds, reg, pts, val, n_vox, vol, written
 
     (clouds_d, reg_d, pts_d, val_d, n_vox, vol_d, written), direct_ms = ms_of(direct)
@@ -2253,7 +2433,7 @@ def digest(*tensors):
     return h.hexdigest()
 
 
-KERNELS = ("k1", "k2", "k3", "k4", "k5", "k8", "k6", "k7")
+KERNELS = ("k1", "k2", "k3", "k4", "k5", "k8", "k6", "k7", "obj_text")
 
 
 def launch_counts() -> dict:
@@ -3481,8 +3661,8 @@ def main():
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
 
     # phases 19-23: registration (config 4), K8
-    k1_config5, orbit, config5_one, k8_entry = registration_phases(dev, cam, proj, cfg,
-                                                                   counts_of, card)
+    k1_config5, orbit, config5_one, obj_entry, k8_entry = registration_phases(
+        dev, cam, proj, cfg, counts_of, card)
     launches += k1_config5
 
     # phases 24-30: the two-camera merge, K7 and K6
@@ -3639,9 +3819,9 @@ def main():
                           for k, (a, b, c) in composes.items()},
         "device_ms": device_ms["k5_rows"],
         "device_ms_cols": device_ms["k5_cols"],
-    }, k8_entry, k7_entry, k6_entry]
+    }, k8_entry, k7_entry, k6_entry, obj_entry]
     # the session paths' and the ranks' launches join the main path's
-    for key, entry in zip(("k1", "k2", "k3", "k4", "k5", "k8", "k7", "k6"), kernels):
+    for key, entry in zip(("k1", "k2", "k3", "k4", "k5", "k8", "k7", "k6", "obj_text"), kernels):
         entry["launches"] += product_launches[key] + dist_launches.get(key, 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,7 @@ import torch
 
 from slr_torch import observability as obs
 from slr_torch.geom.camera import Camera, project
+from slr_torch.kernels import obj_text
 from slr_torch.pipeline.reconstruct import ScanCloud
 
 
@@ -296,27 +297,26 @@ def extract_mesh(vol: TSDFVolume, with_colors: bool = False):
 def write_tsdf_mesh_obj(path, vol: TSDFVolume, with_colors: bool = True) -> tuple[int, int]:
     """Extract and write the fused surface as OBJ; returns (n_verts,
     n_faces). Vertex colours (the integrated white-frame intensity, clipped
-    to [0, 1]) ride along as the common 'v x y z r g b' extension."""
+    to [0, 1]) ride along as the common 'v x y z r g b' extension. The text
+    is formatted where the mesh lies (``slr_torch.kernels.obj_text``: on
+    the card by its kernels), read to the host once, and written in one
+    binary write: the bytes of Python's f-strings, '{:.6f}' for positions
+    and '{:.4f}' for colours."""
     with obs.span("mesh_write"):
         if with_colors:
             verts, faces, cols = extract_mesh(vol, with_colors=True)
             cols = torch.clamp(cols, 0.0, 1.0)
-            with obs.wait("mesh.read"):
-                cols = cols.tolist()
         else:
-            verts, faces = extract_mesh(vol)
-        with obs.wait("mesh.read"):
-            v = verts.tolist()
-        with obs.wait("mesh.read"):
-            tri = faces.tolist()
+            (verts, faces), cols = extract_mesh(vol), None
         with obs.span("mesh.text"):
-            if with_colors:
-                lines = [f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} {c:.4f} {c:.4f} {c:.4f}\n"
-                         for p, c in zip(v, cols)]
-            else:
-                lines = [f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n" for p in v]
-            lines += [f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in tri]
-        with obs.span("mesh.file"), open(path, "w") as fh:
-            fh.write("# slr tsdf mesh export\n")
-            fh.writelines(lines)
-        return len(v), int(faces.shape[0])
+            ends = obj_text.line_ends(verts, cols, faces)
+        with obs.wait("mesh.read"):
+            n_bytes = obj_text.text_length(ends)
+        with obs.span("mesh.text"):
+            text = obj_text.write_text(verts, cols, faces, ends, n_bytes)
+        with obs.wait("mesh.read"):
+            text = obj_text.to_host(text)
+        with obs.span("mesh.file"), open(path, "wb") as fh:
+            fh.write(b"# slr tsdf mesh export\n")
+            fh.write(text.numpy())
+        return int(verts.shape[0]), int(faces.shape[0])

@@ -1336,3 +1336,62 @@ def test_distributed_ba_in_a_world_of_one_rank(nccl_world1, plane):
     assert comm.calls["all_reduce"] == 6 and comm.calls["all_gather"] == 1
     for a, b in zip(got, bundle_adjust_reference(*args, **kw)):
         assert torch.equal(a, b)
+
+
+def _obj_sweep(device, seed, n=1 << 18):
+    """A seeded sweep for the OBJ text kernels: millimetre coordinates and
+    random bit patterns inside the domain (|x| < 9.2e12), NaN among them."""
+    rng = np.random.default_rng(seed)
+    mm = (rng.uniform(-2000.0, 2000.0, n) * 10.0 ** rng.integers(-6, 1, n)).astype(np.float32)
+    bits = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32).view(np.float32)
+    bits = np.where(np.abs(bits) < 9.2e12, bits, mm)
+    bits[::997] = np.nan
+    x = np.concatenate([mm, bits])[: 2 * n - 2 * n % 3]
+    verts = torch.from_numpy(np.ascontiguousarray(x.reshape(-1, 3))).to(device)
+    cols = torch.from_numpy(x[: verts.shape[0]].copy()).to(device)
+    faces = torch.from_numpy(rng.integers(0, 2 ** 31 - 1, (4096, 3)).astype(np.int32)).to(device)
+    return verts, cols, faces
+
+
+@pytest.mark.parametrize("with_colors", [True, False])
+@pytest.mark.parametrize("case", ["edges", "sweep"])
+def test_obj_text_kernel_matches_plain(cuda, case, with_colors):
+    """The OBJ text kernels' bytes equal to the plain version's on the CPU
+    and to Python's f-strings; two launches a text; a position past the
+    domain refused with ``ValueError``."""
+    from chip_smoke import fstring_obj_lines, obj_edge_case
+    from slr_torch.kernels import obj_text as ot
+
+    verts, cols, faces = obj_edge_case(cuda) if case == "edges" else _obj_sweep(cuda, 5)
+    cols = cols if with_colors else None
+    n = launches("obj_text")
+    got = ot.format_obj(verts, cols, faces)
+    assert launches("obj_text") - n == 2
+    cpu = [None if t is None else t.cpu() for t in (verts, cols, faces)]
+    assert torch.equal(got, ot.format_obj(*cpu))
+    assert got.numpy().tobytes() == fstring_obj_lines(*cpu)
+    with pytest.raises(ValueError, match="domain"):
+        ot.format_obj(torch.tensor([[0.0, -1e13, 0.0]], device=cuda), None, faces[:0])
+
+
+def test_tsdf_writer_on_the_card_matches_fstring_writer(cuda, tmp_path):
+    """``write_tsdf_mesh_obj`` on a card volume: the file the writer wrote
+    with f-strings, for the mesh it extracts on the card."""
+    from chip_smoke import OBJ_HEADER, fstring_obj_lines
+    from slr_torch.pipeline import tsdf
+
+    n = 48
+    z, y, x = torch.meshgrid(*(torch.arange(n, dtype=torch.float32, device=cuda),) * 3,
+                             indexing="ij")
+    d = torch.sqrt((x - 23.5) ** 2 + (y - 23.5) ** 2 + (z - 23.5) ** 2) * 2.0
+    weight = torch.full_like(d, 2.0)
+    vol = tsdf.TSDFVolume(torch.clamp((34.0 - d) / 6.0, -1.0, 1.0), weight,
+                          (z / n * 1.4 - 0.2) * weight,
+                          torch.tensor([-40.0, 12.5, 480.0], device=cuda),
+                          torch.tensor(2.0, device=cuda), torch.tensor(6.0, device=cuda))
+    n0 = launches("obj_text")
+    nv, nf = tsdf.write_tsdf_mesh_obj(tmp_path / "m.obj", vol)
+    assert launches("obj_text") - n0 == 2 and nf > 1000
+    verts, faces, cols = tsdf.extract_mesh(vol, with_colors=True)
+    want = OBJ_HEADER + fstring_obj_lines(verts, torch.clamp(cols, 0.0, 1.0), faces)
+    assert (tmp_path / "m.obj").read_bytes() == want

@@ -310,12 +310,12 @@ def test_fused_model_span_tree(tmp_path):
                          "tsdf.integrate", "tsdf.integrate", "tsdf.integrate")),
         ("mesh_write", [("mesh.extract", _leaves("mesh.count!", "mesh.table!", "mesh.table!",
                                                  "mesh.table!", "mesh.table!", "mesh.mask!")),
-                        *_leaves("mesh.read!", "mesh.read!", "mesh.read!", "mesh.text",
+                        *_leaves("mesh.text", "mesh.read!", "mesh.text", "mesh.read!",
                                  "mesh.file")]),
     ]
     # each wait one call; an edge list's indices (two copies) and an SVD
     # (two checks) sync twice
-    assert sum(s.wait for s in spans) == 41 and sum(s.syncs for s in spans) == 51
+    assert sum(s.wait for s in spans) == 40 and sum(s.syncs for s in spans) == 50
     # the orbit's poses handed over, as a turntable gives them: four uploads
     mark = _mark()
     rf.registered_scans_from_numpy(reg.R.numpy(), reg.t.numpy(), reg.icp_rms.numpy(),
