@@ -46,3 +46,11 @@ def bound_s(nbytes: float = 0.0, instr: float = 0.0) -> float:
     """The least time for ``nbytes`` of HBM traffic and ``instr`` fp32
     instructions on one H100: the larger of the two (chip_smoke.py:3526-3531)."""
     return max(nbytes / HBM_BYTES_PER_S, instr / FP32_ISSUE_PER_S)
+
+
+def k7_bytes(rows: int, codes: int, bins: int, channels: int = 4) -> int:
+    """K7's traffic a pass with every input read once: code (4 B), valid
+    (1 B) and ``channels`` carried channels (4 B) a pixel read, the count
+    and each channel (4 B) a bin written (chip_smoke.py:1337-1340,
+    ``crossing_k7_bytes``)."""
+    return rows * codes * (5 + 4 * channels) + rows * bins * 4 * (1 + channels)

@@ -1,7 +1,9 @@
 """Host -> card copy time a scan: the device time of the traced slice's
 HtoD copies (the frame stacks the stream sends from pinned memory), over
-its scans.
-Reads: slr_torch/pipeline/stream.py.
+its scans. In ``merge_twocam_u8`` the copies are the generator's: both
+cameras' stacks from pinned memory, in line before each merge (the
+program has no two-camera stream).
+Reads: slr_torch/pipeline/stream.py; the twocam_stream generator.
 """
 
 

@@ -1,7 +1,7 @@
 """Mesh extraction a fused model: the median, over the models before the
 traced slice's profiled passes, of the program's ``mesh.extract`` span
 (its count read and mask index) and the OBJ writer's ``mesh.read`` waits
-(vertices, colours and faces to the host).
+(the text's length and the text).
 Reads: slr_torch/pipeline/tsdf.py (extract_mesh, write_tsdf_mesh_obj).
 """
 

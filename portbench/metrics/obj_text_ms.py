@@ -1,6 +1,6 @@
 """The OBJ text a fused model: the median, over the models before the
-traced slice's profiled passes, of the program's ``mesh.text`` span (one
-formatted line a vertex and a face).
+traced slice's profiled passes, of the program's ``mesh.text`` spans (the
+formatter's launches).
 Reads: slr_torch/pipeline/tsdf.py::write_tsdf_mesh_obj.
 """
 

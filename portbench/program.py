@@ -1,7 +1,9 @@
 """The system under test as the benchmark calls it: the program's
 configuration objects and cameras, made from a configuration file and the
 frozen synth's rig. Every import of the program (``slr_torch``) by the
-benchmark goes through this module or a traffic generator.
+benchmark goes through this module, a traffic generator, or the readers of
+the program's own spans (``portbench/spans.py``, which the per-layer
+metrics of source ``program_span`` call).
 
 It also times the program's kernel builds (``slr_torch.kernels.build``
 compiles each source once a checkout, then loads it), so that a run says
@@ -36,10 +38,13 @@ _build._compile = _timed(_build._compile)
 
 
 def pattern_config(cfg: dict) -> PatternConfig:
+    """The pattern of a configuration file; the projector rows are coded
+    where the file has ``row_gray_bits`` (and ``row_phase_steps``)."""
     p, pr = cfg["pattern"], cfg["projector"]
+    rows = {k: p[k] for k in ("row_gray_bits", "row_phase_steps") if k in p}
     return PatternConfig(proj_width=pr["width"], proj_height=pr["height"],
                          coding=p["coding"], gray_bits=p["gray_bits"],
-                         phase_steps=p["phase_steps"], use_inverse=p["use_inverse"])
+                         phase_steps=p["phase_steps"], use_inverse=p["use_inverse"], **rows)
 
 
 def decode_config(cfg: dict) -> DecodeConfig:

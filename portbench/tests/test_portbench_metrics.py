@@ -117,3 +117,33 @@ def test_reports_follows_workloads_or_moves():
     assert harness.reports({"name": "m", "moves": "x"}, "c1", bench)
     assert not harness.reports({"name": "m", "moves": "x"}, "c2", bench)
     assert harness.reports({"name": "m", "moves": "setup_s"}, "c9", bench)
+
+
+def test_k7_bytes_at_the_merge():
+    # chip_smoke.py's bounds reading every input: 0.0145 / 0.0113 ms
+    assert arith.bound_s(arith.k7_bytes(1024, 1280, 1024)) * 1e3 == pytest.approx(0.014477, abs=1e-6)
+    assert arith.bound_s(arith.k7_bytes(1024, 1024, 768)) * 1e3 == pytest.approx(0.011268, abs=1e-6)
+
+
+def test_twocam_readers_on_a_synthetic_trace():
+    # the merge's K1 launches are all the decode-only build: k1_roofline_pct
+    # reads them at the configuration's 36 frames
+    cfg = harness.load_cell("merge_twocam_u8")[1]
+    k1 = "void (anonymous namespace)::fused_scan_kernel<unsigned char, 2, false>(...)"
+    ops = [("Memcpy HtoD (Pinned -> Device)", 0.0, 0.002),
+           (k1, 0.002, 0.00205), (k1, 0.0021, 0.00215)]
+    ops += [("void (anonymous namespace)::interp_fused_kernel<4, 3>(...)",
+             0.003 + 0.001 * i, 0.00305 + 0.001 * i) for i in range(4)]
+    r = harness.ReaderInput(_trace(ops, wall=0.01, items=1), {}, cfg, {"pool": 8})
+    least_k1 = (36 + 28) * 1280 * 1024 / arith.HBM_BYTES_PER_S
+    assert _reader("k1_roofline_pct").read(r) == pytest.approx(least_k1 / 5e-5 * 100)
+    least_k7 = 2 * (arith.k7_bytes(1024, 1280, 1024) + arith.k7_bytes(1024, 1024, 768))
+    assert _reader("k7_roofline_pct").read(r) == pytest.approx(
+        least_k7 / arith.HBM_BYTES_PER_S / 2e-4 * 100)
+    assert _reader("device_ops_per_scan").read(r) == 7
+    assert _reader("h2d_ms_per_scan").read(r) == pytest.approx(2.0)
+    # neither kernel in the trace, or no trace: no value, never a 0
+    other = harness.ReaderInput(_trace(ops[:1], wall=0.01, items=1), {}, cfg, {})
+    for name in ("k1_roofline_pct", "k7_roofline_pct"):
+        assert _reader(name).read(other) is None
+        assert _reader(name).read(harness.ReaderInput(None, {}, cfg, {})) is None
