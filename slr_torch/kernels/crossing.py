@@ -34,7 +34,12 @@ and ignored. The sums are float32 adds, no matrix product.
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor, or raises; the recorder's counters
 ``launches.k6`` and ``launches.k7`` (``slr_torch.observability``) count
-the launches.
+the launches. Its spans: ``crossing_interp`` records ``crossing.pairs``
+(the pairs and their payload), ``crossing.k6`` (the bin sums) and
+``crossing.unpack``, and counts the bytes of lo, hi and the payload it
+built, from their shapes, as ``bytes.crossing_payload``;
+``crossing_interp_fused`` records ``crossing.k7`` (on a CPU tensor its
+plain version, ``crossing_interp``'s spans, inside it).
 """
 
 from __future__ import annotations
@@ -276,13 +281,17 @@ def crossing_interp(code, valid, channels, num_bins: int, interp: tuple,
     there is none). ``use_kernel``: the contraction through
     ``crossing_bin_sum`` (K6 on a CUDA tensor), else its plain version.
     """
-    lo, hi, payload, unpack = crossing_pairs(code, valid, channels, interp, dmin, dmax,
-                                             pair_gate)
+    with obs.span("crossing.pairs"):
+        lo, hi, payload, unpack = crossing_pairs(code, valid, channels, interp, dmin, dmax,
+                                                 pair_gate)
+    obs.count("bytes.crossing_payload", 4 * (lo.numel() + hi.numel() + payload.numel()))
     bin_sum = crossing_bin_sum if use_kernel else crossing_bin_sum_reference
-    out = bin_sum(lo, hi, payload, num_bins)
-    kgrid = torch.arange(num_bins, dtype=torch.float32, device=code.device)[None, :]
-    cnt, vals = unpack(out, kgrid)
-    return cnt, torch.stack(vals)
+    with obs.span("crossing.k6"):
+        out = bin_sum(lo, hi, payload, num_bins)
+    with obs.span("crossing.unpack"):
+        kgrid = torch.arange(num_bins, dtype=torch.float32, device=code.device)[None, :]
+        cnt, vals = unpack(out, kgrid)
+        return cnt, torch.stack(vals)
 
 
 def gate_mask(channels, gates: tuple):
@@ -341,10 +350,12 @@ def crossing_interp_fused(code, valid, channels, num_bins: int, interp: tuple,
     version; a CUDA tensor launches K7, which needs contiguous inputs and
     a whole row in one block's shared memory. Returns (cnt (R, K), vals
     (C, R, K)). ``rt`` is ignored."""
-    if code.device.type == "cpu":
-        return crossing_interp_fused_reference(code, valid, channels, num_bins,
-                                               interp, gates, dmin, dmax)
-    if code.dtype != torch.float32:
-        code = code.to(torch.float32)
-    return launch_interp_fused(code, valid, channels, num_bins, interp, gates, dmin, dmax)
+    with obs.span("crossing.k7"):
+        if code.device.type == "cpu":
+            return crossing_interp_fused_reference(code, valid, channels, num_bins,
+                                                   interp, gates, dmin, dmax)
+        if code.dtype != torch.float32:
+            code = code.to(torch.float32)
+        return launch_interp_fused(code, valid, channels, num_bins, interp, gates, dmin,
+                                   dmax)
 

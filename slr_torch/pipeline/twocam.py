@@ -31,6 +31,7 @@ from typing import Tuple
 
 import torch
 
+from slr_torch import observability as obs
 from slr_torch.codec.patterns import DecodeResult, decode_stack
 from slr_torch.codec.unwrap import _shift_zero
 from slr_torch.config import DecodeConfig, PatternConfig, ReconstructConfig
@@ -355,66 +356,78 @@ def reconstruct_two_camera(
     ``code_tol`` (projector px) the left-right consistency of both code
     axes; ``edge_tol`` the code-discontinuity mask of both cameras.
     ``unsafe_search`` is accepted and ignored: the reference's fence
-    guards a TPU device fault."""
+    guards a TPU device fault.
+
+    The call is one ``scan`` span of the recorder (``slr_torch.observability``):
+    ``merge.decode`` a camera, ``merge.edges``, and for the merge
+    ``merge.invert`` a camera and ``merge.midpoint``."""
     if not cfg.row_gray_bits:
         raise ValueError(
             "two-camera mode needs both projector axes coded: set "
             "row_gray_bits (+ optionally row_phase_steps) in PatternConfig")
     if method not in ("merge", "splat", "search"):
         raise ValueError(f"unknown two-camera method {method!r}")
-    r1 = _decode(frames1, cam1, cfg, dec)
-    r2 = _decode(frames2, cam2, cfg, dec)
-    if r1.y_p is None:
-        raise ValueError("decode produced no projector-row coordinate")
+    with obs.span("scan"):
+        with obs.span("merge.decode"):
+            r1 = _decode(frames1, cam1, cfg, dec)
+        with obs.span("merge.decode"):
+            r2 = _decode(frames2, cam2, cfg, dec)
+        if r1.y_p is None:
+            raise ValueError("decode produced no projector-row coordinate")
 
-    # both sides drop code-discontinuity (silhouette-blend) pixels
-    edge1 = _code_edge_mask(r1.x_p, r1.y_p, r1.mask, edge_tol)
-    edge2 = _code_edge_mask(r2.x_p, r2.y_p, r2.mask, edge_tol)
-    if method == "merge":
-        m1, m2 = (invert_to_projector(
-            r.x_p, r.y_p, r.mask & edge, r.quality, _white_color(f),
-            cfg.proj_width, cfg.proj_height, dmax=merge_dmax, flip_u=flip_u,
-            flip_v=flip_v, use_kernel=merge_kernel)
-            for r, edge, f in ((r1, edge1, frames1), (r2, edge2, frames2)))
-        o1m, d1m = pixel_to_ray(cam1, m1[1], m1[2])
-        o2m, d2m = pixel_to_ray(cam2, m2[1], m2[2])
-        pts, gap = triangulate_midpoint(o1m, d1m, o2m, d2m)
+        # both sides drop code-discontinuity (silhouette-blend) pixels
+        with obs.span("merge.edges"):
+            edge1 = _code_edge_mask(r1.x_p, r1.y_p, r1.mask, edge_tol)
+            edge2 = _code_edge_mask(r2.x_p, r2.y_p, r2.mask, edge_tol)
+        if method == "merge":
+            found = []
+            for r, edge, f in ((r1, edge1, frames1), (r2, edge2, frames2)):
+                with obs.span("merge.invert"):
+                    found.append(invert_to_projector(
+                        r.x_p, r.y_p, r.mask & edge, r.quality, _white_color(f),
+                        cfg.proj_width, cfg.proj_height, dmax=merge_dmax, flip_u=flip_u,
+                        flip_v=flip_v, use_kernel=merge_kernel))
+            m1, m2 = found
+            with obs.span("merge.midpoint"):
+                o1m, d1m = pixel_to_ray(cam1, m1[1], m1[2])
+                o2m, d2m = pixel_to_ray(cam2, m2[1], m2[2])
+                pts, gap = triangulate_midpoint(o1m, d1m, o2m, d2m)
+                depth1 = _depth(cam1, pts)
+                mk = (m1[0] & m2[0] & (gap < max_ray_gap)
+                      & (depth1 > rec.min_depth) & (depth1 < rec.max_depth))
+                pts = torch.where(mk[..., None], pts, 0.0)
+                quality = torch.where(mk, torch.minimum(m1[3], m2[3]), 0.0)
+                xp_grid = _pixel_grid(*mk.shape, mk.device)[0]
+                return ScanCloud(points=pts, mask=mk, colors=m1[4], quality=quality,
+                                 x_p=xp_grid)
+
+        gw = resid = None
+        if method == "search":
+            u2, v2, _ = match_via_depth_search(
+                r1.x_p, r1.y_p, r2.x_p, r2.mask & edge2, cam1, cam2,
+                t_lo=rec.min_depth, t_hi=rec.max_depth, iters=search_iters)
+        else:
+            w2 = torch.where(r2.mask & edge2, torch.clamp(r2.quality, min=1e-6), 0.0)
+            u2, v2, gw, resid = match_via_projector(
+                r1.x_p, r1.y_p, r2.x_p, r2.y_p, w2, cfg.proj_width, cfg.proj_height)
+
+        u1, v1 = _pixel_grid(*r1.x_p.shape, r1.x_p.device)
+        o1, d1 = pixel_to_ray(cam1, u1, v1)
+        o2, d2 = pixel_to_ray(cam2, u2, v2)
+        pts, gap = triangulate_midpoint(o1, d1, o2, d2)
+        # left-right consistency: cam 2's decode at the matched pixel must carry
+        # the query's projector code (all 4 sample neighbours valid)
+        x_back = _bilinear(torch.where(r2.mask, r2.x_p, 0.0), u2, v2)
+        y_back = _bilinear(torch.where(r2.mask, r2.y_p, 0.0), u2, v2)
+        m_back = _bilinear(r2.mask.to(torch.float32), u2, v2)
+        consistent = ((m_back > 0.999) & ((x_back - r1.x_p).abs() < code_tol)
+                      & ((y_back - r1.y_p).abs() < code_tol))
         depth1 = _depth(cam1, pts)
-        mk = (m1[0] & m2[0] & (gap < max_ray_gap)
-              & (depth1 > rec.min_depth) & (depth1 < rec.max_depth))
-        pts = torch.where(mk[..., None], pts, 0.0)
-        quality = torch.where(mk, torch.minimum(m1[3], m2[3]), 0.0)
-        xp_grid = _pixel_grid(*mk.shape, mk.device)[0]
-        return ScanCloud(points=pts, mask=mk, colors=m1[4], quality=quality,
-                         x_p=xp_grid)
-
-    gw = resid = None
-    if method == "search":
-        u2, v2, _ = match_via_depth_search(
-            r1.x_p, r1.y_p, r2.x_p, r2.mask & edge2, cam1, cam2,
-            t_lo=rec.min_depth, t_hi=rec.max_depth, iters=search_iters)
-    else:
-        w2 = torch.where(r2.mask & edge2, torch.clamp(r2.quality, min=1e-6), 0.0)
-        u2, v2, gw, resid = match_via_projector(
-            r1.x_p, r1.y_p, r2.x_p, r2.y_p, w2, cfg.proj_width, cfg.proj_height)
-
-    u1, v1 = _pixel_grid(*r1.x_p.shape, r1.x_p.device)
-    o1, d1 = pixel_to_ray(cam1, u1, v1)
-    o2, d2 = pixel_to_ray(cam2, u2, v2)
-    pts, gap = triangulate_midpoint(o1, d1, o2, d2)
-    # left-right consistency: cam 2's decode at the matched pixel must carry
-    # the query's projector code (all 4 sample neighbours valid)
-    x_back = _bilinear(torch.where(r2.mask, r2.x_p, 0.0), u2, v2)
-    y_back = _bilinear(torch.where(r2.mask, r2.y_p, 0.0), u2, v2)
-    m_back = _bilinear(r2.mask.to(torch.float32), u2, v2)
-    consistent = ((m_back > 0.999) & ((x_back - r1.x_p).abs() < code_tol)
-                  & ((y_back - r1.y_p).abs() < code_tol))
-    depth1 = _depth(cam1, pts)
-    mask = (r1.mask & edge1 & consistent & (gap < max_ray_gap)
-            & (depth1 > rec.min_depth) & (depth1 < rec.max_depth))
-    if gw is not None:
-        mask = mask & (gw > min_weight) & (resid < max_resid)
-    pts = torch.where(mask[..., None], pts, 0.0)
-    q_match = r1.quality if gw is None else torch.minimum(r1.quality, gw)
-    return ScanCloud(points=pts, mask=mask, colors=_white_color(frames1),
-                     quality=torch.where(mask, q_match, 0.0), x_p=r1.x_p)
+        mask = (r1.mask & edge1 & consistent & (gap < max_ray_gap)
+                & (depth1 > rec.min_depth) & (depth1 < rec.max_depth))
+        if gw is not None:
+            mask = mask & (gw > min_weight) & (resid < max_resid)
+        pts = torch.where(mask[..., None], pts, 0.0)
+        q_match = r1.quality if gw is None else torch.minimum(r1.quality, gw)
+        return ScanCloud(points=pts, mask=mask, colors=_white_color(frames1),
+                         quality=torch.where(mask, q_match, 0.0), x_p=r1.x_p)

@@ -26,7 +26,7 @@ from chip_smoke import (box_exposures, corner_fronts, cu_constant, hdr_best_expo
                         long_range_pairs)
 from slr_torch import observability as obs
 from slr_torch.codec import unwrap as pu
-from slr_torch.config import DecodeConfig, PatternConfig
+from slr_torch.config import DecodeConfig, PatternConfig, ReconstructConfig
 from slr_torch.geom.camera import make_camera
 from slr_torch.kernels import band_nn as kb
 from slr_torch.kernels import crossing as kx
@@ -1053,6 +1053,62 @@ def test_tiled_route_launches_k6(cuda, monkeypatch):
     b = reconstruct_two_camera(f1, f2, c1, c2, cfg)
     assert torch.equal(a.mask, b.mask)
     assert float(torch.linalg.norm(a.points - b.points, dim=-1)[a.mask].max()) <= 1e-3
+
+
+def test_5mp_merge_takes_k6_and_waits_only_in_its_waits(cuda, monkeypatch):
+    """A 2448x2048 uint8 pair (the benchmark's twocam_2448x2048: 1024x768
+    projector, 7 + 6 Gray bits, 4-step phase on both axes) through the
+    merge's normal path: K1 twice, K6 four times, no K7; one ``scan`` root
+    whose decodes hold K1's parameter block and its one read; the payload
+    counted from the shapes; and no host sync outside the ``wait`` spans
+    (torch's sync debug mode raises on one)."""
+    W, H = 2448, 2048
+    cfg = PatternConfig(proj_width=1024, proj_height=768, gray_bits=7, row_gray_bits=6,
+                        phase_steps=4, row_phase_steps=4)
+    c1, c2, proj = two_camera_rig(cam_w=W, cam_h=H, device=cuda)
+    frames = []
+    for i, c in enumerate((c1, c2)):
+        gen = torch.Generator(device=cuda).manual_seed(i)
+        frames.append(quantize_frames(render_scan(
+            c, proj, spheres_scene(c, H, W), cfg, noise_std=0.003, generator=gen,
+            cast_shadows=True).frames))
+    rec = ReconstructConfig(min_depth=300.0, max_depth=900.0)
+    reconstruct_two_camera(*frames, c1, c2, cfg, rec=rec)          # builds and loads
+    torch.cuda.synchronize()
+
+    def unguarded(self):
+        torch.cuda.set_sync_debug_mode("default")
+        return obs.span.__enter__(self)
+
+    def guarded(self, *exc):
+        torch.cuda.set_sync_debug_mode("error")
+        return obs.span.__exit__(self, *exc)
+
+    monkeypatch.setattr(obs.wait, "__enter__", unguarded)
+    monkeypatch.setattr(obs.wait, "__exit__", guarded)
+    before = launches("k1", "k6", "k7")
+    payload = obs.snapshot().counts.get("bytes.crossing_payload", 0)
+    mark = max(s.id for s in obs.snapshot().spans)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cloud = reconstruct_two_camera(*frames, c1, c2, cfg, rec=rec)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert [x - b for x, b in zip(launches("k1", "k6", "k7"), before)] == [2, 4, 0]
+    assert int(cloud.mask.sum()) >= 560_000
+    spans = sorted((s for s in obs.snapshot().spans if s.id > mark), key=lambda s: s.id)
+    root = [s for s in spans if s.parent == 0]
+    assert [s.name for s in root] == ["scan"]
+    names = {s.id: s.name for s in spans}
+    assert [s.name for s in spans if s.parent == root[0].id] == [
+        "merge.decode", "merge.decode", "merge.edges", "merge.invert", "merge.invert",
+        "merge.midpoint"]
+    assert [(s.name, names[s.parent]) for s in spans if s.wait] == [
+        ("params.read", "k1.params")] * 2
+    assert [s.name for s in spans].count("crossing.k6") == 4
+    assert obs.snapshot().counts["bytes.crossing_payload"] - payload == \
+        2 * 4 * 9 * (H * (W - 1) + 1024 * (H - 1))
 
 
 def test_lm_solve_reads_nothing_on_the_host(cuda):
