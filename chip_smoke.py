@@ -97,7 +97,7 @@ HBM_PEAK_TBS = 3.35        # H100 SXM data sheet
 HDR_GAINS = (1.0, 3.2, 10.0)
 PROJ_DIST = [-0.08, 0.02, 0.001, -0.001, 0.0]
 # csrc/<name>.cu, one nvcc each
-LIBRARIES = ("fused_scan", "unwrap", "band_nn", "crossing", "obj_text")
+LIBRARIES = ("fused_scan", "unwrap", "band_nn", "crossing", "obj_text", "pose_graph")
 K1_UINT8_RMS_RECORDED = "0.0463"   # mm, config 3 uint8 (PERF.md)
 # K1's layouts, at 215 rows (the last 2-row box partial): rows of 299 and
 # 301 uint8 or uint16 pixels, not a multiple of 16 bytes, so no box is
@@ -689,16 +689,18 @@ def render_orbit(dev, cam, proj, cfg):
     return stacks, poses, truths
 
 
-def registration_phases(dev, cam, proj, cfg, counts_of, card):
+def registration_phases(dev, cam, proj, cfg, counts_of, card, pg_ptxas):
     """Phases 19-23, configs 4 and 5: K8 against its plain version, the
     exact search and a brute force at the reference's 256k size; the
     15-iteration band ICP (15 K8 launches); ICP between two dense config-3
     scans of the rocks scene (through K1, then K8); ``register_scans`` on a
-    4-scan orbit; config 5 on the 8-scan orbit (``config5_phase``) and
-    its OBJ text (``obj_text_phase``); then their times. Returns (config 5's K1 launches, the 8-scan orbit as
+    4-scan orbit (one pose-graph launch); config 5 on the 8-scan orbit
+    (``config5_phase``), its OBJ text (``obj_text_phase``) and the pose
+    graph (``pose_graph_phase``, ``pg_ptxas`` its build's registers); then
+    their times. Returns (config 5's K1 launches, the 8-scan orbit as
     (uint8 stacks, rig poses, truth points), config 5's single-device
-    result (``config5_phase``), the OBJ text kernel's and K8's entries of
-    the ``kernels`` line)."""
+    result (``config5_phase``), the OBJ text kernel's, the pose-graph
+    kernel's and K8's entries of the ``kernels`` line)."""
     from slr_torch.config import RegistrationConfig
     from slr_torch.geom.se3 import so3_exp
     from slr_torch.kernels import band_nn as kb
@@ -821,7 +823,8 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
         return rf.register_scans(cl, rc, use_features=True, cam=cam_d, loop_closures=True)
 
     reg, n = counts_of(lambda: register(clouds))
-    check(quiet(n), f"config4_register: launches {n}")
+    check(n["pose_graph"] == 1 and quiet(n, "pose_graph"), f"config4_register: launches {n}")
+    pg_launches = n["pose_graph"]
     errs = [pose_error(reg.R[s], reg.t[s], *poses[s]) for s in range(ORBIT_SCANS)]
     max_rot, max_t = max(e[0] for e in errs), max(e[1] for e in errs)
     check(max_rot < ROT_GATE_DEG and max_t < T_GATE_MM,
@@ -849,6 +852,7 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
         Path(mesh_dir.name) / "config5_mesh.obj")
     obj_entry = obj_text_phase(*config5_one["surface"], Path(mesh_dir.name) / "config5_mesh.obj",
                                main_launches=n5["obj_text"])
+    pg_entry = pose_graph_phase(dev, pg_ptxas, main_launches=pg_launches + n5["pose_graph"])
 
     # phase 23: times, in turns: K8 (K8_BATCH launches a timed run), its
     # plain version and the exact search at 256k (CUDA events); the band
@@ -884,7 +888,7 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card):
          k8_fp32_issue_share=pairs * 8 / FP32_ISSUE_PER_S / (ms["k8"] * 1e-3),
          exact_pairs_per_s=N_BIG * N_BIG / (ms["exact_nn"] * 1e-3),
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
-    return n5["k1"], (stacks, poses, truths), config5_one, obj_entry, {
+    return n5["k1"], (stacks, poses, truths), config5_one, obj_entry, pg_entry, {
             "name": "band_nn_sorted", "route": "cuda",
             "source": "slr_torch/kernels/csrc/band_nn.cu",
             "replaces": "slr/registration/band.py:121",
@@ -1039,6 +1043,140 @@ OBJ_EDGE_FACES = [
 ]
 
 
+# ---- the pose graph (slr_torch.kernels.pose_graph) ---------------------------
+
+def pose_graph_chain(S):
+    """Config 5's edges on S scans: the chain (s - 1, s), then the closures
+    (0, S - 1) and (i, i + 2) for even i that the chain lacks."""
+    chain = [(s - 1, s) for s in range(1, S)]
+    return chain + [p for p in [(0, S - 1)] + [(i, i + 2) for i in range(0, S - 2, 2)]
+                    if p not in chain]
+
+
+def pose_graph_edges(S, E):
+    """Config 5's edges on S scans, then (i, i + k) for k = 3, 4, ... and
+    every i, until there are E."""
+    edges = pose_graph_chain(S)
+    k = 3
+    while len(edges) < E:
+        edges += [(i, i + k) for i in range(S - k)][:E - len(edges)]
+        k += 1
+    return edges
+
+
+# name: graph = pose_graph_case's (S, edges, seed, rotation noise rad,
+# translation noise mm, step mm, initial error (rad, mm)), solve = the
+# keywords of pose_graph_optimize
+POSE_GRAPH_CASES = {
+    # a tree's optimum has zero residual and its initial poses, chained from
+    # the measurements, lie on it: they start 0.3 rad and 30 mm off, and stop
+    # after 2 iterations, before the RMS (0.2 there) falls to float32 rounding
+    "config5_chain": dict(graph=(8, pose_graph_chain(8)[:7], 5, 0.002, 0.05, 20.0, (0.3, 30.0)),
+                          solve=dict(iters=2)),
+    "config5_closures": dict(graph=(8, pose_graph_chain(8), 5, 0.002, 0.05, 20.0),
+                             solve=dict(iters=20)),
+    # one undamped step solves one edge exactly: damping 1 halves the
+    # translation's steps, so the RMS after 5 is well above rounding
+    "two_poses": dict(graph=(2, [(0, 1)], 5, 0.002, 0.05, 20.0, (0.3, 30.0)),
+                      solve=dict(iters=5, damping=1.0)),
+    "poses_32": dict(graph=(32, pose_graph_chain(32), 5, 0.002, 0.05, 20.0),
+                     solve=dict(iters=20)),
+    # closures between chain edges, one of them reversed (7, 0)
+    "closure_out_of_order": dict(
+        graph=(8, [(0, 1), (1, 2), (0, 2), (2, 3), (3, 4), (7, 0), (4, 5), (5, 6), (6, 7),
+                   (4, 6)], 5, 0.002, 0.05, 20.0),
+        solve=dict(iters=20)),
+    # measured rotations exact and steps of 2 mm: every final rotation
+    # residual lies in so3_log's Taylor branch (|w|^2 < 1e-12)
+    "taylor_branch": dict(graph=(6, pose_graph_chain(6), 7, 0.0, 0.01, 2.0),
+                          solve=dict(iters=20)),
+    # past shared memory: the kernel's workspace in global memory
+    "poses_48": dict(graph=(48, pose_graph_chain(48), 5, 0.002, 0.05, 20.0),
+                     solve=dict(iters=20)),
+}
+POSE_GRAPH_TOL = dict(R=1e-5, t=1e-3, rms_rtol=1e-3)  # tests/test_torch_registration.py
+
+
+def pose_graph_case(device, S, edges, seed, rot_noise, t_noise, step, init=(0.0, 0.0)):
+    """A pose graph from numpy seeded ``seed``: S poses, each a random step
+    (rotation within 0.2 rad, translation within ``step`` mm) from the last;
+    each edge's measurement the true relative pose with N(0, ``rot_noise``)
+    rad and N(0, ``t_noise``) mm of noise; the initial poses chained from
+    the measurements of the edges (s - 1, s), then each but pose 0 moved by
+    N(0, ``init``) (rad, mm). Returns (R0, t0, edges_i, edges_j, Z_R, Z_t)
+    on ``device``, float32 and int64."""
+    from slr_torch.geom.se3 import so3_exp
+
+    def rot(v):
+        return so3_exp(torch.from_numpy(v)).numpy()
+
+    rng = np.random.default_rng(seed)
+    Rt, tt = [np.eye(3)], [np.zeros(3)]
+    for _ in range(1, S):
+        Rr, tr = rot(rng.uniform(-0.2, 0.2, 3)), rng.uniform(-step, step, 3)
+        Rt.append(Rt[-1] @ Rr)
+        tt.append(Rt[-2] @ tr + tt[-1])
+    Zr, Zt = [], []
+    for i, j in edges:
+        noise = rot(rng.normal(0, rot_noise, 3)) if rot_noise else np.eye(3)
+        Zr.append(Rt[i].T @ Rt[j] @ noise)
+        Zt.append(Rt[i].T @ (tt[j] - tt[i]) + rng.normal(0, t_noise, 3))
+    R0, t0 = [np.eye(3)], [np.zeros(3)]
+    for s in range(1, S):
+        k = edges.index((s - 1, s))
+        R0.append(R0[-1] @ Zr[k])
+        t0.append(R0[-2] @ Zt[k] + t0[-1])
+    if init[0] or init[1]:
+        for s in range(1, S):
+            R0[s] = R0[s] @ rot(rng.normal(0, init[0], 3))
+            t0[s] = t0[s] + rng.normal(0, init[1], 3)
+
+    def dev32(a):
+        return torch.from_numpy(np.stack(a).astype(np.float32)).to(device)
+
+    return (dev32(R0), dev32(t0), torch.tensor([e[0] for e in edges], device=device),
+            torch.tensor([e[1] for e in edges], device=device), dev32(Zr), dev32(Zt))
+
+
+def pose_graph_agreement(k, p):
+    """The kernel's result ``k`` against the plain version's ``p``: max
+    |dR|, max |dt| mm, the RMS's relative difference, and whether each is
+    within POSE_GRAPH_TOL."""
+    dR = float((k.R - p.R).abs().max())
+    dt = float((k.t - p.t).abs().max())
+    rk, rp = float(k.rms), float(p.rms)
+    rel = abs(rk - rp) / max(abs(rp), 1e-30)
+    tol = POSE_GRAPH_TOL
+    ok = dR <= tol["R"] and dt <= tol["t"] and rel <= tol["rms_rtol"]
+    return dict(R_max_abs_err=dR, t_max_abs_err_mm=dt, rms=rk, plain_rms=rp,
+                rms_rel_err=rel, within=ok)
+
+
+def pose_graph_max_w2(R, t, args):
+    """The largest |w|^2 (w = vee(E - E^T), E the rotation of an edge's
+    residual Z^-1 T_i^-1 T_j) over the edges of graph ``args`` at poses R,
+    t: below 1e-12 so3_log takes its Taylor branch."""
+    from slr_torch.geom.se3 import se3_compose, se3_inverse
+
+    ei, ej = args[2], args[3]
+    Rii, tii = se3_inverse(R[ei], t[ei])
+    Er, _ = se3_compose(*se3_inverse(args[4], args[5]), *se3_compose(Rii, tii, R[ej], t[ej]))
+    w = torch.stack([Er[:, 2, 1] - Er[:, 1, 2], Er[:, 0, 2] - Er[:, 2, 0],
+                     Er[:, 1, 0] - Er[:, 0, 1]], -1)
+    return float((w * w).sum(-1).max())
+
+
+def pose_graph_flops(S, E):
+    """A floor on one solve's operations an iteration (an FMA counted as 2):
+    the Jacobian's 12E columns, each at least the residual's four 3x3
+    products and four matrix-vector products in value and derivative
+    (2 x 144 FMAs); J^T J on each edge's 12 x 12 block (78 entries of 6)
+    and J^T r; the factorisation of the 6S x 6S matrix (n^3 / 3) and its
+    two triangular solves (2 n^2)."""
+    n = 6 * S
+    return 12 * E * 576 + E * (78 + 12) * 12 + n ** 3 / 3 + 2 * n * n
+
+
 def obj_edge_case(device):
     """(verts, cols, faces) of every value of ``OBJ_EDGES`` in each column,
     the colours the same values after the largest inside the colours'
@@ -1148,6 +1286,83 @@ def obj_text_phase(verts, faces, cols, mesh_path=None, main_launches=0):
             "library_ms": None}
 
 
+def pose_graph_phase(dev, ptxas, main_launches=0):
+    """Phase 22d, ``pose_graph_vs_plain``: the pose-graph kernel
+    (``slr_torch.kernels.pose_graph``, one launch a solve) against its plain
+    version on the card (``pose_graph_optimize_reference``) on every
+    ``POSE_GRAPH_CASES`` graph, and on 32 poses with 207 edges (the most
+    that shared memory holds) and 208 (the workspace): within
+    POSE_GRAPH_TOL (gated), the taylor_branch case's final rotation
+    residuals below so3_log's 1e-12 (gated), one launch a call and two
+    calls the same bits (gated). Then times at config 5's graph (8 poses,
+    11 edges): the kernel's device time (CUDA-graph replay), the wrapper's
+    and the plain version's spans (CUDA events, host time included).
+    Returns the kernel's entry of the ``kernels`` line, its launches the
+    main path's (``main_launches``); this phase's own are its gate."""
+    from slr_torch import observability as ob
+    from slr_torch.kernels import pose_graph as kpg
+    from slr_torch.registration import posegraph as pg
+
+    def n_launches():
+        return ob.snapshot().counts.get("launches.pose_graph", 0)
+
+    cases = dict(POSE_GRAPH_CASES)
+    for E in (207, 208):
+        cases[f"poses_32_edges_{E}"] = dict(
+            graph=(32, pose_graph_edges(32, E), 5, 0.002, 0.05, 20.0), solve=dict(iters=20))
+    agree, launched = {}, 0
+    for name, case in cases.items():
+        args = pose_graph_case(dev, *case["graph"])
+        S, E = args[0].shape[0], args[2].shape[0]
+        before = n_launches()
+        k = pg.pose_graph_optimize(*args, **case["solve"])
+        k2 = pg.pose_graph_optimize(*args, **case["solve"])
+        torch.cuda.synchronize()
+        n = n_launches() - before
+        launched += n
+        same = all(torch.equal(a, b) for a, b in zip(k, k2))
+        p = pg.pose_graph_optimize_reference(*args, **case["solve"])
+        a = pose_graph_agreement(k, p)
+        a.update(poses=S, edges=E, in_shared=kpg.in_shared(S, E), launches=n,
+                 bit_identical_calls=same, max_w2=pose_graph_max_w2(k.R, k.t, args),
+                 **case["solve"])
+        check(a["within"] and n == 2 and same, f"pose_graph {name}: {a}")
+        check(name != "taylor_branch" or a["max_w2"] < 1e-12, f"pose_graph {name}: {a}")
+        agree[name] = a
+    shared = [agree[k]["in_shared"]
+              for k in ("poses_32_edges_207", "poses_32_edges_208", "poses_48")]
+    check(shared == [True, False, False], f"pose_graph: in shared memory {shared}")
+    # times at config 5's graph
+    args = pose_graph_case(dev, *POSE_GRAPH_CASES["config5_closures"]["graph"])
+    S, E = args[0].shape[0], args[2].shape[0]
+    device_ms = statistics.median(graph_ms(lambda: kpg.solve(*args, 20, 1e-6, 300.0)))
+    args48 = pose_graph_case(dev, *POSE_GRAPH_CASES["poses_48"]["graph"])
+    device_ms_48 = statistics.median(graph_ms(lambda: kpg.solve(*args48, 20, 1e-6, 300.0),
+                                              launches=10))
+    ms = {"wrapper": statistics.median(cuda_ms(lambda: pg.pose_graph_optimize(*args))),
+          "plain": statistics.median(cuda_ms(lambda: pg.pose_graph_optimize_reference(*args),
+                                             runs=5, warmup=1))}
+    flops = 20 * pose_graph_flops(S, E)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bound = flops / (2 * FP32_ISSUE_PER_S) * 1e3
+    regs = {k: v for k, v in ptxas.items() if "pose_graph" in k}
+    emit("pose_graph_vs_plain", cases=agree, tolerances=POSE_GRAPH_TOL,
+         config5_poses=S, config5_edges=E, device_ms=device_ms,
+         device_ms_poses_48_workspace=device_ms_48,
+         wrapper_ms=ms["wrapper"], plain_ms=ms["plain"], flops=flops, bound_ms=bound,
+         bound_ms_one_sm=bound * sms, smem_bytes=4 * kpg.words(S, E), registers=regs,
+         timing=f"device: CUDA-graph replay of {GRAPH_LAUNCHES} launches; wrapper and plain: "
+                "CUDA events around one call, host time included, medians")
+    return {"name": "pose_graph", "route": "cuda", "source": "slr_torch/kernels/csrc/pose_graph.cu",
+            "replaces": None, "launches": main_launches, "launches_phase": launched,
+            "max_abs_err": max(a["R_max_abs_err"] for a in agree.values()),
+            "max_abs_err_of": "R against the plain version",
+            "max_abs_err_t_mm": max(a["t_max_abs_err_mm"] for a in agree.values()),
+            "ms": ms["wrapper"], "plain_ms": ms["plain"], "device_ms": device_ms,
+            "bound_ms": bound, "bound_by": "operations", "bound_ms_one_sm": bound * sms,
+            "library_ms": None}
+
+
 def config5_phase(cam, proj, cfg, stacks, poses, truths, counts_of, quiet, mesh_path):
     """Phase 22b, config 5 at the reference's size: ``config5_run`` on the
     ORBIT_SCANS_CONFIG5 uint8 scans (one K1 launch a scan, no other
@@ -1157,8 +1372,9 @@ def config5_phase(cam, proj, cfg, stacks, poses, truths, counts_of, quiet, mesh_
     truth clouds, more than 1000 faces), BA's rms below 1.5, the port's own
     tighter gates (poses within 0.5 mm, the fused cloud within 0.25 mm), the
     mesh's vertices within one voxel edge RMS of the truth union, and the
-    same bits in two calls; the counted run launches K1 once a scan and the
-    OBJ text kernels twice, and nothing else. Returns (the counted run's
+    same bits in two calls; the counted run launches K1 once a scan, the
+    OBJ text kernels twice and the pose-graph kernel once, and nothing
+    else. Returns (the counted run's
     launches of each kernel, a function running the pipeline once, for the timed turns, and the
     single-device result the parallel tier is held to: its clouds, poses
     and the second call's stage walls)."""
@@ -1167,8 +1383,8 @@ def config5_phase(cam, proj, cfg, stacks, poses, truths, counts_of, quiet, mesh_
 
     stages1, stages2 = {}, {}
     out, n = counts_of(lambda: pipeline(stages1))
-    check(n["k1"] == ORBIT_SCANS_CONFIG5 and n["obj_text"] == 2 and quiet(n, "k1", "obj_text"),
-          f"config5: launches {n}")
+    check(n["k1"] == ORBIT_SCANS_CONFIG5 and n["obj_text"] == 2 and n["pose_graph"] == 1
+          and quiet(n, "k1", "obj_text", "pose_graph"), f"config5: launches {n}")
     clouds, reg, (pts, val, col, n_vox), vol, (verts, faces, cols), written, grown = out
     n_faces = int(faces.shape[0])
     check(written == (int(verts.shape[0]), n_faces), f"config5: mesh {written}")
@@ -2433,7 +2649,7 @@ def digest(*tensors):
     return h.hexdigest()
 
 
-KERNELS = ("k1", "k2", "k3", "k4", "k5", "k8", "k6", "k7", "obj_text")
+KERNELS = ("k1", "k2", "k3", "k4", "k5", "k8", "k6", "k7", "obj_text", "pose_graph")
 
 
 def launch_counts() -> dict:
@@ -2753,7 +2969,7 @@ def dist_phases(dev, card, main_path, orbit, config5_one):
         n_ex = -(-sweeps // h)
         return (n_ex, 0) if k3 else (0, n_ex * -(-h // us.MAX_HALO))
 
-    totals = {"k1": 0, "k3": 0, "k4": 0}
+    totals = {"k1": 0, "k3": 0, "k4": 0, "pose_graph": 0}
 
     def gate_config3(name, results, world):
         rows = []
@@ -2819,9 +3035,10 @@ def dist_phases(dev, card, main_path, orbit, config5_one):
             check(mine == c5["again"] == {k: first[k] for k in c5["again"]},
                   f"{name}: rank {r} differs from rank 0 or from its second run")
             want = dict.fromkeys(c5["launches"], 0)
-            want["k1"] = ORBIT_SCANS_CONFIG5 // 2
+            want.update(k1=ORBIT_SCANS_CONFIG5 // 2, pose_graph=1)
             check(c5["launches"] == want, f"{name}: config 5 launches {c5['launches']}")
             totals["k1"] += c5["launches"]["k1"]
+            totals["pose_graph"] += c5["launches"]["pose_graph"]
         R, t = first["reg"][0].to(dev), first["reg"][1].to(dev)
         dR, dt = float((R - c5_reg.R).abs().max()), float((t - c5_reg.t).abs().max())
         check(dR <= DIST_C5_R_TOL and dt <= DIST_C5_T_TOL,
@@ -2909,6 +3126,7 @@ def main():
     from slr_torch.kernels import band_nn as kb
     from slr_torch.kernels import crossing as kx
     from slr_torch.kernels import fused_scan as fs
+    from slr_torch.kernels import pose_graph as kpg
     from slr_torch.kernels import unwrap_scan as us
     from slr_torch.kernels import wavefront as wf
     from slr_torch.kernels.build import build_library
@@ -2972,6 +3190,7 @@ def main():
     us.library()
     kb.library()
     kx.library()
+    kpg.library()
     def ptxas_of(name):
         return ptxas_summary(built[name][1])
 
@@ -3661,8 +3880,8 @@ def main():
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
 
     # phases 19-23: registration (config 4), K8
-    k1_config5, orbit, config5_one, obj_entry, k8_entry = registration_phases(
-        dev, cam, proj, cfg, counts_of, card)
+    k1_config5, orbit, config5_one, obj_entry, pg_entry, k8_entry = registration_phases(
+        dev, cam, proj, cfg, counts_of, card, ptxas_summary(built["pose_graph"][1]))
     launches += k1_config5
 
     # phases 24-30: the two-camera merge, K7 and K6
@@ -3819,9 +4038,10 @@ def main():
                           for k, (a, b, c) in composes.items()},
         "device_ms": device_ms["k5_rows"],
         "device_ms_cols": device_ms["k5_cols"],
-    }, k8_entry, k7_entry, k6_entry, obj_entry]
+    }, k8_entry, k7_entry, k6_entry, obj_entry, pg_entry]
     # the session paths' and the ranks' launches join the main path's
-    for key, entry in zip(("k1", "k2", "k3", "k4", "k5", "k8", "k7", "k6", "obj_text"), kernels):
+    for key, entry in zip(("k1", "k2", "k3", "k4", "k5", "k8", "k7", "k6", "obj_text",
+                           "pose_graph"), kernels):
         entry["launches"] += product_launches[key] + dist_launches.get(key, 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,11 @@ each edge (i, j) with measured relative pose Z_ij, r = log(Z_ij^-1 T_i^-1
 T_j) in R^6. Gauss-Newton with the Jacobian from ``torch.func.jacfwd`` over
 the stacked tangent increments, gauge-fixed by anchoring pose 0, solved
 densely (the pose block is 6S x 6S).
+
+CUDA tensors take the whole solve in one launch of a kernel written by hand
+(``kernels/csrc/pose_graph.cu``, float32, counted as
+``launches.pose_graph``); CPU tensors take the loop below, the kernel's
+plain version.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 from torch.func import jacfwd
 
 from slr_torch.geom.se3 import se3_compose, se3_exp, se3_inverse, se3_log
+from slr_torch.kernels import pose_graph as kernel
 
 
 class PoseGraphResult(NamedTuple):
@@ -54,6 +60,21 @@ def pose_graph_optimize(
     damping: float = 1e-6,
     rot_scale: float = 300.0,
 ) -> PoseGraphResult:
+    """``iters`` Gauss-Newton iterations over the poses. CUDA tensors launch
+    the kernel once (float32; other dtypes raise ``ValueError``); CPU
+    tensors run ``pose_graph_optimize_reference``."""
+    if R_init.device.type == "cuda":
+        return PoseGraphResult(*kernel.solve(R_init, t_init, edges_i.long(), edges_j.long(),
+                                             Z_R, Z_t, iters, damping, rot_scale))
+    return pose_graph_optimize_reference(R_init, t_init, edges_i, edges_j, Z_R, Z_t, iters,
+                                         damping, rot_scale)
+
+
+def pose_graph_optimize_reference(R_init, t_init, edges_i, edges_j, Z_R, Z_t,
+                                  iters: int = 20, damping: float = 1e-6,
+                                  rot_scale: float = 300.0) -> PoseGraphResult:
+    """The plain version: each iteration's Jacobian by ``jacfwd``, the
+    normal equations solved by ``cholesky_ex`` and ``cholesky_solve``."""
     S = R_init.shape[0]
     dev = R_init.device
     scale = torch.ones(6, device=dev)

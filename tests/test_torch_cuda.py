@@ -22,8 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (box_exposures, corner_fronts, cu_constant, hdr_best_exposure, k2_box,
-                        long_range_pairs)
+from chip_smoke import (POSE_GRAPH_CASES, box_exposures, corner_fronts, cu_constant,
+                        hdr_best_exposure, k2_box, long_range_pairs, pose_graph_agreement,
+                        pose_graph_case, pose_graph_edges)
 from slr_torch import observability as obs
 from slr_torch.codec import unwrap as pu
 from slr_torch.config import DecodeConfig, PatternConfig, ReconstructConfig
@@ -31,12 +32,14 @@ from slr_torch.geom.camera import make_camera
 from slr_torch.kernels import band_nn as kb
 from slr_torch.kernels import crossing as kx
 from slr_torch.kernels import fused_scan as fs
+from slr_torch.kernels import pose_graph as kpg
 from slr_torch.kernels import unwrap_scan as us
 from slr_torch.kernels import wavefront as wf
 from slr_torch.pipeline.reconstruct import (
     DenseReconstructor, accumulate_by_projector, spatial_repair)
 from slr_torch.pipeline.twocam import reconstruct_two_camera
 from slr_torch.registration import band as rb
+from slr_torch.registration import posegraph as pg
 from slr_torch.registration.icp import icp_point_to_plane
 from slr_torch.synth.render import (
     default_rig, quantize_frames, render_scan, two_camera_rig)
@@ -1451,3 +1454,69 @@ def test_tsdf_writer_on_the_card_matches_fstring_writer(cuda, tmp_path):
     verts, faces, cols = tsdf.extract_mesh(vol, with_colors=True)
     want = OBJ_HEADER + fstring_obj_lines(verts, torch.clamp(cols, 0.0, 1.0), faces)
     assert (tmp_path / "m.obj").read_bytes() == want
+
+
+# ---------------------------------------------------------------- the pose graph
+
+@pytest.mark.parametrize("case", list(POSE_GRAPH_CASES))
+def test_pose_graph_kernel_matches_plain_version(cuda, case):
+    """The whole solve in one launch against the plain version (jacfwd,
+    cholesky_solve) on the card, within the JAX parity test's tolerances
+    (the CPU test ``test_pose_graph_cases_match_jax`` holds the plain
+    version to JAX on the same graphs); two calls the same bits."""
+    spec = POSE_GRAPH_CASES[case]
+    args = pose_graph_case(cuda, *spec["graph"])
+    n = launches("pose_graph")
+    got = pg.pose_graph_optimize(*args, **spec["solve"])
+    assert launches("pose_graph") - n == 1
+    want = pg.pose_graph_optimize_reference(*args, **spec["solve"])
+    agree = pose_graph_agreement(got, want)
+    assert agree["within"], agree
+    again = pg.pose_graph_optimize(*args, **spec["solve"])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_pose_graph_kernel_reads_nothing_on_the_host(cuda):
+    """One launch, no host synchronisation (torch's sync debug mode raises
+    on one), in shared memory and on the workspace."""
+    for case in ("config5_closures", "poses_48"):
+        args = pose_graph_case(cuda, *POSE_GRAPH_CASES[case]["graph"])
+        pg.pose_graph_optimize(*args)
+        torch.cuda.synchronize()
+        n = launches("pose_graph")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = pg.pose_graph_optimize(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert launches("pose_graph") - n == 1
+        assert 0.1 < float(res.rms) < 0.3
+
+
+@pytest.mark.parametrize("E", [207, 208])
+def test_pose_graph_at_the_shared_memory_limit(cuda, E):
+    """32 poses and 207 edges, the most that shared memory holds, and 208,
+    on the workspace: both one launch, within the tolerances."""
+    args = pose_graph_case(cuda, 32, pose_graph_edges(32, E), 5, 0.002, 0.05, 20.0)
+    assert kpg.in_shared(32, E) == (E == 207)
+    n = launches("pose_graph")
+    got = pg.pose_graph_optimize(*args)
+    assert launches("pose_graph") - n == 1
+    agree = pose_graph_agreement(got, pg.pose_graph_optimize_reference(*args))
+    assert agree["within"], agree
+
+
+def test_pose_graph_kernel_bad_input(cuda):
+    """An edge past the poses makes every output NaN; other dtypes (the
+    card's route is float32 alone), devices and shapes are refused."""
+    args = list(pose_graph_case(cuda, *POSE_GRAPH_CASES["two_poses"]["graph"]))
+    bad = pg.pose_graph_optimize(*args[:3], torch.tensor([2], device=cuda), *args[4:])
+    assert all(bool(torch.isnan(x).all()) for x in bad)
+    with pytest.raises(ValueError):
+        pg.pose_graph_optimize(*(a.double() if a.is_floating_point() else a for a in args))
+    with pytest.raises(ValueError):
+        kpg.solve(args[0].double(), *args[1:], 20, 1e-6, 300.0)
+    with pytest.raises(ValueError):
+        kpg.solve(*[a.cpu() for a in args], 20, 1e-6, 300.0)
+    with pytest.raises(ValueError):
+        kpg.solve(*args[:4], args[4][:, :2], args[5], 20, 1e-6, 300.0)

@@ -34,7 +34,10 @@ from slr.registration import projective as jproj
 from slr.geom import camera as jcam
 from slr_torch.geom import camera as tcam
 from slr_torch.geom import se3 as tse3
+from chip_smoke import POSE_GRAPH_CASES, pose_graph_case, pose_graph_max_w2
+from slr_torch import observability as obs
 from slr_torch.kernels import band_nn as kband
+from slr_torch.kernels import pose_graph as kpg
 from slr_torch.registration import band as tband
 from slr_torch.registration import features as tfeat
 from slr_torch.registration import icp as ticp
@@ -700,3 +703,65 @@ def test_pose_graph_matches_reference():
     np.testing.assert_allclose(float(rt.rms), float(rj.rms), rtol=1e-3)
     assert float(rt.rms) < 1.0
     assert np.max(np.linalg.norm(_np(rt.t) - np.stack(t_true), axis=1)) < 1.0
+
+
+# the kernel's working memory in shared memory up to its 232,432 bytes, past
+# them in a global-memory workspace, and shapes past its int32 offsets refused
+_ROUTE = ([(S, E, "shared") for S in (2, 8, 32, 33) for E in (S - 1, 85, 86)]
+          + [(1, 1, "shared"), (32, 207, "shared"), (32, 208, "workspace"),
+             (8, 584, "shared"), (8, 585, "workspace"), (38, 37, "shared"),
+             (39, 38, "workspace"), (48, 71, "workspace"), (1024, 1023, "workspace"),
+             (0, 1, "refused"), (8, 0, "refused"), (1025, 1024, "refused"),
+             (8, (1 << 20) + 1, "refused")])
+
+
+@pytest.mark.parametrize("S,E,where", _ROUTE)
+def test_pose_graph_route_at_its_edges(S, E, where):
+    """Every graph on the card takes the kernel: in shared memory while its
+    words fit, else on the workspace; no pose, no edge, or past the int32
+    offsets, refused (12 E = 1,020 and 1,032 (edge, tangent) pairs at E = 85
+    and 86: a block of 256 threads loops either way)."""
+    if where == "refused":
+        with pytest.raises(ValueError, match="the kernel takes"):
+            kpg.check_shape(S, E)
+        return
+    kpg.check_shape(S, E)
+    assert kpg.in_shared(S, E) == (where == "shared")
+    assert (4 * kpg.words(S, E) <= kpg.SMEM_MAX) == (where == "shared")
+
+
+def test_pose_graph_on_cpu_tensors_launches_nothing():
+    """CPU tensors run the plain version whatever their shape, and count no
+    launch."""
+    args = pose_graph_case("cpu", 3, [(0, 1), (1, 2), (0, 2)], 5, 0.002, 0.05, 20.0)
+    before = obs.snapshot().counts.get("launches.pose_graph", 0)
+    got = tpg.pose_graph_optimize(*args, iters=2)
+    want = tpg.pose_graph_optimize_reference(*args, iters=2)
+    assert obs.snapshot().counts.get("launches.pose_graph", 0) == before
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_pose_graph_taylor_case_ends_in_the_taylor_branch():
+    """The card tests' ``taylor_branch`` graph (exact measured rotations,
+    2 mm steps): every final rotation residual lies below so3_log's
+    |w|^2 = 1e-12, so its Taylor branch is what the kernel is held to."""
+    case = POSE_GRAPH_CASES["taylor_branch"]
+    args = pose_graph_case("cpu", *case["graph"])
+    res = tpg.pose_graph_optimize(*args, **case["solve"])
+    assert pose_graph_max_w2(res.R, res.t, args) < 1e-12
+    assert 1e-3 < float(res.rms) < 1e-2
+
+
+@pytest.mark.parametrize("name", list(POSE_GRAPH_CASES))
+def test_pose_graph_cases_match_jax(name):
+    """The plain version against JAX on every graph the card tests hold the
+    kernel to, at the JAX parity test's tolerances: kernel, plain version
+    and JAX agree on the same inputs."""
+    case = POSE_GRAPH_CASES[name]
+    args = pose_graph_case("cpu", *case["graph"])
+    rj = jpg.pose_graph_optimize(*(jnp.asarray(a.numpy()) for a in args), **case["solve"])
+    rt = tpg.pose_graph_optimize_reference(*args, **case["solve"])
+    np.testing.assert_allclose(_np(rt.R), np.asarray(rj.R), atol=1e-5)
+    np.testing.assert_allclose(_np(rt.t), np.asarray(rj.t), atol=1e-3)
+    np.testing.assert_allclose(float(rt.rms), float(rj.rms), rtol=1e-3)
+    assert float(rt.rms) > 1e-3    # above float32 rounding: the RMS says something
