@@ -32,7 +32,7 @@ to the same bits. Then config 5 on the reference's 8-scan orbit (K1 eight
 times, ``register_scans_batched``, ``ba_refine``, ``fuse_scans``,
 ``fuse_tsdf``, ``extract_mesh`` and the OBJ writer), gated on poses, the
 fused cloud and the mesh against the truth, twice to the same bits, each
-stage's wall, and one run profiled. Then the two-camera merge (``reconstruct_two_camera``):
+stage's wall. Then the two-camera merge (``reconstruct_two_camera``):
 the crossing kernels K7 and K6 against their plain versions, bit for bit
 (the reference's random case, a ragged one, the merge's passes and the 5 MP
 calls; rows with long pair ranges, NaN and infinite codes, clipped bins,
@@ -93,7 +93,6 @@ POINTS_TOL = 1e-2          # mm, on the pixels whose x_p (and y_p) agree
 QUALITY_TOL = 1e-5         # modulation, every pixel
 RMS_GATE_MM = 0.1          # against ground truth (config 3, float32 and uint8)
 TIMED_RUNS = 20
-HBM_PEAK_TBS = 3.35        # H100 SXM data sheet
 HDR_GAINS = (1.0, 3.2, 10.0)
 PROJ_DIST = [-0.08, 0.02, 0.001, -0.001, 0.0]
 # csrc/<name>.cu, one nvcc each
@@ -143,9 +142,8 @@ C5_BA_RMS_GATE = 1.5                  # tests/test_pipeline.py:209
 # (BASELINE.md:155-160: poses to 0.080 mm, the fused cloud 0.103 mm RMS)
 C5_T_TIGHT_MM, C5_FUSED_TIGHT_MM = 0.5, 0.25
 C5_MESH_GATE_MM = 2.0                 # mesh vertices to the truth union: one voxel edge
-# a pair costs K8 8 fp32 instructions (3 sub, 3 mul, 2 add; no FMA); the
-# card issues 33.5e12 a second, half its 67 TFLOP/s (an FMA counts 2)
-FP32_ISSUE_PER_S = 33.5e12
+# a pair costs K8 8 fp32 instructions (3 sub, 3 mul, 2 add; no FMA)
+K8_INSTR_PER_PAIR = 8
 # the OBJ text formatter's digit of a 32-bit value: obj_write_kernel's
 # digit loop in its sm_90a SASS (cuobjdump -sass), unrolled by 4, issues 30
 # instructions for 4 digits (a multiply-high, a shift, the remainder, the
@@ -219,6 +217,18 @@ def emit(name, **fields):
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def bound(nbytes=0, instr=0):
+    """The least time (ms) for ``nbytes`` of HBM traffic and ``instr`` fp32
+    instructions on an H100 (``slr_torch.observability.roofline``; an
+    instruction issues as an FMA does, two flops), and which of the two
+    binds."""
+    from slr_torch.observability import roofline
+
+    r = roofline(nbytes, 2 * instr, 1.0)
+    return {"bound_ms": r["sol_ms"],
+            "bound_by": "bytes" if r["bound"] == "memory" else "operations"}
 
 
 def agreement(k, p, rows=False, decode_only=False):
@@ -885,7 +895,7 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card, pg_ptxas):
          **{f"{k}_ms_spread": [min(v), max(v)] for k, v in times.items()},
          runs_each={k: len(v) for k, v in times.items()}, k8_pairs=pairs,
          k8_pairs_per_s=pairs / (ms["k8"] * 1e-3),
-         k8_fp32_issue_share=pairs * 8 / FP32_ISSUE_PER_S / (ms["k8"] * 1e-3),
+         k8_fp32_issue_share=bound(instr=pairs * K8_INSTR_PER_PAIR)["bound_ms"] / ms["k8"],
          exact_pairs_per_s=N_BIG * N_BIG / (ms["exact_nn"] * 1e-3),
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
     return n5["k1"], (stacks, poses, truths), config5_one, obj_entry, pg_entry, {
@@ -897,8 +907,7 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card, pg_ptxas):
             "max_abs_err_of": "d2 (mm^2) against the plain version; points, normals "
                               "and idx equal",
             "ms": ms["k8"], "plain_ms": ms["plain_k8"], "exact_nn_ms": ms["exact_nn"],
-            # 8 fp32 instructions a pair (3 sub, 3 mul, 2 add; no FMA)
-            "bound_ms": pairs * 8 / FP32_ISSUE_PER_S * 1e3, "bound_by": "operations",
+            **bound(instr=pairs * K8_INSTR_PER_PAIR),
             "library_ms": None}
 
 
@@ -1268,12 +1277,12 @@ def obj_text_phase(verts, faces, cols, mesh_path=None, main_launches=0):
     plain_digits = n_digits(texts["config5_no_colors"])
     digits = plain_digits + (n_digits(texts["config5"]) - plain_digits) // 3
     moved = 16 * v.shape[0] + 12 * f.shape[0] + n_bytes   # inputs read once, text written
-    bound = {"bytes": moved / (HBM_PEAK_TBS * 1e12) * 1e3,
-             "operations": digits * OBJ_DIGIT_INSTR / INT32_ISSUE_PER_S * 1e3}
+    bound_ms = {"bytes": bound(moved)["bound_ms"],
+                "operations": digits * OBJ_DIGIT_INSTR / INT32_ISSUE_PER_S * 1e3}
     emit("obj_text_vs_plain", cases=agree, fstring_equal=True, writer_file_equal=file_same,
          refused_outside_domain=refused, device_ms=device_ms,
          device_ms_total=sum(device_ms.values()), **{f"{k}_ms": x for k, x in ms.items()},
-         read_ms_turns=reads, digits=digits, moved_bytes=moved, bound_ms=bound,
+         read_ms_turns=reads, digits=digits, moved_bytes=moved, bound_ms=bound_ms,
          timing="device: CUDA-graph replay of 20 launches; the rest host wall from an "
                 "idle card, medians")
     return {"name": "obj_text", "route": "cuda", "source": "slr_torch/kernels/csrc/obj_text.cu",
@@ -1282,7 +1291,7 @@ def obj_text_phase(verts, faces, cols, mesh_path=None, main_launches=0):
             "max_abs_err": 0, "max_abs_err_of": "bytes against the plain version: equal",
             "ms": ms["wrapper"], "plain_ms": ms["plain"], "fstrings_ms": ms["fstrings"],
             "device_ms": sum(device_ms.values()),
-            "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get),
+            "bound_ms": max(bound_ms.values()), "bound_by": max(bound_ms, key=bound_ms.get),
             "library_ms": None}
 
 
@@ -1344,13 +1353,13 @@ def pose_graph_phase(dev, ptxas, main_launches=0):
                                              runs=5, warmup=1))}
     flops = 20 * pose_graph_flops(S, E)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    bound = flops / (2 * FP32_ISSUE_PER_S) * 1e3
+    bound_ms = bound(instr=flops / 2)["bound_ms"]
     regs = {k: v for k, v in ptxas.items() if "pose_graph" in k}
     emit("pose_graph_vs_plain", cases=agree, tolerances=POSE_GRAPH_TOL,
          config5_poses=S, config5_edges=E, device_ms=device_ms,
          device_ms_poses_48_workspace=device_ms_48,
-         wrapper_ms=ms["wrapper"], plain_ms=ms["plain"], flops=flops, bound_ms=bound,
-         bound_ms_one_sm=bound * sms, smem_bytes=4 * kpg.words(S, E), registers=regs,
+         wrapper_ms=ms["wrapper"], plain_ms=ms["plain"], flops=flops, bound_ms=bound_ms,
+         bound_ms_one_sm=bound_ms * sms, smem_bytes=4 * kpg.words(S, E), registers=regs,
          timing=f"device: CUDA-graph replay of {GRAPH_LAUNCHES} launches; wrapper and plain: "
                 "CUDA events around one call, host time included, medians")
     return {"name": "pose_graph", "route": "cuda", "source": "slr_torch/kernels/csrc/pose_graph.cu",
@@ -1359,7 +1368,7 @@ def pose_graph_phase(dev, ptxas, main_launches=0):
             "max_abs_err_of": "R against the plain version",
             "max_abs_err_t_mm": max(a["t_max_abs_err_mm"] for a in agree.values()),
             "ms": ms["wrapper"], "plain_ms": ms["plain"], "device_ms": device_ms,
-            "bound_ms": bound, "bound_by": "operations", "bound_ms_one_sm": bound * sms,
+            "bound_ms": bound_ms, "bound_by": "operations", "bound_ms_one_sm": bound_ms * sms,
             "library_ms": None}
 
 
@@ -1397,32 +1406,6 @@ def config5_phase(cam, proj, cfg, stacks, poses, truths, counts_of, quiet, mesh_
         (n_vox, n_vox2), (vol.tsdf, vol2.tsdf), (vol.weight, vol2.weight),
         (vol.color, vol2.color), (verts, verts2), (faces, faces2), (cols, cols2)))
     check(same, "config5: two calls differ")
-    # where the time goes: torch.profiler over one more run, device rows
-    # (kernels and copies) against the run's host wall; the host's busiest
-    # operators by their own time
-    from torch.profiler import ProfilerActivity, profile
-
-    stages3 = {}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipeline(stages3)
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            row = by_name.setdefault(ev.name, [0, 0.0])
-            row[0] += 1
-            row[1] += ev.time_range.elapsed_us() / 1e3
-    device_ms = sum(v[1] for v in by_name.values())
-    wall_ms = sum(stages3.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    host_top = sorted((a for a in prof.key_averages() if a.self_cpu_time_total > 0),
-                      key=lambda a: -a.self_cpu_time_total)[:8]
-    emit("profile_config5", wall_ms=wall_ms, stage_ms=stages3, device_ms=device_ms,
-         device_busy_share=device_ms / wall_ms,
-         device_ops=sum(v[0] for v in by_name.values()),
-         top_device_ms={n[:90]: [c, t] for n, (c, t) in top},
-         top_host_self_ms={a.key[:60]: [a.count, a.self_cpu_time_total / 1e3]
-                           for a in host_top},
-         profiled="one run under torch.profiler (its walls include the profiler's cost)")
     emit("config5", scans=ORBIT_SCANS_CONFIG5, samples=C5_SAMPLES, landmarks=C5_LANDMARKS,
          ba_iters=C5_BA_ITERS, launches=n["k1"], obj_text_launches=n["obj_text"],
          bit_identical_calls=same, **acc,
@@ -1630,6 +1613,7 @@ def two_camera_phases(dev, counts_of, card, ptxas):
     from slr_torch.geom.camera import pixel_to_ray
     from slr_torch.geom.se3 import so3_exp
     from slr_torch.kernels import crossing as kx
+    from slr_torch.observability import HBM_GBPS, roofline
     from slr_torch.pipeline import registerfuse as rf
     from slr_torch.pipeline import twocam
     from slr_torch.synth.render import move_rig, quantize_frames, render_scan, two_camera_rig
@@ -1786,7 +1770,7 @@ def two_camera_phases(dev, counts_of, card, ptxas):
         plain_ms=statistics.median(cuda_ms(
             lambda: kx.crossing_bin_sum_reference(lo_c, hi_c, pay_c, K_c), 3, 1)),
         bytes=crossing_k6_bytes_needed(lo_c, hi_c, pay_c.shape[1], K_c))
-    k6_chunked["bound_ms"] = k6_chunked["bytes"] / (HBM_PEAK_TBS * 1e12) * 1e3
+    k6_chunked["bound_ms"] = bound(k6_chunked["bytes"])["bound_ms"]
     k6_checks["chunked_4x40000"] = k6_chunked
     del lo_c, hi_c, pay_c, ref_c, out_c, fires
     emit("k7_vs_plain", rel_tol=CROSSING_REL_TOL, **k7_checks)
@@ -2001,29 +1985,6 @@ def two_camera_phases(dev, counts_of, card, ptxas):
                  "k6_5mp_pass1": crossing_k6_bytes(R6, U6, N6, K6)}
     gbs = {k: b / (ms[k] * 1e-3) / 1e9 for k, b in moved.items()}
     invert_glue = ms["invert_both"] - ms["k7_4x"]
-    # where a merge's time goes: torch.profiler over 3 float32 merges,
-    # device (kernel and copy) rows only, against the host wall
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            merge(f1, f2, c1, c2)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / 3
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            row = by_name.setdefault(ev.name, [0, 0.0])
-            row[0] += 1
-            row[1] += ev.time_range.elapsed_us() / 1e3
-    device_ms = sum(v[1] for v in by_name.values()) / 3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    emit("profile_two_camera_merge", card=card, wall_ms=wall, device_ms=device_ms,
-         device_busy_share=device_ms / wall,
-         device_ops_per_merge=sum(v[0] for v in by_name.values()) / 3,
-         top_device_ms_per_merge={n[:90]: [c / 3, t / 3] for n, (c, t) in top})
     emit("timing_two_camera", card=card, **{f"{k}_ms": v for k, v in ms.items()},
          **{f"{k}_ms_spread": [min(v), max(v)] for k, v in times.items()},
          runs_each={k: len(v) for k, v in times.items()},
@@ -2037,12 +1998,12 @@ def two_camera_phases(dev, counts_of, card, ptxas):
                   "pair crosses a bin)",
          **{f"{k}_bytes_all_inputs": b for k, b in moved_all.items()},
          **{f"{k}_gb_s": v for k, v in gbs.items()},
-         **{f"{k}_hbm_share": v / (HBM_PEAK_TBS * 1e3) for k, v in gbs.items()},
+         **{f"{k}_hbm_share": v / HBM_GBPS for k, v in gbs.items()},
          k7_pass_shapes=[[*a1[0].shape, a1[3]], [*a2[0].shape, a2[3]]],
          k6_pass1_shape=[R6, N6, U6, K6],
          device_ms=dev_ms, device_ms_spread={k: [min(v), max(v)] for k, v in device.items()},
          device_timing=f"CUDA graph of {GRAPH_LAUNCHES} launches, replayed in turns",
-         device_hbm_share={k: moved[k] / (dev_ms[k] * 1e-3) / (HBM_PEAK_TBS * 1e12)
+         device_hbm_share={k: roofline(moved[k], 0, dev_ms[k])["sol_fraction"]
                            for k in dev_ms},
          grid_blocks_per_sm=shapes, registers=regs, k7_host_launch_ms=k7_host_ms,
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
@@ -2055,12 +2016,12 @@ def two_camera_phases(dev, counts_of, card, ptxas):
         "ms": ms["k7_pass1"], "plain_ms": ms["plain_k7_pass1"],
         "plain_of": "payload build, each bin summed in the kernels' ascending pair "
                     "order (not a one-hot einsum), unpack",
-        "bound_ms": moved["k7_pass1"] / (HBM_PEAK_TBS * 1e12) * 1e3, "bound_by": "bytes",
+        **bound(moved["k7_pass1"]),
         "library_ms": None,
         "ms_pass2": ms["k7_pass2"], "plain_ms_pass2": ms["plain_k7_pass2"],
-        "bound_ms_pass2": moved["k7_pass2"] / (HBM_PEAK_TBS * 1e12) * 1e3,
-        "bound_ms_all_inputs": moved_all["k7_pass1"] / (HBM_PEAK_TBS * 1e12) * 1e3,
-        "bound_ms_all_inputs_pass2": moved_all["k7_pass2"] / (HBM_PEAK_TBS * 1e12) * 1e3,
+        "bound_ms_pass2": bound(moved["k7_pass2"])["bound_ms"],
+        "bound_ms_all_inputs": bound(moved_all["k7_pass1"])["bound_ms"],
+        "bound_ms_all_inputs_pass2": bound(moved_all["k7_pass2"])["bound_ms"],
         "ms_of": "CUDA events around one launch through the wrapper (host time included)",
         "device_ms": dev_ms["k7_pass1"], "device_ms_pass2": dev_ms["k7_pass2"],
         "host_launch_ms": k7_host_ms, "registers": regs["k7_merge_layout"],
@@ -2075,11 +2036,10 @@ def two_camera_phases(dev, counts_of, card, ptxas):
         "ms": ms["k6_5mp_pass1"], "plain_ms": ms["plain_k6_5mp_pass1"],
         "plain_of": "each bin summed in the kernels' ascending pair order (not a "
                     "one-hot einsum)",
-        "bound_ms": moved["k6_5mp_pass1"] / (HBM_PEAK_TBS * 1e12) * 1e3,
-        "bound_by": "bytes", "library_ms": ms["bmm_k6_5mp_pass1"],
+        **bound(moved["k6_5mp_pass1"]), "library_ms": ms["bmm_k6_5mp_pass1"],
         "library": "torch.bmm of the float32 payload with a prebuilt float32 one-hot",
         "ms_of": "CUDA events around one launch through the wrapper (host time included)",
-        "bound_ms_all_inputs": moved_all["k6_5mp_pass1"] / (HBM_PEAK_TBS * 1e12) * 1e3,
+        "bound_ms_all_inputs": bound(moved_all["k6_5mp_pass1"])["bound_ms"],
         "device_ms": dev_ms["k6_5mp_pass1"], "registers": regs["k6"],
         "grid_blocks_per_sm": shapes["k6_5mp_pass1"],
         "ms_chunked": k6_chunked["ms"], "plain_ms_chunked": k6_chunked["plain_ms"],
@@ -3126,10 +3086,12 @@ def main():
     from slr_torch.kernels import band_nn as kb
     from slr_torch.kernels import crossing as kx
     from slr_torch.kernels import fused_scan as fs
+    from slr_torch.kernels import obj_text as ot
     from slr_torch.kernels import pose_graph as kpg
     from slr_torch.kernels import unwrap_scan as us
     from slr_torch.kernels import wavefront as wf
     from slr_torch.kernels.build import build_library
+    from slr_torch.observability import HBM_GBPS
     from slr_torch.pipeline.reconstruct import (
         SPATIAL_MODES, DenseReconstructor, accumulate_by_projector, spatial_repair)
     from slr_torch.synth.render import default_rig, quantize_frames, render_scan
@@ -3186,11 +3148,8 @@ def main():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
         built = dict(zip(LIBRARIES, pool.map(build_library, LIBRARIES)))
-    fs._library()
-    us.library()
-    kb.library()
-    kx.library()
-    kpg.library()
+    for module in (fs, us, kb, kx, ot, kpg):   # load and type each library
+        module.library()
     def ptxas_of(name):
         return ptxas_summary(built[name][1])
 
@@ -3874,9 +3833,8 @@ def main():
          **{f"{k}_bytes": b for k, b in moved.items()}, **gbs,
          **{f"{k}_design_bytes": b for k, b in design_bytes.items()},
          **{f"{k}_mixed_share": v for k, v in mixed_share.items()},
-         hbm_peak_gb_s=HBM_PEAK_TBS * 1e3,
-         **{k.replace("gb_s", "hbm_share"): v / (HBM_PEAK_TBS * 1e3)
-            for k, v in gbs.items()},
+         hbm_peak_gb_s=HBM_GBPS,
+         **{k.replace("gb_s", "hbm_share"): v / HBM_GBPS for k, v in gbs.items()},
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
 
     # phases 19-23: registration (config 4), K8
@@ -3900,13 +3858,6 @@ def main():
     dist_launches = dist_phases(dev, card, dict(cam=cam_d, proj=proj_d, cfg=cfg, frames=frames,
                                                 frames8=frames8, scan=scan), orbit,
                                 config5_one)
-
-    def bound(nbytes=0, instr=0):
-        """The least time (ms) for ``nbytes`` of HBM traffic and ``instr``
-        fp32 instructions, and which of the two binds."""
-        t_b, t_i = nbytes / (HBM_PEAK_TBS * 1e12), instr / FP32_ISSUE_PER_S
-        return {"bound_ms": max(t_b, t_i) * 1e3,
-                "bound_by": "bytes" if t_b >= t_i else "operations"}
 
     vote_instr = VOTE_INSTR_PER_PX_SWEEP * px * SPATIAL_ITERS
     # K3's launch on this card: cells a tile owns, the tiles one wave holds

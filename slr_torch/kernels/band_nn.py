@@ -26,13 +26,11 @@ K8 for a CUDA tensor, or raises; the recorder's counter ``launches.k8``
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
 
-from slr_torch import observability as obs
-from slr_torch.kernels.build import load_library
+from slr_torch.kernels.build import bind, expect, launch
 
 QT = 128                # queries per K8 block (SLR_BAND_QT in csrc/band_nn.cu)
 BIG = 1e9               # coordinate of invalid and padded points
@@ -127,57 +125,31 @@ def band_nn_sorted_reference(qc, q_valid, bt: BandTarget, max_corr_dist: float,
     return _winners(qc, q_valid, bt, best, pos, max_corr_dist)
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """``csrc/band_nn.cu`` (K8), built and typed on first use."""
-    lib = load_library("band_nn")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.slr_band_nn.argtypes = ([ptr] * 7 + [i32] * 3 + [ctypes.c_float]
-                                + [ptr] * 4 + [i32, ptr])
-    lib.slr_band_nn.restype = ctypes.c_int
-    lib.slr_cuda_error_string.argtypes = [i32]
-    lib.slr_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(qc, q_valid, bt: BandTarget):
-    dev = qc.device
-    if dev.type != "cuda":
-        raise ValueError(f"K8 needs CUDA tensors, got {dev}")
-    Q, Tp = qc.shape[-1], bt.coords.shape[-1]
-    want = ((qc, (3, Q), torch.float32), (q_valid, (Q,), torch.bool),
-            (bt.coords, (3, Tp), torch.float32), (bt.normals, (3, Tp), torch.float32),
-            (bt.index, (Tp,), torch.int64), (bt.axis, (3,), torch.float32))
-    for x, shape, dtype in want:
-        if (tuple(x.shape) != shape or x.dtype != dtype or x.device != dev
-                or not x.is_contiguous()):
-            raise ValueError(f"K8: expected a contiguous {dtype} tensor of shape "
-                             f"{shape} on {dev}, got {x.dtype} {tuple(x.shape)} "
-                             f"on {x.device}")
-    if Tp % bt.tlo.shape[0] or Tp >= 2 ** 31 or Q >= 2 ** 31:
-        raise ValueError(f"K8: {Tp} targets in {bt.tlo.shape[0]} tiles, {Q} queries")
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+library = bind("band_nn", {   # K8
+    "slr_band_nn": (_i32, [_ptr] * 7 + [_i32] * 3 + [ctypes.c_float] + [_ptr] * 4 + [_i32, _ptr]),
+})
 
 
 def launch_band_nn(qc, q_valid, bt: BandTarget, max_corr_dist: float):
     """K8, one launch: a block per tile of ``QT`` sorted queries walks its
     whole band. Returns what ``band_nn_sorted_reference`` returns."""
-    _check(qc, q_valid, bt)
-    Q, Tp = qc.shape[1], bt.coords.shape[1]
+    Q, Tp = qc.shape[-1], bt.coords.shape[-1]
+    f32 = torch.float32
+    expect("K8", (qc, (3, Q), f32), (q_valid, (Q,), torch.bool), (bt.coords, (3, Tp), f32),
+           (bt.normals, (3, Tp), f32), (bt.index, (Tp,), torch.int64), (bt.axis, (3,), f32))
+    if Tp % bt.tlo.shape[0] or Tp >= 2 ** 31 or Q >= 2 ** 31:
+        raise ValueError(f"K8: {Tp} targets in {bt.tlo.shape[0]} tiles, {Q} queries")
     jstart, jend = tile_bands(bt.axis @ qc, q_valid, bt, max_corr_dist, QT)
     d2 = torch.empty(Q, device=qc.device)
     pts = torch.empty((Q, 3), device=qc.device)
     nrm = torch.empty((Q, 3), device=qc.device)
     idx = torch.empty(Q, dtype=torch.int64, device=qc.device)
-    lib = library()
-    err = lib.slr_band_nn(
-        qc.data_ptr(), q_valid.data_ptr(), bt.coords.data_ptr(), bt.normals.data_ptr(),
-        bt.index.data_ptr(), jstart.data_ptr(), jend.data_ptr(), Q, Tp, tile_size(bt),
-        max_corr_dist * max_corr_dist, d2.data_ptr(), pts.data_ptr(), nrm.data_ptr(),
-        idx.data_ptr(), qc.device.index, torch.cuda.current_stream(qc.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("K8 band_nn kernel launch failed: "
-                           + lib.slr_cuda_error_string(err).decode())
-    obs.count("launches.k8")
+    launch(library(), "slr_band_nn", "K8 band_nn", qc.device,
+           qc.data_ptr(), q_valid.data_ptr(), bt.coords.data_ptr(), bt.normals.data_ptr(),
+           bt.index.data_ptr(), jstart.data_ptr(), jend.data_ptr(), Q, Tp, tile_size(bt),
+           max_corr_dist * max_corr_dist, d2.data_ptr(), pts.data_ptr(), nrm.data_ptr(),
+           idx.data_ptr(), counter="launches.k8")
     return d2, pts, nrm, idx
 
 

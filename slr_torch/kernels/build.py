@@ -6,6 +6,16 @@ Hopper (``sm_90a``) into ``_build/lib<name>_<hash>.so`` at first use, where
 an unchanged one loads at once. A failed build raises with nvcc's stderr:
 there is no fall-back. ``build_host_library`` does the same for a C++
 source of the host tier (``slr_torch/native/plyio.cpp``) with ``g++``.
+
+It also holds the launch contract that every kernel wrapper goes through:
+
+- ``bind``: a library's entry points typed from one signature table;
+- ``expect``: the inputs a kernel reads through raw pointers: each
+  contiguous, of their shapes and dtypes, on one CUDA device;
+- ``launch``: a call on PyTorch's current stream of the tensors' device, a
+  non-zero status raised as ``RuntimeError`` with CUDA's error string, and
+  the launch counted in ``slr_torch.observability``; ``check_status`` for
+  the entry points that return a status but take no stream.
 """
 
 from __future__ import annotations
@@ -17,6 +27,10 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
+
+from slr_torch import observability as obs
 
 _DIR = Path(__file__).resolve().parent
 CSRC = _DIR / "csrc"
@@ -74,7 +88,53 @@ def build_host_library(src: Path) -> tuple[Path, str]:
     return _compile(src, src.stem, ("g++", *HOST_FLAGS))
 
 
-@functools.cache
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
-    return ctypes.CDLL(str(build_library(name)[0]))
+def bind(name: str, signatures: dict):
+    """A function returning the library of ``csrc/<name>.cu``, built,
+    loaded and typed on its first call. ``signatures`` maps each entry
+    point to its (restype, argtypes); ``slr_cuda_error_string``, which every
+    source defines, is typed here."""
+    signatures = {**signatures, "slr_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int])}
+
+    @functools.cache
+    def library() -> ctypes.CDLL:
+        lib = ctypes.CDLL(str(build_library(name)[0]))
+        for fn, (restype, argtypes) in signatures.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        return lib
+
+    return library
+
+
+def expect(what: str, *want) -> None:
+    """Raise ``ValueError`` unless every (tensor, shape, dtype) of ``want``
+    is contiguous, of that shape and dtype, on the first tensor's CUDA
+    device."""
+    device = want[0][0].device
+    if device.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {device}")
+    for x, shape, dtype in want:
+        if x.shape != shape or x.dtype != dtype or x.device != device or not x.is_contiguous():
+            raise ValueError(
+                f"{what}: the inputs do not match: each must be contiguous, of its shape and "
+                f"dtype, on one device ({device}); expected {dtype} {tuple(shape)}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device} (contiguous: {x.is_contiguous()})")
+
+
+def check_status(lib: ctypes.CDLL, what: str, status: int) -> None:
+    """Raise ``RuntimeError`` with CUDA's error string for a non-zero
+    ``status`` of an entry point of ``lib``."""
+    if status != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.slr_cuda_error_string(status).decode())
+
+
+def launch(lib: ctypes.CDLL, fn: str, what: str, device: torch.device, *args,
+           counter: str | None = None) -> None:
+    """Call ``lib.<fn>(*args, device index, current stream)`` on PyTorch's
+    current stream of ``device``; raise on a non-zero status (``what``
+    names the kernel), else add 1 to the recorder's ``counter``, if any."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    check_status(lib, what, getattr(lib, fn)(*args, device.index, stream))
+    if counter is not None:
+        obs.count(counter)

@@ -50,7 +50,7 @@ import functools
 import torch
 
 from slr_torch import observability as obs
-from slr_torch.kernels.build import load_library
+from slr_torch.kernels.build import bind, check_status, expect, launch
 
 MAX_CHANNELS = 8     # SLR_XING_MAX_C in csrc/crossing.cu
 MAX_GATES = 8        # SLR_XING_MAX_GATES
@@ -128,25 +128,15 @@ def crossing_bin_sum_reference(code_lo, code_hi, payload, num_bins: int,
     return torch.cat(outs, dim=2)
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """``csrc/crossing.cu`` (K6 and K7), built and typed on first use."""
-    lib = load_library("crossing")
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.slr_crossing_bin_sum.argtypes = [ptr] * 3 + [i32] * 6 + [ptr, i32, ptr]
-    lib.slr_crossing_interp_fused.argtypes = ([ptr] * 3 + [i32] * 6 + [ptr] * 2
-                                              + [f32] * 2 + [ptr] * 2 + [i32, ptr])
-    lib.slr_crossing_launch_shape.argtypes = [i32] * 7 + [ptr] * 2
-    for fn in (lib.slr_crossing_bin_sum, lib.slr_crossing_interp_fused,
-               lib.slr_crossing_launch_shape):
-        fn.restype = ctypes.c_int
-    lib.slr_bin_sum_smem.argtypes = [i32] * 2
-    lib.slr_interp_fused_smem.argtypes = [i32] * 3
-    for fn in (lib.slr_bin_sum_smem, lib.slr_interp_fused_smem):
-        fn.restype = ctypes.c_longlong
-    lib.slr_cuda_error_string.argtypes = [i32]
-    lib.slr_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+_ptr, _i32, _f32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+library = bind("crossing", {   # K6 and K7
+    "slr_crossing_bin_sum": (_i32, [_ptr] * 3 + [_i32] * 6 + [_ptr, _i32, _ptr]),
+    "slr_crossing_interp_fused": (_i32, [_ptr] * 3 + [_i32] * 6 + [_ptr] * 2 + [_f32] * 2
+                                  + [_ptr] * 2 + [_i32, _ptr]),
+    "slr_crossing_launch_shape": (_i32, [_i32] * 7 + [_ptr] * 2),
+    "slr_bin_sum_smem": (_i64, [_i32] * 2),
+    "slr_interp_fused_smem": (_i64, [_i32] * 3),
+})
 
 
 @functools.lru_cache(maxsize=64)
@@ -157,31 +147,6 @@ def _gate_arrays(gates: tuple):
     return ch, thr
 
 
-def _check(what: str, want):
-    """Every (tensor, shape, dtype): contiguous, of that shape and type, on
-    the first tensor's CUDA device."""
-    first = want[0][0]
-    if not first.is_cuda:
-        raise ValueError(f"{what} needs CUDA tensors, got {first.device}")
-    index = first.get_device()
-    for x, shape, dtype in want:
-        if (x.shape != shape or x.dtype != dtype or x.get_device() != index
-                or not x.is_contiguous()):
-            raise ValueError(f"{what}: expected a contiguous {dtype} tensor of shape "
-                             f"{shape} on {first.device}, got {x.dtype} {tuple(x.shape)} on "
-                             f"{x.device} (contiguous: {x.is_contiguous()})")
-
-
-def _raise_on(lib, name: str, err: int):
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + lib.slr_cuda_error_string(err).decode())
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def launch_shape(kernel: str, R: int, U: int, n: int, num_bins: int,
                  interp: tuple = ()) -> tuple:
     """(grid, blocks an SM) that a launch of ``kernel`` ("K6": ``n``
@@ -190,7 +155,7 @@ def launch_shape(kernel: str, R: int, U: int, n: int, num_bins: int,
     lib = library()
     grid, per_sm = ctypes.c_int(0), ctypes.c_int(0)
     mask = sum(1 << c for c, i in enumerate(interp) if i)
-    _raise_on(lib, f"{kernel} launch shape", lib.slr_crossing_launch_shape(
+    check_status(lib, f"{kernel} launch shape", lib.slr_crossing_launch_shape(
         {"K6": 6, "K7": 7}[kernel], R, U, n, num_bins, mask, torch.cuda.current_device(),
         ctypes.byref(grid), ctypes.byref(per_sm)))
     return grid.value, per_sm.value
@@ -216,8 +181,7 @@ def launch_bin_sum(code_lo, code_hi, payload, num_bins: int):
     R, U = code_lo.shape
     N = payload.shape[1]
     f32 = torch.float32
-    _check("K6", [(code_lo, (R, U), f32), (code_hi, (R, U), f32),
-                  (payload, (R, N, U), f32)])
+    expect("K6", (code_lo, (R, U), f32), (code_hi, (R, U), f32), (payload, (R, N, U), f32))
     lib = library()
     chunk = U if lib.slr_bin_sum_smem(U, num_bins) <= SMEM_MAX else bin_sum_chunk(num_bins)
     out = torch.empty((R, N, num_bins), device=payload.device)
@@ -225,10 +189,9 @@ def launch_bin_sum(code_lo, code_hi, payload, num_bins: int):
     for u0 in range(0, U, chunk):
         # chunk u0: the same rows, read in place from pair u0 on (4 B a pair)
         lo, hi, pay = (p + 4 * u0 for p in ptrs)
-        _raise_on(lib, "K6 crossing_bin_sum", lib.slr_crossing_bin_sum(
-            lo, hi, pay, R, min(chunk, U - u0), U, N, num_bins, int(u0 > 0),
-            out.data_ptr(), payload.device.index, _stream(payload)))
-        obs.count("launches.k6")
+        launch(lib, "slr_crossing_bin_sum", "K6 crossing_bin_sum", payload.device,
+               lo, hi, pay, R, min(chunk, U - u0), U, N, num_bins, int(u0 > 0),
+               out.data_ptr(), counter="launches.k6")
     return out
 
 
@@ -319,8 +282,8 @@ def launch_interp_fused(code, valid, channels, num_bins: int, interp: tuple,
     """K7, one launch. Returns (cnt (R, K), vals (C, R, K)) float32."""
     R, U = code.shape
     C = channels.shape[0]
-    _check("K7", [(code, (R, U), torch.float32), (valid, (R, U), torch.bool),
-                  (channels, (C, R, U), torch.float32)])
+    expect("K7", (code, (R, U), torch.float32), (valid, (R, U), torch.bool),
+           (channels, (C, R, U), torch.float32))
     if len(interp) != C or C > MAX_CHANNELS or len(gates) > MAX_GATES or U < 2:
         raise ValueError(f"K7: {C} channels, interp {interp}, {len(gates)} gates, "
                          f"{U} codes a row")
@@ -332,11 +295,10 @@ def launch_interp_fused(code, valid, channels, num_bins: int, interp: tuple,
     cnt, vals = out[0], out[1:]
     gate_ch, gate_thr = _gate_arrays(tuple(gates))
     mask = sum(1 << c for c, i in enumerate(interp) if i)
-    _raise_on(lib, "K7 crossing_interp_fused", lib.slr_crossing_interp_fused(
-        code.data_ptr(), valid.data_ptr(), channels.data_ptr(), R, U, C, num_bins,
-        mask, len(gates), ctypes.addressof(gate_ch), ctypes.addressof(gate_thr), dmin,
-        dmax, cnt.data_ptr(), vals.data_ptr(), code.device.index, _stream(code)))
-    obs.count("launches.k7")
+    launch(lib, "slr_crossing_interp_fused", "K7 crossing_interp_fused", code.device,
+           code.data_ptr(), valid.data_ptr(), channels.data_ptr(), R, U, C, num_bins, mask,
+           len(gates), ctypes.addressof(gate_ch), ctypes.addressof(gate_thr), dmin, dmax,
+           cnt.data_ptr(), vals.data_ptr(), counter="launches.k7")
     return cnt, vals
 
 

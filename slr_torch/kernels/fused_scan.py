@@ -45,7 +45,7 @@ from slr_torch import observability as obs
 from slr_torch.codec.graycode import gray_decode_int
 from slr_torch.config import DecodeConfig, PatternConfig
 from slr_torch.geom.camera import Camera, undistort_iterative
-from slr_torch.kernels.build import load_library
+from slr_torch.kernels.build import bind, expect, launch
 
 TWO_PI = 2.0 * math.pi
 MAX_STEPS = 32   # SLR_MAX_STEPS in csrc/fused_scan.cu
@@ -497,39 +497,29 @@ def _frames_per_exposure(p: _ScanParams) -> int:
     return 2 + 2 * p.bits + 2 * p.row_bits + p.steps + p.row_steps
 
 
+_sig = (ctypes.c_int, [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+_bound = bind("fused_scan", {"slr_fused_scan": _sig, "slr_fused_scan_hdr": _sig,
+                             "slr_fused_scan_params_size": (ctypes.c_int, [])})
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = load_library("fused_scan")
+def library() -> ctypes.CDLL:
+    """``csrc/fused_scan.cu`` (K1 and K2), its parameter block's layout
+    checked against ``_ScanParams``."""
+    lib = _bound()
     if lib.slr_fused_scan_params_size() != ctypes.sizeof(_ScanParams):
         raise RuntimeError("SlrScanParams in csrc/fused_scan.cu and "
                            "_ScanParams disagree on their layout")
-    for fn in (lib.slr_fused_scan, lib.slr_fused_scan_hdr):
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.slr_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.slr_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(name: str, frames, params: _ScanParams) -> FusedScanOut:
-    if frames.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {frames.device}")
-    if DTYPES.get(frames.dtype) != params.dtype or not frames.is_contiguous():
-        raise ValueError(f"frames must be contiguous {list(DTYPES)[params.dtype]}")
-    H, W = frames.shape[-2:]
+def _launch(fn: str, what: str, counter: str, frames, params: _ScanParams) -> FusedScanOut:
     want = ((params.exposures,) if params.exposures else ()) + (
         _frames_per_exposure(params), params.height, params.width)
-    if tuple(frames.shape) != want:
-        raise ValueError(f"frames {tuple(frames.shape)} do not match the "
-                         f"parameter block {want}")
-    lib = _library()
-    out = torch.empty((7, H, W), dtype=torch.float32, device=frames.device)
-    err = getattr(lib, name)(
-        frames.data_ptr(), out.data_ptr(), ctypes.addressof(params),
-        frames.device.index, torch.cuda.current_stream(frames.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + lib.slr_cuda_error_string(err).decode())
+    expect(what, (frames, want, list(DTYPES)[params.dtype]))
+    out = torch.empty((7, *want[-2:]), dtype=torch.float32, device=frames.device)
+    launch(library(), fn, what, frames.device, frames.data_ptr(), out.data_ptr(),
+           ctypes.addressof(params), counter=counter)
     return FusedScanOut(points=out[:3], mask=out[3], quality=out[4],
                         x_p=out[5], y_p=out[6])
 
@@ -538,18 +528,14 @@ def launch_fused_scan(frames, params: _ScanParams) -> FusedScanOut:
     """Launch K1 on PyTorch's current stream (no sync)."""
     if params.exposures:
         raise ValueError("an HDR parameter block: use launch_fused_scan_hdr")
-    out = _launch("slr_fused_scan", frames, params)
-    obs.count("launches.k1")
-    return out
+    return _launch("slr_fused_scan", "K1", "launches.k1", frames, params)
 
 
 def launch_fused_scan_hdr(stacks, params: _ScanParams) -> FusedScanOut:
     """Launch K2 on PyTorch's current stream (no sync)."""
     if not params.exposures:
         raise ValueError("a single-exposure parameter block: use launch_fused_scan")
-    out = _launch("slr_fused_scan_hdr", stacks, params)
-    obs.count("launches.k2")
-    return out
+    return _launch("slr_fused_scan_hdr", "K2", "launches.k2", stacks, params)
 
 
 def fused_decode_triangulate(

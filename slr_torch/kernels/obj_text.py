@@ -34,12 +34,10 @@ replaces no TPU kernel: the JAX package formats its OBJ in Python.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from slr_torch import observability as obs
-from slr_torch.kernels.build import load_library
+from slr_torch.kernels.build import bind, launch
 
 _I64_MAX = (1 << 63) - 1
 _OUTSIDE = ("obj_text: a number lies outside the domain |x| * 10^k < 2^63 "
@@ -48,6 +46,8 @@ _POW10 = torch.tensor([10 ** j for j in range(19)], dtype=torch.int64)
 
 
 def _check(verts, cols, faces):
+    """The inputs' contract, on both routes: the plain version refuses
+    what the kernels refuse."""
     dev = verts.device
     want = [(verts, (verts.shape[0], 3), torch.float32),
             (faces, (faces.shape[0], 3), torch.int32)]
@@ -192,32 +192,18 @@ def write_text_reference(verts, cols, faces, ends, n_bytes: int):
 
 # ---- the kernels -------------------------------------------------------------
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """``csrc/obj_text.cu``, built and typed on first use."""
-    lib = load_library("obj_text")
-    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-    lib.slr_obj_lengths.argtypes = [ptr] * 3 + [i64] * 2 + [ptr, ctypes.c_int, ptr]
-    lib.slr_obj_lengths.restype = ctypes.c_int
-    lib.slr_obj_write.argtypes = [ptr] * 3 + [i64] * 2 + [ptr, ptr, ctypes.c_int, ptr]
-    lib.slr_obj_write.restype = ctypes.c_int
-    lib.slr_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.slr_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+_ptr, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+library = bind("obj_text", {
+    "slr_obj_lengths": (_i32, [_ptr] * 3 + [_i64] * 2 + [_ptr, _i32, _ptr]),
+    "slr_obj_write": (_i32, [_ptr] * 3 + [_i64] * 2 + [_ptr, _ptr, _i32, _ptr]),
+})
 
 
 def _launch(fn, what: str, verts, cols, faces, *out):
-    if verts.device.type != "cuda":
-        raise ValueError(f"the OBJ text kernels need CUDA tensors, got {verts.device}")
-    lib = library()
-    err = getattr(lib, fn)(
-        verts.data_ptr(), None if cols is None else cols.data_ptr(), faces.data_ptr(),
-        verts.shape[0], faces.shape[0], *(t.data_ptr() for t in out), verts.device.index,
-        torch.cuda.current_stream(verts.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"OBJ text {what} kernel launch failed: "
-                           + lib.slr_cuda_error_string(err).decode())
-    obs.count("launches.obj_text")
+    """One launch of ``fn`` on inputs that ``_check`` passed."""
+    launch(library(), fn, f"OBJ text {what}", verts.device, verts.data_ptr(),
+           None if cols is None else cols.data_ptr(), faces.data_ptr(), verts.shape[0],
+           faces.shape[0], *(t.data_ptr() for t in out), counter="launches.obj_text")
 
 
 def line_ends(verts, cols, faces):

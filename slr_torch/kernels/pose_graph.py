@@ -17,12 +17,10 @@ pose graph in plain JAX.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from slr_torch import observability as obs
-from slr_torch.kernels.build import load_library
+from slr_torch.kernels.build import bind, expect, launch
 
 SMEM_MAX = 232_432        # a block's opt-in shared memory on an H100, less 16 B static
 MAX_POSES = 1024          # the kernel's int32 offsets into (6S + 1)^2 floats
@@ -51,32 +49,11 @@ def check_shape(S: int, E: int) -> None:
                          f"{MAX_POSES} poses and 1 to {MAX_EDGES} edges")
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """``csrc/pose_graph.cu``, built and typed on first use."""
-    lib = load_library("pose_graph")
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.slr_pose_graph.argtypes = ([ptr] * 6 + [i32] * 3 + [f32] * 2 + [ptr] * 4
-                                   + [ctypes.c_longlong, ptr, i32, ptr])
-    lib.slr_pose_graph.restype = ctypes.c_int
-    lib.slr_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.slr_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(R_init, t_init, edges_i, edges_j, Z_R, Z_t):
-    S, E = R_init.shape[0], edges_i.shape[0]
-    dev = R_init.device
-    want = [(R_init, (S, 3, 3), torch.float32), (t_init, (S, 3), torch.float32),
-            (edges_i, (E,), torch.int64), (edges_j, (E,), torch.int64),
-            (Z_R, (E, 3, 3), torch.float32), (Z_t, (E, 3), torch.float32)]
-    for x, shape, dtype in want:
-        if tuple(x.shape) != shape or x.dtype != dtype or x.device != dev:
-            raise ValueError(f"pose_graph: expected a {dtype} tensor of shape {shape} on "
-                             f"{dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
-    if dev.type != "cuda":
-        raise ValueError(f"the pose-graph kernel needs CUDA tensors, got {dev}")
-    check_shape(S, E)
+_ptr, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+library = bind("pose_graph", {
+    "slr_pose_graph": (_i32, [_ptr] * 6 + [_i32] * 3 + [_f32] * 2 + [_ptr] * 4
+                       + [ctypes.c_longlong, _ptr, _i32, _ptr]),
+})
 
 
 def solve(R_init, t_init, edges_i, edges_j, Z_R, Z_t, iters: int, damping: float,
@@ -84,24 +61,23 @@ def solve(R_init, t_init, edges_i, edges_j, Z_R, Z_t, iters: int, damping: float
     """``iters`` Gauss-Newton iterations from (R_init, t_init) in one launch:
     (R (S, 3, 3), t (S, 3), cost, rms) on the card, float32, nothing read
     back. Edges (int64 indices) outside [0, S) make every output NaN."""
-    _check(R_init, t_init, edges_i, edges_j, Z_R, Z_t)
     S, E = R_init.shape[0], edges_i.shape[0]
     ins = [x.contiguous() for x in (R_init, t_init, edges_i, edges_j, Z_R, Z_t)]
-    R = torch.empty_like(ins[0])
-    t = torch.empty_like(ins[1])
+    R0, t0, ei, ej, ZR, Zt = ins
+    f32, i64 = torch.float32, torch.int64
+    expect("pose_graph", (R0, (S, 3, 3), f32), (t0, (S, 3), f32), (ei, (E,), i64),
+           (ej, (E,), i64), (ZR, (E, 3, 3), f32), (Zt, (E, 3), f32))
+    check_shape(S, E)
+    R = torch.empty_like(R0)
+    t = torch.empty_like(t0)
     cost_rms = torch.empty(2, dtype=torch.float32, device=R.device)
     if in_shared(S, E):
         smem, ws = 4 * words(S, E), None
     else:
         smem, ws = 0, torch.empty(words(S, E), dtype=torch.float32, device=R.device)
-    lib = library()
-    err = lib.slr_pose_graph(
-        *(x.data_ptr() for x in ins), S, E, max(int(iters), 0), float(damping),
-        float(rot_scale), R.data_ptr(), t.data_ptr(), cost_rms.data_ptr(),
-        cost_rms[1:].data_ptr(), smem, None if ws is None else ws.data_ptr(), R.device.index,
-        torch.cuda.current_stream(R.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("pose-graph kernel launch failed: "
-                           + lib.slr_cuda_error_string(err).decode())
-    obs.count("launches.pose_graph")
+    launch(library(), "slr_pose_graph", "pose-graph", R.device,
+           *(x.data_ptr() for x in ins), S, E, max(int(iters), 0), float(damping),
+           float(rot_scale), R.data_ptr(), t.data_ptr(), cost_rms.data_ptr(),
+           cost_rms[1:].data_ptr(), smem, None if ws is None else ws.data_ptr(),
+           counter="launches.pose_graph")
     return R, t, cost_rms[0], cost_rms[1]

@@ -37,9 +37,8 @@ import functools
 
 import torch
 
-from slr_torch import observability as obs
 from slr_torch.codec.unwrap import spatial_quality_unwrap
-from slr_torch.kernels.build import load_library
+from slr_torch.kernels.build import bind, check_status, expect, launch
 
 RESIDENT_BUDGET = 12 * 1024 * 1024   # the reference's VMEM budget (bytes)
 MAX_HALO = 8                         # SLR_MAX_HALO in csrc/unwrap.cu
@@ -61,46 +60,14 @@ def resident_tiles(H: int, W: int, ow: int, oh: int) -> int:
     return -(-W // ow) * -(-H // oh)
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """``csrc/unwrap.cu`` (K3, K4 and K5), built and typed on first use."""
-    lib = load_library("unwrap")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.slr_vote_resident.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-    lib.slr_vote_resident_layout.argtypes = [i32, ptr]
-    lib.slr_vote_tiled.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
-    lib.slr_wavefront_pass.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    lib.slr_wavefront_cycles_check.argtypes = [ptr, i32, ptr]
-    for fn in (lib.slr_vote_resident, lib.slr_vote_resident_layout, lib.slr_vote_tiled,
-               lib.slr_wavefront_pass, lib.slr_wavefront_cycles_check):
-        fn.restype = ctypes.c_int
-    lib.slr_cuda_error_string.argtypes = [i32]
-    lib.slr_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def check_launch(lib: ctypes.CDLL, name: str, err: int):
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + lib.slr_cuda_error_string(err).decode())
-
-
-def check_maps(what: str, *maps):
-    """Every map a contiguous (H, W) CUDA tensor of one shape and device;
-    floats are float32, masks bool."""
-    shape, dev = maps[0].shape, maps[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    for m in maps:
-        if m.dim() != 2 or m.shape != shape or m.device != dev:
-            raise ValueError(f"{what}: maps must be (H, W) on one device, got "
-                             f"{[tuple(x.shape) for x in maps]}")
-        if m.dtype not in (torch.float32, torch.bool) or not m.is_contiguous():
-            raise ValueError(f"{what}: maps must be contiguous float32 or bool")
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+library = bind("unwrap", {   # K3, K4 and K5
+    "slr_vote_resident": (_i32, [_ptr] * 4 + [_i32] * 4 + [_ptr]),
+    "slr_vote_resident_layout": (_i32, [_i32, _ptr]),
+    "slr_vote_tiled": (_i32, [_ptr] * 3 + [_i32] * 4 + [_ptr]),
+    "slr_wavefront_pass": (_i32, [_ptr] * 6 + [_i32] * 5 + [_ptr]),
+    "slr_wavefront_cycles_check": (_i32, [_ptr, _i32, _ptr]),
+})
 
 
 @functools.cache
@@ -109,7 +76,7 @@ def resident_layout(device: int) -> tuple[int, int, int, int]:
     a tile, cells a tile owns across, down), from the library."""
     lib = library()
     layout = (ctypes.c_int * 4)()
-    check_launch(lib, "K3 layout", lib.slr_vote_resident_layout(device, layout))
+    check_status(lib, "K3 layout", lib.slr_vote_resident_layout(device, layout))
     return tuple(layout)
 
 
@@ -118,8 +85,8 @@ def launch_vote_resident(Phi, mask, iters: int):
     ``ValueError`` for a map whose tiles exceed one wave of blocks on this
     card (no fall-back), and ``RuntimeError`` if the card refuses the
     cooperative launch."""
-    check_maps("K3", Phi, mask)
     H, W = Phi.shape
+    expect("K3", (Phi, (H, W), torch.float32), (mask, (H, W), torch.bool))
     dev = Phi.device.index
     wave, words, ow, oh = resident_layout(dev)
     tiles = resident_tiles(H, W, ow, oh)
@@ -129,27 +96,23 @@ def launch_vote_resident(Phi, mask, iters: int):
     # this launch's counters and rings (the kernel zeroes its counters)
     exchange = torch.empty(tiles * words, dtype=torch.int32, device=Phi.device)
     out = torch.empty_like(Phi)
-    lib = library()
-    check_launch(lib, "K3 vote_resident", lib.slr_vote_resident(
-        Phi.data_ptr(), mask.data_ptr(), out.data_ptr(), exchange.data_ptr(),
-        H, W, iters, dev, _stream(Phi)))
-    obs.count("launches.k3")
+    launch(library(), "slr_vote_resident", "K3 vote_resident", Phi.device,
+           Phi.data_ptr(), mask.data_ptr(), out.data_ptr(), exchange.data_ptr(), H, W, iters,
+           counter="launches.k3")
     return out
 
 
 def launch_vote_tiled(Phi, mask, sweeps: int):
     """K4, one launch: ``sweeps`` (1..MAX_HALO) sweeps over tiles with a
     halo of ``sweeps``."""
-    check_maps("K4", Phi, mask)
+    H, W = Phi.shape
+    expect("K4", (Phi, (H, W), torch.float32), (mask, (H, W), torch.bool))
     if not 1 <= sweeps <= MAX_HALO:
         raise ValueError(f"K4 takes 1..{MAX_HALO} sweeps a launch, got {sweeps}")
-    H, W = Phi.shape
     out = torch.empty_like(Phi)
-    lib = library()
-    check_launch(lib, "K4 vote_tiled", lib.slr_vote_tiled(
-        Phi.data_ptr(), mask.data_ptr(), out.data_ptr(), H, W, sweeps,
-        Phi.device.index, _stream(Phi)))
-    obs.count("launches.k4")
+    launch(library(), "slr_vote_tiled", "K4 vote_tiled", Phi.device,
+           Phi.data_ptr(), mask.data_ptr(), out.data_ptr(), H, W, sweeps,
+           counter="launches.k4")
     return out
 
 

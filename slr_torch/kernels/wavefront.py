@@ -24,9 +24,9 @@ from __future__ import annotations
 
 import torch
 
-from slr_torch import observability as obs
 from slr_torch.codec.unwrap import directional_pass, repair_trust, wavefront
-from slr_torch.kernels.unwrap_scan import check_launch, check_maps, library
+from slr_torch.kernels.build import expect, launch
+from slr_torch.kernels.unwrap_scan import library
 
 MAX_LINE = 10240  # K5's 16-element build: 640 threads a block
 
@@ -35,19 +35,18 @@ def launch_wavefront_pass(phi, elig, Phi, done, axis: int, reverse: bool):
     """K5: one pass along ``axis`` (1: rows, 0: columns), upstream at lower
     indices or, ``reverse``, higher ones. phi, Phi float32; elig, done bool.
     Returns new (Phi, done)."""
-    check_maps("K5", phi, elig, Phi, done)
+    H, W = phi.shape
+    f32, b8 = torch.float32, torch.bool
+    expect("K5", (phi, (H, W), f32), (elig, (H, W), b8), (Phi, (H, W), f32), (done, (H, W), b8))
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
-    H, W = phi.shape
     if (W if axis == 1 else H) > MAX_LINE:
         raise ValueError(f"K5 scans lines of at most {MAX_LINE} pixels")
     Phi_out, done_out = torch.empty_like(Phi), torch.empty_like(done)
-    lib = library()
-    check_launch(lib, "K5 wavefront_pass", lib.slr_wavefront_pass(
-        phi.data_ptr(), elig.data_ptr(), Phi.data_ptr(), done.data_ptr(),
-        Phi_out.data_ptr(), done_out.data_ptr(), H, W, axis, int(reverse),
-        phi.device.index, torch.cuda.current_stream(phi.device).cuda_stream))
-    obs.count("launches.k5")
+    launch(library(), "slr_wavefront_pass", "K5 wavefront_pass", phi.device,
+           phi.data_ptr(), elig.data_ptr(), Phi.data_ptr(), done.data_ptr(),
+           Phi_out.data_ptr(), done_out.data_ptr(), H, W, axis, int(reverse),
+           counter="launches.k5")
     return Phi_out, done_out
 
 
@@ -59,10 +58,8 @@ def cycles_mismatches(device) -> tuple[int, int]:
     division's (the plain versions'), and on which the voting kernels'
     differs other than in the sign of a zero. Runs on the card."""
     count = torch.zeros(2, dtype=torch.int64, device=device)
-    lib = library()
-    check_launch(lib, "cycles_check", lib.slr_wavefront_cycles_check(
-        count.data_ptr(), count.device.index,
-        torch.cuda.current_stream(count.device).cuda_stream))
+    launch(library(), "slr_wavefront_cycles_check", "cycles_check", count.device,
+           count.data_ptr())
     return tuple(count.tolist())
 
 
