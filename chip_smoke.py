@@ -32,7 +32,9 @@ to the same bits. Then config 5 on the reference's 8-scan orbit (K1 eight
 times, ``register_scans_batched``, ``ba_refine``, ``fuse_scans``,
 ``fuse_tsdf``, ``extract_mesh`` and the OBJ writer), gated on poses, the
 fused cloud and the mesh against the truth, twice to the same bits, each
-stage's wall. Then the two-camera merge (``reconstruct_two_camera``):
+stage's wall; the pose graph's and the ICP's kernels (one launch a
+solve, one launch a round on each ICP route) against their plain versions
+on the card. Then the two-camera merge (``reconstruct_two_camera``):
 the crossing kernels K7 and K6 against their plain versions, bit for bit
 (the reference's random case, a ragged one, the merge's passes and the 5 MP
 calls; rows with long pair ranges, NaN and infinite codes, clipped bins,
@@ -96,7 +98,7 @@ TIMED_RUNS = 20
 HDR_GAINS = (1.0, 3.2, 10.0)
 PROJ_DIST = [-0.08, 0.02, 0.001, -0.001, 0.0]
 # csrc/<name>.cu, one nvcc each
-LIBRARIES = ("fused_scan", "unwrap", "band_nn", "crossing", "obj_text", "pose_graph")
+LIBRARIES = ("fused_scan", "unwrap", "band_nn", "crossing", "obj_text", "pose_graph", "icp")
 K1_UINT8_RMS_RECORDED = "0.0463"   # mm, config 3 uint8 (PERF.md)
 # K1's layouts, at 215 rows (the last 2-row box partial): rows of 299 and
 # 301 uint8 or uint16 pixels, not a multiple of 16 bytes, so no box is
@@ -676,17 +678,17 @@ def stage_times(module, names, fn):
     return out, totals
 
 
-def render_orbit(dev, cam, proj, cfg):
+def render_orbit(dev, cam, proj, cfg, scans=None):
     """Config 5's orbit: ORBIT_SCANS_CONFIG5 uint8 scans of the rocks scene
-    from a moving config-3 rig. Returns (uint8 stacks, rig poses, truth
-    points), on the card."""
+    from a moving config-3 rig (its first ``scans``, if given). Returns
+    (uint8 stacks, rig poses, truth points), on the card."""
     from slr_torch.geom.se3 import so3_exp
     from slr_torch.synth.render import move_rig, quantize_frames, render_scan
     from slr_torch.synth.scene import rocks_scene
 
     cam_d, proj_d = cam.to(dev), proj.to(dev)
     poses, stacks, truths = [], [], []
-    for s in range(ORBIT_SCANS_CONFIG5):
+    for s in range(ORBIT_SCANS_CONFIG5 if scans is None else scans):
         R_m = so3_exp(torch.tensor([0.0, 0.025 * s, 0.008 * s], device=dev))
         t_m = torch.tensor([7.0 * s, -3.0 * s, 0.0], device=dev)
         cam_s, proj_s = move_rig(cam_d, proj_d, R_m, t_m)
@@ -699,18 +701,19 @@ def render_orbit(dev, cam, proj, cfg):
     return stacks, poses, truths
 
 
-def registration_phases(dev, cam, proj, cfg, counts_of, card, pg_ptxas):
+def registration_phases(dev, cam, proj, cfg, counts_of, card, pg_ptxas, icp_ptxas):
     """Phases 19-23, configs 4 and 5: K8 against its plain version, the
     exact search and a brute force at the reference's 256k size; the
     15-iteration band ICP (15 K8 launches); ICP between two dense config-3
     scans of the rocks scene (through K1, then K8); ``register_scans`` on a
     4-scan orbit (one pose-graph launch); config 5 on the 8-scan orbit
     (``config5_phase``), its OBJ text (``obj_text_phase``) and the pose
-    graph (``pose_graph_phase``, ``pg_ptxas`` its build's registers); then
-    their times. Returns (config 5's K1 launches, the 8-scan orbit as
-    (uint8 stacks, rig poses, truth points), config 5's single-device
-    result (``config5_phase``), the OBJ text kernel's, the pose-graph
-    kernel's and K8's entries of the ``kernels`` line)."""
+    graph (``pose_graph_phase``, ``pg_ptxas`` its build's registers) and the
+    ICP (``icp_phase``, ``icp_ptxas``); then their times. Returns (config
+    5's K1 launches, the 8-scan orbit as (uint8 stacks, rig poses, truth
+    points), config 5's single-device result (``config5_phase``), the OBJ
+    text kernel's, the pose-graph kernel's, the ICP kernel's and K8's
+    entries of the ``kernels`` line)."""
     from slr_torch.config import RegistrationConfig
     from slr_torch.geom.se3 import so3_exp
     from slr_torch.kernels import band_nn as kb
@@ -833,8 +836,13 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card, pg_ptxas):
         return rf.register_scans(cl, rc, use_features=True, cam=cam_d, loop_closures=True)
 
     reg, n = counts_of(lambda: register(clouds))
-    check(n["pose_graph"] == 1 and quiet(n, "pose_graph"), f"config4_register: launches {n}")
+    # the ICP kernel once a fine alignment on each route: the 3 chain edges
+    # and their feature races (6), the 2 closures, each raced where it did
+    # not lock (2 to 4)
+    check(n["pose_graph"] == 1 and n["icp"] == n["icp_polish"] and 8 <= n["icp"] <= 10
+          and quiet(n, "pose_graph", "icp", "icp_polish"), f"config4_register: launches {n}")
     pg_launches = n["pose_graph"]
+    icp_launches = {k: n[k] for k in ("icp", "icp_polish")}
     errs = [pose_error(reg.R[s], reg.t[s], *poses[s]) for s in range(ORBIT_SCANS)]
     max_rot, max_t = max(e[0] for e in errs), max(e[1] for e in errs)
     check(max_rot < ROT_GATE_DEG and max_t < T_GATE_MM,
@@ -863,6 +871,8 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card, pg_ptxas):
     obj_entry = obj_text_phase(*config5_one["surface"], Path(mesh_dir.name) / "config5_mesh.obj",
                                main_launches=n5["obj_text"])
     pg_entry = pose_graph_phase(dev, pg_ptxas, main_launches=pg_launches + n5["pose_graph"])
+    icp_entry = icp_phase(dev, config5_one["clouds"], cam_d, icp_ptxas,
+                          {k: v + n5[k] for k, v in icp_launches.items()})
 
     # phase 23: times, in turns: K8 (K8_BATCH launches a timed run), its
     # plain version and the exact search at 256k (CUDA events); the band
@@ -898,7 +908,7 @@ def registration_phases(dev, cam, proj, cfg, counts_of, card, pg_ptxas):
          k8_fp32_issue_share=bound(instr=pairs * K8_INSTR_PER_PAIR)["bound_ms"] / ms["k8"],
          exact_pairs_per_s=N_BIG * N_BIG / (ms["exact_nn"] * 1e-3),
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
-    return n5["k1"], (stacks, poses, truths), config5_one, obj_entry, pg_entry, {
+    return n5["k1"], (stacks, poses, truths), config5_one, obj_entry, pg_entry, icp_entry, {
             "name": "band_nn_sorted", "route": "cuda",
             "source": "slr_torch/kernels/csrc/band_nn.cu",
             "replaces": "slr/registration/band.py:121",
@@ -1186,6 +1196,126 @@ def pose_graph_flops(S, E):
     return 12 * E * 576 + E * (78 + 12) * 12 + n ** 3 / 3 + 2 * n * n
 
 
+# ---- ICP in one launch (slr_torch.kernels.icp) ------------------------------
+
+# the kernel against its plain version, each tolerance keyed by the
+# reading of icp_agreement it holds: the plain parity tests' tolerances near
+# the origin (tests/test_torch_registration.py); and at scan coordinates,
+# where the expanded form's rounding (~eps |q|^2) moves a nearest neighbour
+# now and then, each route's limits on config 5's chain round at 10-40
+# times the largest gap its seven edges read on an H100 (NN 3.4e-4 deg,
+# 1.03e-3 mm, RMS 7.4e-3 relative, inlier_frac 5.5e-4; polish 1.3e-5 deg,
+# 7.7e-5 mm, 4.5e-4, 6.0e-5; the NN's RMS 6.7x), tight enough that a
+# missing reweighting, iteration or update shows
+ICP_TOL = dict(R_max_abs_err=1e-5, t_max_abs_err_mm=1e-3, inlier_frac_abs_err=1e-3)
+ICP_EDGE_TOL = dict(
+    nn=dict(rot_deg=0.01, t_mm=0.02, rms_rel_err=0.05, inlier_frac_abs_err=5e-3),
+    polish=dict(rot_deg=5e-4, t_mm=1e-3, rms_rel_err=5e-3, inlier_frac_abs_err=1e-3))
+# the NN route's instructions a (query, target) pair in its search loop,
+# read off cuobjdump -sass of the built libicp_*.so (icp_kernel<false>):
+# the loop unrolled by 8 targets for 2 queries is 112 instructions for 16
+# pairs: what the search needs, 6.5 a pair (48 FFMA, 16 FSETP, 16 FSEL, 16
+# SEL, and 8 LDS.128, one target for two queries), and the loop's own 0.5
+# (the index adds and the branch), which the bound leaves out; re-read them
+# after changing the loop
+ICP_INSTR_PER_PAIR = 6.5
+ICP_LOOP_INSTR_PER_PAIR = 0.5
+
+
+def rotation(rv):
+    """so3_exp of a rotation vector, in float64 numpy (Rodrigues), as
+    float32."""
+    rv = np.asarray(rv, np.float64)
+    th = np.linalg.norm(rv)
+    K = np.array([[0, -rv[2], rv[1]], [rv[2], 0, -rv[0]], [-rv[1], rv[0], 0]]) / th
+    return (np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K).astype(np.float32)
+
+
+def bumpy_surface(n, seed, half=100.0):
+    """n points of the reference's bumpy surface z(x, y) over [-half,
+    half]^2, near z = 0, and their unit normals; float32 numpy."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-half, half, (n, 2))
+    z = 20 * np.sin(xy[:, 0] / 25.0) * np.cos(xy[:, 1] / 30.0) + 8 * np.sin(xy[:, 1] / 12.0)
+    gx = 20 * np.cos(xy[:, 0] / 25.0) / 25.0 * np.cos(xy[:, 1] / 30.0)
+    gy = (-20 * np.sin(xy[:, 0] / 25.0) * np.sin(xy[:, 1] / 30.0) / 30.0
+          + 8 * np.cos(xy[:, 1] / 12.0) / 12.0)
+    n0 = np.column_stack([-gx, -gy, np.ones_like(gx)])
+    n0 /= np.linalg.norm(n0, axis=1, keepdims=True)
+    return np.column_stack([xy, z]).astype(np.float32), n0.astype(np.float32)
+
+
+def icp_case(device, n, seed, masked=False):
+    """The ICP parity case: n points of the bumpy surface near the origin,
+    the target moved by a small pose plus 0.05 mm of noise (so the Huber
+    weights are not set by rounding; near the origin the expanded form's
+    rounding, ~eps |q|^2, rarely changes a nearest neighbour). ``masked``:
+    5 % of each side masked and an initial pose. Returns the keyword
+    arguments of ``icp_point_to_plane`` on ``device`` and (R_true,
+    t_true)."""
+    src, n0 = bumpy_surface(n, seed)
+    R_true = rotation([0.01, -0.02, 0.015])
+    t_true = np.array([3.0, -2.0, 4.0], np.float32)
+    noise = np.random.default_rng(seed).normal(0, 0.05, src.shape)
+    tgt = (src @ R_true.T + t_true + noise).astype(np.float32)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    kw = dict(src=dev(src), tgt=dev(tgt), tgt_normals=dev((n0 @ R_true.T).astype(np.float32)))
+    if masked:
+        rng = np.random.default_rng(3)
+        kw.update(tgt_valid=dev(rng.random(n) > 0.05), src_valid=dev(rng.random(n) > 0.05),
+                  R0=dev(rotation([0.005, -0.01, 0.01])),
+                  t0=dev(np.array([2.0, -1.0, 3.0], np.float32)))
+    return kw, (R_true, t_true)
+
+
+def icp_grid_case(device, seed=0):
+    """The projective parity case: a 48 x 64 organized grid of a bumpy
+    surface at ~500 mm, 3 rows masked, its normals, a 70 px camera, and 800
+    source points drawn from it and seen from a moved rig. Returns the
+    positional arguments of ``icp_projective`` (src, src_valid, grid, mask,
+    normals, camera) and the rig's move (R_true, t_true)."""
+    from slr_torch.geom.camera import make_camera
+    from slr_torch.registration.normals import grid_normals
+
+    H, W = 48, 64
+    cam = make_camera(fx=70.0, fy=70.0, cx=W / 2 - 0.5, cy=H / 2 - 0.5, device=device)
+    v, u = np.meshgrid(np.arange(H, dtype=np.float32), np.arange(W, dtype=np.float32),
+                       indexing="ij")
+    x, y = (u - W / 2 + 0.5) / 70.0, (v - H / 2 + 0.5) / 70.0
+    z = 500 + 25 * np.sin(x * 4) * np.cos(y * 5) + 10 * x
+    grid = np.stack([x * z, y * z, z], -1).astype(np.float32)
+    mask = np.ones((H, W), bool)
+    mask[:3] = False
+    R_m, t_m = rotation([0.004, -0.006, 0.003]), np.array([1.0, -0.8, 1.5], np.float32)
+    sel = np.random.default_rng(seed).choice(H * W, 800, replace=False)
+    src = ((grid.reshape(-1, 3)[sel] - t_m) @ R_m).astype(np.float32)
+    g, m = torch.from_numpy(grid).to(device), torch.from_numpy(mask).to(device)
+    return ((torch.from_numpy(src).to(device),
+             torch.from_numpy(mask.reshape(-1)[sel]).to(device), g, m, grid_normals(g, m), cam),
+            (R_m, t_m))
+
+
+def icp_agreement(k, p, tol):
+    """ICP result ``k`` (the kernel's) against ``p`` (the plain version's):
+    max |dR|, max |dt| mm, |d inlier_frac|, the RMS's relative difference,
+    the rotation angle (deg) and translation (mm) between the two poses,
+    and whether each reading that ``tol`` names is within it."""
+    dR = float((k.R - p.R).abs().max())
+    dt = float((k.t - p.t).abs().max())
+    di = float((k.inlier_frac - p.inlier_frac).abs().max())
+    rk, rp = k.rms.double(), p.rms.double()
+    rel = float(((rk - rp).abs() / rp.abs().clamp(min=1e-30)).max())
+    rot, tr = zip(*(pose_error(a, b, c, d) for a, b, c, d in
+                    zip(k.R.reshape(-1, 3, 3), k.t.reshape(-1, 3), p.R.reshape(-1, 3, 3),
+                        p.t.reshape(-1, 3))))
+    got = dict(R_max_abs_err=dR, t_max_abs_err_mm=dt, inlier_frac_abs_err=di, rms_rel_err=rel,
+               rot_deg=max(rot), t_mm=max(tr))
+    return dict(got, within=all(got[name] <= lim for name, lim in tol.items()))
+
+
 def obj_edge_case(device):
     """(verts, cols, faces) of every value of ``OBJ_EDGES`` in each column,
     the colours the same values after the largest inside the colours'
@@ -1372,6 +1502,121 @@ def pose_graph_phase(dev, ptxas, main_launches=0):
             "library_ms": None}
 
 
+def icp_phase(dev, clouds, cam, ptxas, main_launches):
+    """Phase 22e, ``icp_vs_plain``: the ICP kernel (``slr_torch.kernels.icp``,
+    one launch a round on each route) against its plain versions on the
+    card, on config 5's chain round (the orbit's decoded clouds, 4096
+    samples each as ``register_scans_batched`` draws them, the 7 chain
+    edges from the identity, the defaults): each edge's NN route against
+    ``icp_point_to_plane_reference`` (the exact search) and its polish
+    against ``icp_projective_reference`` from the plain NN result, each
+    within its route's ICP_EDGE_TOL (gated; with how far the plain polish
+    moved its start, which the polish's limits must be well under to see
+    a polish that does nothing); one launch a route, each edge of the batch the
+    bits of its single call, two calls the same bits (gated). Then times:
+    the kernel's device time at E = 7 and E = 4 on both routes (CUDA-graph
+    replay), the wrapper's span and the eager round it replaces (``vmap``
+    over the plain loops, CUDA events). Returns the kernel's entry of the
+    ``kernels`` line, its launches the main path's (``main_launches``, by
+    route); this phase's own are its gate."""
+    from torch.func import vmap
+
+    from slr_torch import observability as ob
+    from slr_torch.config import RegistrationConfig
+    from slr_torch.kernels import icp as kicp
+    from slr_torch.pipeline import registerfuse as rf
+    from slr_torch.registration import projective as rp
+    from slr_torch.registration.icp import ICPResult, icp_point_to_plane_reference
+    from slr_torch.registration.normals import grid_normals
+
+    def n_launches():
+        counts = ob.snapshot().counts
+        return {k: counts.get(f"launches.{k}", 0) for k in ("icp", "icp_polish")}
+
+    rc = RegistrationConfig(icp_sample_points=C5_SAMPLES)
+    samples = [rf._subsample(c, rc.icp_sample_points, seed=i) for i, c in enumerate(clouds)]
+    pts = torch.stack([p for p, _ in samples])
+    nrm = torch.stack([n for _, n in samples])
+    grids = (torch.stack([c.points for c in clouds]), torch.stack([c.mask for c in clouds]),
+             torch.stack([grid_normals(c.points, c.mask) for c in clouds]))
+    S = len(clouds)
+    si, ti = torch.arange(1, S, device=dev), torch.arange(0, S - 1, device=dev)
+    E, N = S - 1, pts.shape[1]
+    nn_kw = dict(iters=rc.icp_iters, max_corr_dist=rc.icp_max_corr_dist)
+    pol_kw = dict(iters=max(8, rc.icp_iters // 2), max_corr_dist=rc.icp_max_corr_dist)
+
+    def round_of(E):
+        res = ICPResult(*kicp.align(pts[si[:E]], pts[ti[:E]], nrm[ti[:E]], **nn_kw))
+        return res, ICPResult(*kicp.polish(pts[si[:E]], None, *grids, ti[:E], cam, res.R,
+                                           res.t, **pol_kw))
+
+    before = n_launches()
+    (nn, pol), (nn2, pol2) = round_of(E), round_of(E)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in n_launches().items()}
+    same = all(torch.equal(a, b) for a, b in zip((*nn, *pol), (*nn2, *pol2)))
+    check(launched == {"icp": 2, "icp_polish": 2} and same,
+          f"icp_vs_plain: launches {launched}, two calls the same bits: {same}")
+    ones = torch.ones(N, dtype=torch.bool, device=dev)
+    edges, single = [], True
+    for e in range(E):
+        s, t = int(si[e]), int(ti[e])
+        want = icp_point_to_plane_reference(pts[s], pts[t], nrm[t], nn_method="exact", **nn_kw)
+        want_p = rp.icp_projective_reference(pts[s], ones, grids[0][t], grids[1][t],
+                                             grids[2][t], cam, R0=want.R, t0=want.t, **pol_kw)
+        one = ICPResult(*(x[0] for x in kicp.align(pts[s:s + 1], pts[t:t + 1], nrm[t:t + 1],
+                                                   **nn_kw)))
+        one_p = rp.icp_projective(pts[s], ones, grids[0][t], grids[1][t], grids[2][t], cam,
+                                  R0=one.R, t0=one.t, **pol_kw)
+        single &= all(torch.equal(a[e], b) for a, b in zip((*nn, *pol), (*one, *one_p)))
+        a = icp_agreement(ICPResult(*(x[e] for x in nn)), want, ICP_EDGE_TOL["nn"])
+        b = icp_agreement(ICPResult(*(x[e] for x in pol)), want_p, ICP_EDGE_TOL["polish"])
+        check(a["within"] and b["within"], f"icp_vs_plain edge {e}: {a} {b}")
+        step = pose_error(want_p.R, want_p.t, want.R, want.t)
+        edges.append(dict(edge=[s, t], nn=a, polish=b, rms_mm=float(pol.rms[e]),
+                          plain_rms_mm=float(want_p.rms), inlier_frac=float(pol.inlier_frac[e]),
+                          plain_polish_step_deg=step[0], plain_polish_step_mm=step[1]))
+    check(single, "icp_vs_plain: a batch differs from single calls")
+    device_ms, wrapper_ms = {}, {}
+    for E_t in (E, 4):
+        s, t = si[:E_t], ti[:E_t]
+        device_ms[f"nn_E{E_t}"] = statistics.median(graph_ms(
+            lambda: kicp.align(pts[s], pts[t], nrm[t], **nn_kw), launches=5))
+        device_ms[f"polish_E{E_t}"] = statistics.median(graph_ms(
+            lambda: kicp.polish(pts[s], None, *grids, t, cam, nn.R[:E_t], nn.t[:E_t],
+                                **pol_kw), launches=5))
+        wrapper_ms[f"nn_E{E_t}"] = statistics.median(cuda_ms(
+            lambda: kicp.align(pts[s], pts[t], nrm[t], **nn_kw), runs=5))
+
+    def plain_round():
+        return vmap(lambda a, b, c: icp_point_to_plane_reference(
+            a, b, c, nn_method="exact", **nn_kw))(pts[si], pts[ti], nrm[ti])
+
+    plain_ms = statistics.median(cuda_ms(plain_round, runs=3, warmup=1))
+    pairs = {E_t: E_t * N * N * rc.icp_iters for E_t in (E, 4)}
+    bounds = {E_t: bound(instr=p * ICP_INSTR_PER_PAIR)["bound_ms"] for E_t, p in pairs.items()}
+    regs = {k: v for k, v in ptxas.items() if "icp" in k}
+    emit("icp_vs_plain", edges=edges, tolerances=ICP_EDGE_TOL, launches=launched,
+         bit_identical_calls=same, batch_equals_single_calls=single, samples=N,
+         device_ms=device_ms, wrapper_ms=wrapper_ms, plain_round_ms=plain_ms,
+         pairs={f"E{k}": v for k, v in pairs.items()},
+         instr_per_pair=ICP_INSTR_PER_PAIR, loop_instr_per_pair=ICP_LOOP_INSTR_PER_PAIR,
+         bound_ms={f"E{k}": v for k, v in bounds.items()},
+         smem_bytes=kicp.smem_bytes(N), registers=regs,
+         timing=f"device: CUDA-graph replay of 5 launches; wrapper and plain: CUDA events "
+                "around one call, host time included, medians")
+    return {"name": "icp", "route": "cuda", "source": "slr_torch/kernels/csrc/icp.cu",
+            "replaces": None, "launches": main_launches["icp"],
+            "launches_polish": main_launches["icp_polish"],
+            "launches_phase": sum(launched.values()),
+            "max_rot_err_deg": max(max(x["nn"]["rot_deg"], x["polish"]["rot_deg"]) for x in edges),
+            "max_t_err_mm": max(max(x["nn"]["t_mm"], x["polish"]["t_mm"]) for x in edges),
+            "max_abs_err_of": "each edge's pose against the plain version's",
+            "ms": wrapper_ms[f"nn_E{E}"], "plain_ms": plain_ms,
+            "device_ms": device_ms[f"nn_E{E}"], "device_ms_polish": device_ms[f"polish_E{E}"],
+            "bound_ms": bounds[E], "bound_by": "operations", "library_ms": None}
+
+
 def config5_phase(cam, proj, cfg, stacks, poses, truths, counts_of, quiet, mesh_path):
     """Phase 22b, config 5 at the reference's size: ``config5_run`` on the
     ORBIT_SCANS_CONFIG5 uint8 scans (one K1 launch a scan, no other
@@ -1382,7 +1627,8 @@ def config5_phase(cam, proj, cfg, stacks, poses, truths, counts_of, quiet, mesh_
     tighter gates (poses within 0.5 mm, the fused cloud within 0.25 mm), the
     mesh's vertices within one voxel edge RMS of the truth union, and the
     same bits in two calls; the counted run launches K1 once a scan, the
-    OBJ text kernels twice and the pose-graph kernel once, and nothing
+    OBJ text kernels twice, the pose-graph kernel once and each ICP route
+    four times (the chain, its race, the closures, theirs), and nothing
     else. Returns (the counted run's
     launches of each kernel, a function running the pipeline once, for the timed turns, and the
     single-device result the parallel tier is held to: its clouds, poses
@@ -1393,7 +1639,9 @@ def config5_phase(cam, proj, cfg, stacks, poses, truths, counts_of, quiet, mesh_
     stages1, stages2 = {}, {}
     out, n = counts_of(lambda: pipeline(stages1))
     check(n["k1"] == ORBIT_SCANS_CONFIG5 and n["obj_text"] == 2 and n["pose_graph"] == 1
-          and quiet(n, "k1", "obj_text", "pose_graph"), f"config5: launches {n}")
+          and n["icp"] == n["icp_polish"] == 4
+          and quiet(n, "k1", "obj_text", "pose_graph", "icp", "icp_polish"),
+          f"config5: launches {n}")
     clouds, reg, (pts, val, col, n_vox), vol, (verts, faces, cols), written, grown = out
     n_faces = int(faces.shape[0])
     check(written == (int(verts.shape[0]), n_faces), f"config5: mesh {written}")
@@ -2363,6 +2611,8 @@ def product_phases(dev, counts_of, card, main_path, orbit):
         check(n_mesh["obj_text"] == 2 and all(v == 0 for k, v in n_mesh.items()
                                               if k != "obj_text"),
               f"session_config5: fuse_mesh launches {n_mesh}")
+        check(n_reg == {**dict.fromkeys(n_reg, 0), "pose_graph": 1, "icp": 4, "icp_polish": 4},
+              f"session_config5: register launches {n_reg}")
         out = dict(clouds=[sess.load_cloud(i) for i in range(sess.cloud_count())],
                    reg=sess.load_registration(), ply=Path(ply).read_bytes(),
                    obj=Path(obj).read_bytes())
@@ -2609,7 +2859,8 @@ def digest(*tensors):
     return h.hexdigest()
 
 
-KERNELS = ("k1", "k2", "k3", "k4", "k5", "k8", "k6", "k7", "obj_text", "pose_graph")
+KERNELS = ("k1", "k2", "k3", "k4", "k5", "k8", "k6", "k7", "obj_text", "pose_graph", "icp",
+           "icp_polish")
 
 
 def launch_counts() -> dict:
@@ -2929,7 +3180,7 @@ def dist_phases(dev, card, main_path, orbit, config5_one):
         n_ex = -(-sweeps // h)
         return (n_ex, 0) if k3 else (0, n_ex * -(-h // us.MAX_HALO))
 
-    totals = {"k1": 0, "k3": 0, "k4": 0, "pose_graph": 0}
+    totals = {"k1": 0, "k3": 0, "k4": 0, "pose_graph": 0, "icp": 0, "icp_polish": 0}
 
     def gate_config3(name, results, world):
         rows = []
@@ -2995,10 +3246,10 @@ def dist_phases(dev, card, main_path, orbit, config5_one):
             check(mine == c5["again"] == {k: first[k] for k in c5["again"]},
                   f"{name}: rank {r} differs from rank 0 or from its second run")
             want = dict.fromkeys(c5["launches"], 0)
-            want.update(k1=ORBIT_SCANS_CONFIG5 // 2, pose_graph=1)
+            want.update(k1=ORBIT_SCANS_CONFIG5 // 2, pose_graph=1, icp=4, icp_polish=4)
             check(c5["launches"] == want, f"{name}: config 5 launches {c5['launches']}")
-            totals["k1"] += c5["launches"]["k1"]
-            totals["pose_graph"] += c5["launches"]["pose_graph"]
+            for k in ("k1", "pose_graph", "icp", "icp_polish"):
+                totals[k] += c5["launches"][k]
         R, t = first["reg"][0].to(dev), first["reg"][1].to(dev)
         dR, dt = float((R - c5_reg.R).abs().max()), float((t - c5_reg.t).abs().max())
         check(dR <= DIST_C5_R_TOL and dt <= DIST_C5_T_TOL,
@@ -3838,8 +4089,9 @@ def main():
          after=nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
 
     # phases 19-23: registration (config 4), K8
-    k1_config5, orbit, config5_one, obj_entry, pg_entry, k8_entry = registration_phases(
-        dev, cam, proj, cfg, counts_of, card, ptxas_summary(built["pose_graph"][1]))
+    k1_config5, orbit, config5_one, obj_entry, pg_entry, icp_entry, k8_entry = \
+        registration_phases(dev, cam, proj, cfg, counts_of, card,
+                            ptxas_summary(built["pose_graph"][1]), ptxas_summary(built["icp"][1]))
     launches += k1_config5
 
     # phases 24-30: the two-camera merge, K7 and K6
@@ -3989,11 +4241,13 @@ def main():
                           for k, (a, b, c) in composes.items()},
         "device_ms": device_ms["k5_rows"],
         "device_ms_cols": device_ms["k5_cols"],
-    }, k8_entry, k7_entry, k6_entry, obj_entry, pg_entry]
+    }, k8_entry, k7_entry, k6_entry, obj_entry, pg_entry, icp_entry]
     # the session paths' and the ranks' launches join the main path's
     for key, entry in zip(("k1", "k2", "k3", "k4", "k5", "k8", "k7", "k6", "obj_text",
-                           "pose_graph"), kernels):
+                           "pose_graph", "icp"), kernels):
         entry["launches"] += product_launches[key] + dist_launches.get(key, 0)
+    icp_entry["launches_polish"] += (product_launches["icp_polish"]
+                                     + dist_launches.get("icp_polish", 0))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point. It is compiled for
 Hopper (``sm_90a``) into ``_build/lib<name>_<hash>.so`` at first use, where
-``<hash>`` is the source's SHA-256 prefix, so an edited source rebuilds and
-an unchanged one loads at once. A failed build raises with nvcc's stderr:
+``<hash>`` is the SHA-256 prefix of the source and of the headers it may
+include (``csrc/*.cuh``), so an edited source or header rebuilds and an
+unchanged one loads at once. A failed build raises with nvcc's stderr:
 there is no fall-back. ``build_host_library`` does the same for a C++
 source of the host tier (``slr_torch/native/plyio.cpp``) with ``g++``.
 
@@ -52,12 +53,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _compile(src: Path, name: str, command) -> tuple[Path, str]:
+def _compile(src: Path, name: str, command, headers=()) -> tuple[Path, str]:
     """Compile ``src`` with ``command`` (the compiler and its flags) into
-    ``_build/lib<name>_<hash>.so`` unless that build exists. Returns (path
-    of the shared library, the compiler's log; empty when the library was
-    already built)."""
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    ``_build/lib<name>_<hash>.so`` unless that build exists; the hash
+    covers ``src`` and ``headers``. Returns (path of the shared library,
+    the compiler's log; empty when the library was already built)."""
+    digest = hashlib.sha256(b"".join(f.read_bytes() for f in (src, *headers))).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
         return lib, ""
@@ -77,7 +78,8 @@ def build_library(name: str) -> tuple[Path, str]:
 
     Returns (path of the shared library, nvcc's log; empty when the
     library was already built)."""
-    return _compile(CSRC / f"{name}.cu", name, (_nvcc(), *NVCC_FLAGS))
+    return _compile(CSRC / f"{name}.cu", name, (_nvcc(), *NVCC_FLAGS),
+                    sorted(CSRC.glob("*.cuh")))
 
 
 def build_host_library(src: Path) -> tuple[Path, str]:

@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "se3.cuh"
+
 #define SLR_PG_THREADS 256
 // a block's opt-in shared memory on an H100 (232,448 bytes), less `bad`
 #define SLR_PG_SMEM_MAX 232432
@@ -94,25 +96,9 @@ __device__ __forceinline__ Dual datan2(Dual y, Dual x) {
   return {atan2f(y.v, x.v), (x.v * y.d - y.v * x.d) / (x.v * x.v + y.v * y.v)};
 }
 
-// 3 x 3 matrices row-major, 3-vectors; T is float or Dual
-template <typename T>
-__device__ __forceinline__ void matmul(const T* A, const T* B, T* C) {
-  for (int r = 0; r < 3; ++r)
-    for (int c = 0; c < 3; ++c)
-      C[3 * r + c] = A[3 * r] * B[c] + A[3 * r + 1] * B[3 + c] + A[3 * r + 2] * B[6 + c];
-}
-
-template <typename T>
-__device__ __forceinline__ void matvec(const T* A, const T* x, T* y) {
-  for (int r = 0; r < 3; ++r) y[r] = A[3 * r] * x[0] + A[3 * r + 1] * x[1] + A[3 * r + 2] * x[2];
-}
-
-template <typename T>
-__device__ __forceinline__ void hat(const T* w, T* K, T zero) {
-  K[0] = zero, K[1] = -w[2], K[2] = w[1];
-  K[3] = w[2], K[4] = zero, K[5] = -w[0];
-  K[6] = -w[1], K[7] = w[0], K[8] = zero;
-}
+using slr::hat;
+using slr::matmul;
+using slr::matvec;
 
 // ---- one edge's residual and its derivative -------------------------------
 
@@ -220,22 +206,16 @@ __device__ __forceinline__ float dot6(const float* a, const float* b) {
 }
 
 // se3_exp(xi) = (so3_exp(phi), J_l(phi) rho), with their Taylor branches
-// below theta^2 = 1e-8; T <- T Exp(xi) in place.
+// below theta^2 = 1e-8 (se3.cuh's coefficients); T <- T Exp(xi) in place.
 __device__ void apply_update(float* R, float* t, const float* rho, const float* phi) {
-  const float theta2 = phi[0] * phi[0] + phi[1] * phi[1] + phi[2] * phi[2];
-  const float theta = sqrtf(theta2 + 1e-16f);
-  const bool small = theta2 < 1e-8f;
-  const float a = small ? 1.0f - theta2 / 6.0f : sinf(theta) / theta;
-  const float b = small ? 0.5f - theta2 / 24.0f : (1.0f - cosf(theta)) / theta2;
-  const float c = small ? 1.0f / 6.0f - theta2 / 120.0f : (theta - sinf(theta)) / (theta2 * theta);
+  const slr::So3Coeffs s = slr::so3_coeffs(phi);
+  const float c = s.small ? 1.0f / 6.0f - s.theta2 / 120.0f
+                          : (s.theta - sinf(s.theta)) / (s.theta2 * s.theta);
   float K[9], K2[9], dR[9], Jl[9], dt[3], Rn[9], u[3];
+  slr::so3_exp(phi, dR);
   hat(phi, K, 0.0f);
   matmul(K, K, K2);
-  for (int k = 0; k < 9; ++k) {
-    const float eye = k % 4 == 0 ? 1.0f : 0.0f;
-    dR[k] = eye + a * K[k] + b * K2[k];
-    Jl[k] = eye + b * K[k] + c * K2[k];
-  }
+  for (int k = 0; k < 9; ++k) Jl[k] = (k % 4 == 0 ? 1.0f : 0.0f) + s.b * K[k] + c * K2[k];
   matvec(Jl, rho, dt);
   matmul(R, dR, Rn);
   matvec(R, dt, u);

@@ -5,9 +5,10 @@
 against an FPFH + RANSAC-initialised ICP, with a projective polish when the
 rig camera is given) into a pose chain, loop-closure edges, then pose-graph
 refinement over every relative measurement. ``register_scans_batched``: the
-same with every edge of a round aligned at once, along a leading edge axis
-(``torch.func.vmap``, as the reference's ``jax.vmap``), the edges split over
-the ``map_block`` ranks of a mesh. ``ba_refine``: Schur bundle adjustment
+same with every edge of a round aligned at once: on the card in one launch
+of each ICP route (``kernels/icp.py``), elsewhere along a leading edge axis
+(``torch.func.vmap``, as the reference's ``jax.vmap``); the edges split
+over the ``map_block`` ranks of a mesh. ``ba_refine``: Schur bundle adjustment
 over landmarks drawn from every scan, distributed over a mesh's map blocks.
 ``fuse_scans``: every scan in the anchor frame, voxel-merged.
 """
@@ -24,6 +25,7 @@ from slr_torch import observability as obs
 from slr_torch.config import RegistrationConfig
 from slr_torch.dist import comm
 from slr_torch.dist.ba import bundle_adjust_reference, distributed_bundle_adjust
+from slr_torch.kernels import icp as icp_kernel
 from slr_torch.pipeline.reconstruct import ScanCloud
 from slr_torch.registration import features
 from slr_torch.registration.features import draw_categorical, fpfh_features, ransac_align
@@ -178,38 +180,50 @@ def register_scans(
 def _batched_fine(src, tgt_p, tgt_n, cfg, R0=None, t0=None, grids=None, cam=None,
                   tgt_idx=None):
     """ICP over a batch of edges: src, tgt_p, tgt_n (E, N, 3), optional
-    (E,) inits; then, with the stacked organized target grids, the
-    projective polish. On the exact route every edge goes at once along the
-    leading axis (batched products and Cholesky); the band search (K8) and
-    the voxel hash take one cloud a call, so there the edges go one after
-    another."""
+    (E,) inits; then, with the stacked organized target grids and the (E,)
+    index of each edge's target grid, the projective polish. On the card
+    every edge goes at once into one launch of each route
+    (``kernels/icp.py``): the NN route's wherever the exact search is
+    taken (``takes_kernel``), the polish always. CPU tensors on the exact
+    route go at once along the leading axis (``vmap``: batched products and
+    Cholesky). The band search (K8) and the voxel hash take one cloud a
+    call, so there the edges go one after another."""
     E, N = src.shape[:2]
     dev = src.device
-    if R0 is None:
+    iters, dist = cfg.icp_iters, cfg.icp_max_corr_dist
+    polish_iters = max(8, iters // 2)
+    on_kernel = icp_kernel.takes_kernel(N, tgt_p.shape[1], dev)
+    if R0 is None and not on_kernel:
         R0 = torch.eye(3, device=dev).expand(E, 3, 3)
         t0 = torch.zeros(E, 3, device=dev)
 
     def one(s, tp, tn, R_i, t_i):
-        return icp_point_to_plane(s, tp, tn, R0=R_i, t0=t_i, iters=cfg.icp_iters,
-                                  max_corr_dist=cfg.icp_max_corr_dist)
+        return icp_point_to_plane(s, tp, tn, R0=R_i, t0=t_i, iters=iters, max_corr_dist=dist)
 
     with obs.span("icp"):
-        if _resolve_nn_method("auto", N, tgt_p.shape[1], dev) == "exact":
+        if on_kernel:
+            res = ICPResult(*icp_kernel.align(src, tgt_p, tgt_n, R0=R0, t0=t0, iters=iters,
+                                              max_corr_dist=dist))
+        elif _resolve_nn_method("auto", N, tgt_p.shape[1], dev) == "exact":
             res = vmap(one)(src, tgt_p, tgt_n, R0, t0)
         else:
             res = ICPResult(*map(torch.stack, zip(*map(one, src, tgt_p, tgt_n, R0, t0))))
     if grids is not None:
         g_pts, g_mask, g_nrm = grids
-        ones = torch.ones(N, dtype=torch.bool, device=dev)
-
-        def polish(s, tg, tm, tn, R_i, t_i):
-            return icp_projective(s, ones, tg, tm, tn, cam, R0=R_i, t0=t_i,
-                                  iters=max(8, cfg.icp_iters // 2),
-                                  max_corr_dist=cfg.icp_max_corr_dist)
-
         with obs.span("icp.polish"):
-            res = vmap(polish)(src, g_pts[tgt_idx], g_mask[tgt_idx], g_nrm[tgt_idx],
-                               res.R, res.t)
+            if dev.type == "cuda":
+                res = ICPResult(*icp_kernel.polish(src, None, g_pts, g_mask, g_nrm, tgt_idx, cam,
+                                                   res.R, res.t, iters=polish_iters,
+                                                   max_corr_dist=dist))
+            else:
+                ones = torch.ones(N, dtype=torch.bool, device=dev)
+
+                def polish(s, tg, tm, tn, R_i, t_i):
+                    return icp_projective(s, ones, tg, tm, tn, cam, R0=R_i, t0=t_i,
+                                          iters=polish_iters, max_corr_dist=dist)
+
+                res = vmap(polish)(src, g_pts[tgt_idx], g_mask[tgt_idx], g_nrm[tgt_idx],
+                                   res.R, res.t)
     return res
 
 

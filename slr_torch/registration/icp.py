@@ -4,10 +4,15 @@ Each iteration: move the source by the current pose, find each point's
 nearest target (the tiled exact search, the voxel hash, or the sorted-band
 search K8),
 gate correspondences by distance, reweight them (Huber), and take one
-closed-form 6-dof Gauss-Newton step from the 6x6 normal equations. The
-iterations are a Python loop with no host sync inside: the 6x6 system is
-solved by ``cholesky_ex`` and ``cholesky_solve``, which check nothing on
-the host.
+closed-form 6-dof Gauss-Newton step from the 6x6 normal equations.
+
+On the card, every call on the exact route (``kernels/icp.py::
+takes_kernel``) runs every iteration in one launch of a kernel written by
+hand (``kernels/csrc/icp.cu``, float32, counted as ``launches.icp``).
+CPU tensors, and the voxel and band routes, run
+``icp_point_to_plane_reference``, the kernel's plain version: a Python
+loop with no host sync inside (the 6x6 system solved by ``cholesky_ex`` and
+``cholesky_solve``, which check nothing on the host).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from slr_torch.geom.se3 import se3_compose, so3_exp
+from slr_torch.kernels import icp as kernel
 from slr_torch.registration.band import BIG, band_nn_sorted, build_band_target
 from slr_torch.registration.nn import nearest_neighbors
 from slr_torch.registration.voxel import build_voxel_hash, voxel_hash_nn
@@ -86,13 +92,31 @@ def icp_point_to_plane(
     (exact up to ~24k^2 source x target pairs; above, voxel on the CPU and
     band on the card; resolved from the tensors' sizes and device on every
     call). ``band_b_max`` is accepted for signature parity and ignored: the
-    band search never truncates.
+    band search never truncates. On the card the exact route runs in one
+    launch (float32; other dtypes raise ``ValueError``), every other call
+    ``icp_point_to_plane_reference``.
 
     The band route builds the sorted target once and sorts the source once
     by its key at the initial pose; the Gauss-Newton sums do not depend on
     the order, so nothing is unsorted, and each iteration takes the
     correspondence point and normal straight from the search.
     """
+    nn_method = _resolve_nn_method(nn_method, src.shape[0], tgt.shape[0], src.device)
+    if kernel.takes_kernel(src.shape[0], tgt.shape[0], src.device, nn_method):
+        one = [None if x is None else x[None] for x in (src_valid, tgt_valid, R0, t0)]
+        return ICPResult(*(x[0] for x in kernel.align(
+            src[None], tgt[None], tgt_normals[None], *one, iters=iters,
+            max_corr_dist=max_corr_dist)))
+    return icp_point_to_plane_reference(src, tgt, tgt_normals, src_valid, tgt_valid, R0, t0,
+                                        iters, max_corr_dist, nn_tile, nn_method)
+
+
+def icp_point_to_plane_reference(src, tgt, tgt_normals, src_valid=None, tgt_valid=None,
+                                 R0=None, t0=None, iters: int = 20,
+                                 max_corr_dist: float = 10.0, nn_tile: int = 2048,
+                                 nn_method: str = "auto") -> ICPResult:
+    """The plain version, on either device: ``icp_point_to_plane``'s loop,
+    each iteration's search by ``nn_method`` ("auto" resolved as there)."""
     nn_method = _resolve_nn_method(nn_method, src.shape[0], tgt.shape[0], src.device)
     dev = src.device
     N = src.shape[0]

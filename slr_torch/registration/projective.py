@@ -5,6 +5,11 @@ Scans are organized (H, W) grids, so a source point's correspondence is
 found by moving it into the target rig frame, projecting it through the
 target camera and reading the target's point and normal at that pixel:
 O(N) gathers instead of a search.
+
+On the card every call runs all its iterations in one launch of a kernel
+written by hand (``kernels/csrc/icp.cu``, float32, counted as
+``launches.icp_polish``); CPU tensors run ``icp_projective_reference``, the
+kernel's plain version.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ import torch
 
 from slr_torch.geom.camera import Camera, project
 from slr_torch.geom.se3 import se3_compose, so3_exp
+from slr_torch.kernels import icp as kernel
 from slr_torch.registration.icp import ICPResult, _solve_point_to_plane
 
 
@@ -29,7 +35,22 @@ def icp_projective(
     max_corr_dist: float = 10.0,
 ) -> ICPResult:
     """Align src -> tgt with per-iteration projective data association.
-    (The reference's ``min_normal_cos`` is left out: it does not use it.)"""
+    (The reference's ``min_normal_cos`` is left out: it does not use it.)
+    CUDA tensors launch the kernel once (float32; other dtypes raise
+    ``ValueError``); CPU tensors run ``icp_projective_reference``."""
+    if src_pts.device.type == "cuda":
+        one = [None if x is None else x[None] for x in (src_valid, R0, t0)]
+        return ICPResult(*(x[0] for x in kernel.polish(
+            src_pts[None], one[0], tgt_grid[None], tgt_mask[None], tgt_normals[None], None,
+            cam, one[1], one[2], iters=iters, max_corr_dist=max_corr_dist)))
+    return icp_projective_reference(src_pts, src_valid, tgt_grid, tgt_mask, tgt_normals, cam,
+                                    R0, t0, iters, max_corr_dist)
+
+
+def icp_projective_reference(src_pts, src_valid, tgt_grid, tgt_mask, tgt_normals,
+                             cam: Camera, R0=None, t0=None, iters: int = 15,
+                             max_corr_dist: float = 10.0) -> ICPResult:
+    """The plain version, on either device: ``icp_projective``'s loop."""
     H, W = tgt_mask.shape
     dev = src_pts.device
     R = torch.eye(3, device=dev) if R0 is None else R0

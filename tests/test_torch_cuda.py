@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1, every branch, K2, the spatial repair's K3, K4
-and K5, the band search K8, and the crossing kernels K6 and K7 of the
-two-camera merge) against their plain PyTorch versions, on the card; and
+and K5, the band search K8, the crossing kernels K6 and K7 of the
+two-camera merge, the pose graph and the ICP) against their plain PyTorch
+versions, on the card; and
 config 5's voxel merge, whose ordered segment sum must give the same bits
 in every call there; and calibration (config 2) on the card: the LM loop
 with no host synchronisation, the solves and the corner detector against
@@ -22,9 +23,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (POSE_GRAPH_CASES, box_exposures, corner_fronts, cu_constant,
-                        hdr_best_exposure, k2_box, long_range_pairs, pose_graph_agreement,
-                        pose_graph_case, pose_graph_edges)
+from chip_smoke import (ICP_EDGE_TOL, ICP_TOL, POSE_GRAPH_CASES, box_exposures,
+                        corner_fronts, cu_constant, hdr_best_exposure, icp_agreement,
+                        icp_case, icp_grid_case, k2_box,
+                        long_range_pairs, pose_graph_agreement, pose_graph_case,
+                        pose_graph_edges, render_orbit)
 from slr_torch import observability as obs
 from slr_torch.codec import unwrap as pu
 from slr_torch.config import DecodeConfig, PatternConfig, ReconstructConfig
@@ -32,6 +35,7 @@ from slr_torch.geom.camera import make_camera
 from slr_torch.kernels import band_nn as kb
 from slr_torch.kernels import crossing as kx
 from slr_torch.kernels import fused_scan as fs
+from slr_torch.kernels import icp as kicp
 from slr_torch.kernels import pose_graph as kpg
 from slr_torch.kernels import unwrap_scan as us
 from slr_torch.kernels import wavefront as wf
@@ -40,7 +44,9 @@ from slr_torch.pipeline.reconstruct import (
 from slr_torch.pipeline.twocam import reconstruct_two_camera
 from slr_torch.registration import band as rb
 from slr_torch.registration import posegraph as pg
-from slr_torch.registration.icp import icp_point_to_plane
+from slr_torch.registration import projective as rp
+from slr_torch.registration.icp import (ICPResult, _resolve_nn_method, icp_point_to_plane,
+                                        icp_point_to_plane_reference)
 from slr_torch.synth.render import (
     default_rig, quantize_frames, render_scan, two_camera_rig)
 from slr_torch.synth.scene import bumps_depth, checker_albedo, spheres_scene
@@ -1520,3 +1526,217 @@ def test_pose_graph_kernel_bad_input(cuda):
         kpg.solve(*[a.cpu() for a in args], 20, 1e-6, 300.0)
     with pytest.raises(ValueError):
         kpg.solve(*args[:4], args[4][:, :2], args[5], 20, 1e-6, 300.0)
+
+
+# ---------------------------------------------------------------- ICP in one launch
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_icp_kernel_matches_plain_version(cuda, masked):
+    """The NN route in one launch against the plain loop on the card
+    (``nn_method="exact"``) on the plain parity tests' case near the
+    origin, plain and with masks and an initial pose: within their
+    tolerances (R 1e-5, t 1e-3 mm, inlier_frac 1e-3)."""
+    kw, _ = icp_case(cuda, 1500, 7 + masked, masked=masked)
+    n = launches("icp")
+    got = icp_point_to_plane(**kw, iters=12, max_corr_dist=20.0)
+    assert launches("icp") - n == 1
+    want = icp_point_to_plane_reference(**kw, iters=12, max_corr_dist=20.0, nn_method="exact")
+    agree = icp_agreement(got, want, ICP_TOL)
+    assert agree["within"], agree
+    assert float(got.rms) < 0.2
+
+
+def test_icp_polish_matches_plain_version(cuda):
+    """The projective route in one launch against the plain loop on the
+    card, on the plain parity test's organized grid."""
+    args, _ = icp_grid_case(cuda)
+    n = launches("icp_polish")
+    got = rp.icp_projective(*args, iters=10, max_corr_dist=10.0)
+    assert launches("icp_polish") - n == 1
+    want = rp.icp_projective_reference(*args, iters=10, max_corr_dist=10.0)
+    agree = icp_agreement(got, want, ICP_TOL)
+    assert agree["within"], agree
+    np.testing.assert_allclose(float(got.rms), float(want.rms), rtol=1e-3, atol=1e-5)
+
+
+def test_icp_on_a_config5_edge_matches_plain_version(cuda):
+    """An edge of config 5's orbit at scan coordinates (its first two uint8
+    scans through K1, 4096 samples each, the defaults; scan 0 onto scan 1,
+    the polish on scan 1's grid): the NN route and then the polish, each
+    against its plain version on the card,
+    within the route's limits on config 5's chain round (``ICP_EDGE_TOL``,
+    25 to 1,000 times tighter than fusion_orbit8's 0.25 deg and 0.5 mm)."""
+    from slr_torch.config import PatternConfig, RegistrationConfig
+    from slr_torch.pipeline import registerfuse as rf
+    from slr_torch.registration.normals import grid_normals
+
+    cam, proj = default_rig(cam_w=1280, cam_h=1024)
+    cfg = PatternConfig(proj_width=1024, proj_height=768, gray_bits=7, phase_steps=4)
+    stacks, _, _ = render_orbit(cuda, cam, proj, cfg, scans=2)
+    model = DenseReconstructor(cam, proj, cfg).to(cuda)
+    clouds = [model(f) for f in stacks]
+    rc = RegistrationConfig()
+    (src, _), (tgt, nrm) = (rf._subsample(c, rc.icp_sample_points, seed=i)
+                            for i, c in enumerate(clouds))
+    kw = dict(iters=rc.icp_iters, max_corr_dist=rc.icp_max_corr_dist)
+    got = icp_point_to_plane(src, tgt, nrm, **kw)
+    want = icp_point_to_plane_reference(src, tgt, nrm, nn_method="exact", **kw)
+    agree = icp_agreement(got, want, ICP_EDGE_TOL["nn"])
+    assert agree["within"], agree
+    ones = torch.ones(src.shape[0], dtype=torch.bool, device=cuda)
+    grid = (clouds[1].points, clouds[1].mask, grid_normals(clouds[1].points, clouds[1].mask))
+    kw["iters"] = max(8, rc.icp_iters // 2)
+    cam_d = cam.to(cuda)
+    got_p = rp.icp_projective(src, ones, *grid, cam_d, R0=got.R, t0=got.t, **kw)
+    want_p = rp.icp_projective_reference(src, ones, *grid, cam_d, R0=want.R, t0=want.t, **kw)
+    agree = icp_agreement(got_p, want_p, ICP_EDGE_TOL["polish"])
+    assert agree["within"], agree
+
+
+def _icp_batch(cuda, E):
+    """E edges of the parity case, each its own seed: stacked keyword
+    arguments of ``kicp.align``, and the per-edge ones."""
+    cases = [icp_case(cuda, 1000, 20 + e, masked=True)[0] for e in range(E)]
+    names = ("src", "tgt", "tgt_n", "src_valid", "tgt_valid", "R0", "t0")
+    keys = ("src", "tgt", "tgt_normals", "src_valid", "tgt_valid", "R0", "t0")
+    return {n: torch.stack([c[k] for c in cases]) for n, k in zip(names, keys)}, cases
+
+
+def test_icp_batch_gives_each_edge_its_single_call_bits(cuda):
+    """A batch of E edges in one launch gives each edge the bits it gets
+    in a call of its own, on both routes; two calls give the same bits."""
+    batch, cases = _icp_batch(cuda, 4)
+    n = launches("icp")
+    got = ICPResult(*kicp.align(**batch, iters=10, max_corr_dist=15.0))
+    again = ICPResult(*kicp.align(**batch, iters=10, max_corr_dist=15.0))
+    assert launches("icp") - n == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for e, c in enumerate(cases):
+        one = icp_point_to_plane(**c, iters=10, max_corr_dist=15.0)
+        assert all(torch.equal(a[e], b) for a, b in zip(got, one)), e
+    (src, valid, grid, mask, normals, cam), _ = icp_grid_case(cuda)
+    grids = (torch.stack([grid, grid + 0.5]), torch.stack([mask, mask]),
+             torch.stack([normals, normals]))
+    srcs = torch.stack([src, src, src - 0.25])
+    grid_of = torch.tensor([1, 0, 1], device=cuda)
+    n = launches("icp_polish")
+    got = ICPResult(*kicp.polish(srcs, None, *grids, grid_of, cam, iters=10))
+    again = ICPResult(*kicp.polish(srcs, None, *grids, grid_of, cam, iters=10))
+    assert launches("icp_polish") - n == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ones = torch.ones(src.shape[0], dtype=torch.bool, device=cuda)
+    for e in range(3):
+        g = int(grid_of[e])
+        one = rp.icp_projective(srcs[e], ones, grids[0][g], grids[1][g], grids[2][g], cam,
+                                iters=10)
+        assert all(torch.equal(a[e], b) for a, b in zip(got, one)), e
+
+
+def test_icp_kernels_launch_once_without_host_sync(cuda):
+    """One launch a call on each route, and no host synchronisation in the
+    call (torch's sync debug mode raises on one)."""
+    kw, _ = icp_case(cuda, 1500, 7, masked=True)
+    args, _ = icp_grid_case(cuda)
+    icp_point_to_plane(**kw)
+    rp.icp_projective(*args)
+    torch.cuda.synchronize()
+    n = launches("icp", "icp_polish")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        icp_point_to_plane(**kw)
+        rp.icp_projective(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tuple(b - a for a, b in zip(n, launches("icp", "icp_polish"))) == (1, 1)
+
+
+def test_icp_without_correspondences_keeps_the_initial_pose(cuda):
+    """An edge with no correspondence within max_corr_dist (its target 1 m
+    away; on the grid, every pixel masked), or no source point at all,
+    gives rms = inf, inlier_frac 0 and the initial pose, as the plain loop
+    does."""
+    kw, _ = icp_case(cuda, 1000, 9, masked=True)
+    kw["tgt"] = kw["tgt"] + 1000.0
+    empty = {**kw, "src": kw["src"][:0], "src_valid": kw["src_valid"][:0]}
+    for case in (kw, empty):
+        n = launches("icp")
+        got = icp_point_to_plane(**case, iters=5)
+        assert launches("icp") - n == 1
+        want = icp_point_to_plane_reference(**case, iters=5, nn_method="exact")
+        for r in (got, want):
+            assert float(r.rms) == math.inf and float(r.inlier_frac) == 0.0
+            assert torch.equal(r.R, kw["R0"]) and torch.equal(r.t, kw["t0"])
+    (src, valid, grid, mask, normals, cam), _ = icp_grid_case(cuda)
+    R0, t0 = kw["R0"], kw["t0"]
+    for fn in (rp.icp_projective, rp.icp_projective_reference):
+        r = fn(src, valid, grid, torch.zeros_like(mask), normals, cam, R0=R0, t0=t0, iters=5)
+        assert float(r.rms) == math.inf and float(r.inlier_frac) == 0.0
+        assert torch.equal(r.R, R0) and torch.equal(r.t, t0)
+
+
+def test_icp_past_shared_memory_stages_the_target_in_chunks(cuda):
+    """A target past a block's shared memory (14,428 points) takes the
+    kernel too, one launch, staged a chunk at a time. At the edge and one
+    point past it: within the parity tolerances of the plain loop. The
+    parity case's 1,500 targets padded with masked ones to three chunks,
+    the real ones across the first two: the bits of one staging.
+    ``nn_method="exact"`` past the crossover takes it as well, with the
+    same bits."""
+    M = kicp.CHUNK
+    for m in (M, M + 1):
+        kw, _ = icp_case(cuda, m, 11, masked=True)
+        kw.update(src=kw["src"][:512], src_valid=kw["src_valid"][:512])
+        assert kicp.takes_kernel(512, m, cuda)
+        n = launches("icp")
+        got = icp_point_to_plane(**kw, iters=4)
+        assert launches("icp") - n == 1
+        want = icp_point_to_plane_reference(**kw, iters=4, nn_method="exact")
+        agree = icp_agreement(got, want, ICP_TOL)
+        assert agree["within"], (m, agree)
+    kw, _ = icp_case(cuda, 1500, 11, masked=True)
+    lo, hi = M - 700, M + 5          # 2 M + 805 targets: three chunks
+
+    def pad(x, value):
+        fill = x.new_full((1, *x.shape[1:]), value)
+        return torch.cat([fill.expand(lo, *x.shape[1:]), x, fill.expand(hi, *x.shape[1:])])
+
+    padded = dict(tgt=pad(kw["tgt"], 1e4), tgt_normals=pad(kw["tgt_normals"], 0.0),
+                  tgt_valid=pad(kw["tgt_valid"], False))
+    whole = icp_point_to_plane(**kw, iters=4)
+    n = launches("icp")
+    got = icp_point_to_plane(**{**kw, **padded}, iters=4)
+    assert launches("icp") - n == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, whole))
+    many = {**kw, "src": kw["src"].repeat(14, 1), "src_valid": kw["src_valid"].repeat(14)}
+    assert _resolve_nn_method("auto", 21_000, 2 * M + 805, cuda) == "band"
+    n = launches("icp")
+    got = icp_point_to_plane(**{**many, **padded}, iters=2, nn_method="exact")
+    assert launches("icp") - n == 1
+    want = icp_point_to_plane(**many, iters=2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_icp_kernels_bad_input(cuda):
+    """Other dtypes (on either route, and through ``icp_point_to_plane``),
+    devices and shapes are refused with ``ValueError``; a grid index past
+    the grids makes that edge's outputs NaN."""
+    batch, _ = _icp_batch(cuda, 2)
+    with pytest.raises(ValueError):
+        kicp.align(**{**batch, "src": batch["src"].double()})
+    with pytest.raises(ValueError):
+        kicp.align(**{**batch, "tgt_n": batch["tgt_n"][:, :, :2]})
+    with pytest.raises(ValueError):
+        kicp.align(**{k: v.cpu() for k, v in batch.items()})
+    with pytest.raises(ValueError):
+        icp_point_to_plane(*(batch[k][0].double() for k in ("src", "tgt", "tgt_n")))
+    (src, valid, grid, mask, normals, cam), _ = icp_grid_case(cuda)
+    with pytest.raises(ValueError):
+        rp.icp_projective(src.double(), valid, grid.double(), mask, normals.double(),
+                          cam)
+    with pytest.raises(ValueError, match="grid_of"):
+        kicp.polish(torch.stack([src, src]), None, grid[None], mask[None], normals[None],
+                    None, cam)
+    bad = kicp.polish(torch.stack([src, src]), None, grid[None], mask[None], normals[None],
+                      torch.tensor([0, 1], device=cuda), cam)
+    assert all(bool(torch.isnan(x[1]).all()) and not bool(torch.isnan(x[0]).any())
+               for x in bad)

@@ -122,10 +122,26 @@ def test_check_status(stand_in):
         build.check_status(lib, "K9 layout", 1)
 
 
-@pytest.mark.parametrize("module", ["band_nn", "crossing", "fused_scan", "obj_text",
+@pytest.mark.parametrize("module", ["band_nn", "crossing", "fused_scan", "icp", "obj_text",
                                     "pose_graph", "unwrap_scan", "wavefront"])
 def test_only_build_types_entry_points_and_reads_streams(module):
     src = (Path(build.__file__).parent / f"{module}.py").read_text()
     for word in ("argtypes", "restype", "cuda_stream", "slr_cuda_error_string",
                  "count(\"launches."):
         assert word not in src, f"{module}.py: {word}"
+
+
+def test_an_edited_header_rebuilds(tmp_path, monkeypatch):
+    """A library's hash covers the headers its source may include: an
+    unchanged pair loads the first build, an edited header builds anew."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    src, header = tmp_path / "k.cpp", tmp_path / "k.cuh"
+    header.write_text("#define K 1\n")
+    src.write_text('#include "k.cuh"\nextern "C" int k() { return K; }\n')
+    command = ("g++", *build.HOST_FLAGS)
+    first, _ = build._compile(src, "k", command, [header])
+    again, log = build._compile(src, "k", command, [header])
+    assert again == first and log == ""
+    header.write_text("#define K 2\n")
+    second, _ = build._compile(src, "k", command, [header])
+    assert second != first and ctypes.CDLL(str(second)).k() == 2

@@ -17,6 +17,8 @@ Tolerances, each with its reason:
   the JAX pose by ~1e-4, so 5e-4 and 2e-2 there.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,11 +34,12 @@ from slr.registration import normals as jnormals
 from slr.registration import posegraph as jpg
 from slr.registration import projective as jproj
 from slr.geom import camera as jcam
-from slr_torch.geom import camera as tcam
 from slr_torch.geom import se3 as tse3
-from chip_smoke import POSE_GRAPH_CASES, pose_graph_case, pose_graph_max_w2
+from chip_smoke import (POSE_GRAPH_CASES, bumpy_surface, cu_constant, icp_case,
+                        icp_grid_case, pose_graph_case, pose_graph_max_w2, rotation)
 from slr_torch import observability as obs
 from slr_torch.kernels import band_nn as kband
+from slr_torch.kernels import icp as kicp
 from slr_torch.kernels import pose_graph as kpg
 from slr_torch.registration import band as tband
 from slr_torch.registration import features as tfeat
@@ -55,24 +58,6 @@ def _t(a):
 
 def _np(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
-
-
-def _bumpy(n, seed, half=100.0, base=500.0):
-    """Points of the reference's bumpy surface z(x, y) and its unit normals."""
-    rng = np.random.default_rng(seed)
-    xy = rng.uniform(-half, half, (n, 2))
-    z = base + 20 * np.sin(xy[:, 0] / 25.0) * np.cos(xy[:, 1] / 30.0) \
-        + 8 * np.sin(xy[:, 1] / 12.0)
-    gx = 20 * np.cos(xy[:, 0] / 25.0) / 25.0 * np.cos(xy[:, 1] / 30.0)
-    gy = (-20 * np.sin(xy[:, 0] / 25.0) * np.sin(xy[:, 1] / 30.0) / 30.0
-          + 8 * np.cos(xy[:, 1] / 12.0) / 12.0)
-    n0 = np.column_stack([-gx, -gy, np.ones_like(gx)])
-    n0 /= np.linalg.norm(n0, axis=1, keepdims=True)
-    return np.column_stack([xy, z]).astype(np.float32), n0.astype(np.float32)
-
-
-def _rot(rv):
-    return np.asarray(jse3.so3_exp(jnp.asarray(rv, jnp.float32)))
 
 
 # ---------------------------------------------------------------- se3
@@ -360,20 +345,15 @@ def test_band_target_and_widths_match_reference():
 
 # ---------------------------------------------------------------- ICP
 
-def _icp_case(n, seed):
-    """Noisy (0.05 mm), so the Huber weights are not set by rounding; near
-    the origin, so the expanded form's rounding (~eps |q|^2) rarely changes
-    a nearest neighbour between the packages."""
-    src, n0 = _bumpy(n, seed, base=0.0)
-    R_true = _rot([0.01, -0.02, 0.015])
-    t_true = np.array([3.0, -2.0, 4.0], np.float32)
-    noise = np.random.default_rng(seed).normal(0, 0.05, src.shape)
-    tgt = (src @ R_true.T + t_true + noise).astype(np.float32)
-    return src, tgt, (n0 @ R_true.T).astype(np.float32), R_true, t_true
+def _icp_arrays(kw):
+    """The numpy arrays of ``icp_case``'s keyword arguments, in order."""
+    return [_np(kw[k]) for k in ("src", "tgt", "tgt_normals", "src_valid", "tgt_valid", "R0",
+                                 "t0") if k in kw]
 
 
 def test_icp_exact_route_matches_reference():
-    src, tgt, n_tgt, R_true, t_true = _icp_case(1500, 7)
+    kw, (R_true, t_true) = icp_case("cpu", 1500, 7)
+    src, tgt, n_tgt = _icp_arrays(kw)
     rj = jicp.icp_point_to_plane(jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(n_tgt),
                                  iters=12, max_corr_dist=20.0, nn_tile=512,
                                  nn_method="exact")
@@ -389,12 +369,8 @@ def test_icp_exact_route_matches_reference():
 def test_icp_band_route_matches_reference():
     """The band route with a masked target and an initial pose; JAX's band
     payload rounds normals to bf16, hence the looser pose tolerance."""
-    src, tgt, n_tgt, R_true, t_true = _icp_case(2000, 8)
-    rng = np.random.default_rng(3)
-    tv = rng.random(len(tgt)) > 0.05
-    sv = rng.random(len(src)) > 0.05
-    R0 = _rot([0.005, -0.01, 0.01])
-    t0 = np.array([2.0, -1.0, 3.0], np.float32)
+    kw, (R_true, t_true) = icp_case("cpu", 2000, 8, masked=True)
+    src, tgt, n_tgt, sv, tv, R0, t0 = _icp_arrays(kw)
     rj = jicp.icp_point_to_plane(
         jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(n_tgt), jnp.asarray(sv),
         jnp.asarray(tv), jnp.asarray(R0), jnp.asarray(t0), iters=8,
@@ -428,6 +404,159 @@ def test_icp_nn_method_resolution():
     assert ticp._resolve_nn_method("band", 10, 10, cpu) == "band"
     with pytest.raises(ValueError):
         ticp._resolve_nn_method("kdtree", 10, 10, cpu)
+
+
+# the NN route's kernel takes every CUDA call on the exact search: "auto"
+# up to 24000^2 pairs, "exact" at any size; a target past a block's 232,448
+# bytes of shared memory (14,428 points) is staged in chunks; the CPU never
+_ICP_ROUTE = [(4096, 4096, "cuda", True), (4096, 4096, "cpu", False),
+              (40_000, 14_400, "cuda", True), (40_001, 14_400, "cuda", False),
+              (40_000, 14_401, "cuda", False), (24_000, 24_000, "cuda", True),
+              (576_000, 1_000, "cuda", True), (576_001, 1_000, "cuda", False),
+              (512, 14_428, "cuda", True),
+              (512, 14_429, "cuda", True), (512, 14_428, "cpu", False),
+              (1, 1, "cuda", True), (0, 4096, "cuda", True), (4096, 0, "cuda", True)]
+
+
+@pytest.mark.parametrize("N,M,device,kernel", _ICP_ROUTE)
+def test_icp_kernel_route_at_its_edges(N, M, device, kernel):
+    """``takes_kernel`` at the crossover and at the shared-memory edge, on
+    either device (the device handed in: no card needed): the exact search
+    on the card, staged whole up to 14,428 target points and in chunks
+    past them; "exact" on the card at any size, the band and voxel
+    routes never."""
+    assert kicp.takes_kernel(N, M, torch.device(device)) == kernel
+    assert kicp.takes_kernel(N, M, device) == kernel
+    exact = ticp._resolve_nn_method("auto", N, M, device) == "exact"
+    assert kernel == (device == "cuda" and exact)
+    assert kicp.takes_kernel(N, M, device, "exact") == (device == "cuda")
+    assert not kicp.takes_kernel(N, M, device, "band")
+    assert not kicp.takes_kernel(N, M, device, "voxel")
+    assert kicp.smem_bytes(M) == kicp.HEAD_BYTES + 16 * min(M, 14_428) <= kicp.SMEM_MAX
+
+
+def test_icp_kernel_constants_match_the_source():
+    """The wrapper's shared-memory rule reads the kernel's own numbers,
+    and stages chunks as the kernel does."""
+    assert kicp.HEAD_BYTES == cu_constant("icp", "SLR_ICP_HEAD_BYTES")
+    assert kicp.SMEM_MAX == cu_constant("icp", "SLR_ICP_SMEM_MAX")
+    source = (Path(__file__).resolve().parents[1] / "slr_torch" / "kernels" / "csrc"
+              / "icp.cu").read_text()
+    assert ("#define SLR_ICP_CHUNK ((SLR_ICP_SMEM_MAX - SLR_ICP_HEAD_BYTES) / 16)"
+            in source)
+    assert kicp.CHUNK == (kicp.SMEM_MAX - kicp.HEAD_BYTES) // 16 == 14_428
+
+
+def _fake_icp(mode, E=2, N=10, M=12, **change):
+    """Fake CUDA tensors (metadata only) of ``kicp.align``'s arguments."""
+    with mode:
+        kw = dict(src=torch.empty((E, N, 3), device="cuda:0"),
+                  tgt=torch.empty((E, M, 3), device="cuda:0"),
+                  tgt_n=torch.empty((E, M, 3), device="cuda:0"),
+                  src_valid=torch.empty((E, N), dtype=torch.bool, device="cuda:0"),
+                  R0=torch.empty((E, 3, 3), device="cuda:0"))
+        kw.update({k: v() for k, v in change.items()})
+    return kw
+
+
+@pytest.mark.parametrize("case", ["cpu", "dtype", "shape", "rank", "mask_dtype", "iters",
+                                  "no_target", "past_int32_offsets", "polish_grid_of",
+                                  "polish_mask"])
+def test_icp_kernel_wrapper_refuses_before_any_build(case, monkeypatch):
+    """The wrapper raises ``ValueError`` on CPU tensors, another dtype,
+    shape or rank, fewer than one iteration, an empty target (the plain
+    search raises on one too), a cloud past the kernel's int32 offsets, or
+    grids that no index maps to edges, before it builds or loads the
+    library."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def built():
+        raise AssertionError("the library was built")
+
+    monkeypatch.setattr(kicp, "library", built)
+    mode = FakeTensorMode()
+    cuda = "cuda:0"
+    calls = {
+        "cpu": lambda: kicp.align(torch.zeros(1, 4, 3), torch.zeros(1, 4, 3),
+                                  torch.zeros(1, 4, 3)),
+        "dtype": lambda: kicp.align(**_fake_icp(
+            mode, src=lambda: torch.empty((2, 10, 3), dtype=torch.float64, device=cuda))),
+        "shape": lambda: kicp.align(**_fake_icp(
+            mode, tgt_n=lambda: torch.empty((2, 12, 2), device=cuda))),
+        "rank": lambda: kicp.align(**_fake_icp(mode, src=lambda: torch.empty((10, 3),
+                                                                             device=cuda))),
+        "mask_dtype": lambda: kicp.align(**_fake_icp(
+            mode, src_valid=lambda: torch.empty((2, 10), dtype=torch.uint8, device=cuda))),
+        "iters": lambda: kicp.align(**_fake_icp(mode), iters=0),
+        "no_target": lambda: kicp.align(**_fake_icp(mode, M=0)),
+        "past_int32_offsets": lambda: kicp.align(**_fake_icp(mode, E=1,
+                                                             N=kicp.MAX_POINTS + 1)),
+        "polish_grid_of": lambda: kicp.polish(*_fake_grids(mode, E=2, G=3), None, None),
+        "polish_mask": lambda: kicp.polish(*_fake_grids(mode, E=2, G=2, mask=torch.float32),
+                                           None, None),
+    }
+    with mode, pytest.raises(ValueError):
+        calls[case]()
+
+
+def _fake_grids(mode, E, G, mask=torch.bool, H=6, W=8):
+    with mode:
+        return (torch.empty((E, 10, 3), device="cuda:0"), None,
+                torch.empty((G, H, W, 3), device="cuda:0"),
+                torch.empty((G, H, W), dtype=mask, device="cuda:0"),
+                torch.empty((G, H, W, 3), device="cuda:0"))
+
+
+def test_icp_on_cpu_tensors_launches_nothing():
+    """CPU tensors run the plain loops, bit for bit, and count no launch."""
+    counts = obs.snapshot().counts
+    before = [counts.get(f"launches.{k}", 0) for k in ("icp", "icp_polish")]
+    kw, _ = icp_case("cpu", 500, 4, masked=True)
+    got = ticp.icp_point_to_plane(**kw, iters=4)
+    want = ticp.icp_point_to_plane_reference(**kw, iters=4)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    args, _ = icp_grid_case("cpu")
+    got = tproj.icp_projective(*args, iters=4)
+    want = tproj.icp_projective_reference(*args, iters=4)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    counts = obs.snapshot().counts
+    assert [counts.get(f"launches.{k}", 0) for k in ("icp", "icp_polish")] == before
+
+
+def test_batched_fine_on_cpu_equals_the_per_edge_loops():
+    """``_batched_fine`` on CPU tensors (vmap over the plain loops, NN
+    route then the projective polish on each edge's grid) gives each edge
+    the result of the plain loops called on it alone."""
+    from slr_torch.config import RegistrationConfig
+    from slr_torch.pipeline import registerfuse as trf
+
+    (src, _, grid, mask, normals, cam), _ = icp_grid_case("cpu")
+    valid = mask.reshape(-1)
+    tgt_n = normals.reshape(-1, 3)[valid][::3]
+    E = 3
+    shifts = torch.tensor([[0.0, 0.0, 0.0], [0.3, -0.2, 0.1], [-0.4, 0.1, 0.5]])
+    # 0.05 mm of noise, so the Huber weights are not set by rounding
+    noise = np.random.default_rng(5).normal(0, 0.05, (E, *src.shape)).astype(np.float32)
+    srcs = src[None] + shifts[:, None] + torch.from_numpy(noise)
+    grids = (torch.stack([grid, grid + 0.2]), torch.stack([mask, mask]),
+             torch.stack([normals, normals]))
+    tgt_idx = torch.tensor([0, 1, 0])
+    tp = torch.stack([grids[0][g].reshape(-1, 3)[valid][::3] for g in tgt_idx.tolist()])
+    tn = tgt_n[None].expand(E, -1, -1)
+    rc = RegistrationConfig(icp_iters=6)
+    got = trf._batched_fine(srcs, tp, tn, rc, grids=grids, cam=cam, tgt_idx=tgt_idx)
+    ones = torch.ones(src.shape[0], dtype=torch.bool)
+    for e in range(E):
+        g = int(tgt_idx[e])
+        r = ticp.icp_point_to_plane_reference(srcs[e], tp[e], tn[e], iters=6,
+                                              max_corr_dist=rc.icp_max_corr_dist)
+        r = tproj.icp_projective_reference(srcs[e], ones, grids[0][g], grids[1][g],
+                                           grids[2][g], cam, R0=r.R, t0=r.t, iters=8,
+                                           max_corr_dist=rc.icp_max_corr_dist)
+        np.testing.assert_allclose(_np(got.R[e]), _np(r.R), atol=1e-6)
+        np.testing.assert_allclose(_np(got.t[e]), _np(r.t), atol=1e-5)
+        np.testing.assert_allclose(float(got.rms[e]), float(r.rms), rtol=1e-5)
+        np.testing.assert_allclose(float(got.inlier_frac[e]), float(r.inlier_frac), atol=1e-5)
 
 
 # ---------------------------------------------------------------- voxel hash
@@ -486,12 +615,8 @@ def test_voxel_hash_matches_reference(seed, bucket_cap):
 def test_icp_voxel_route_matches_reference():
     """The voxel route against JAX's, with a masked target and an initial
     pose: the same correspondences from the same buckets."""
-    src, tgt, n_tgt, R_true, t_true = _icp_case(2000, 9)
-    rng = np.random.default_rng(4)
-    tv = rng.random(len(tgt)) > 0.05
-    sv = rng.random(len(src)) > 0.05
-    R0 = _rot([0.005, -0.01, 0.01])
-    t0 = np.array([2.0, -1.0, 3.0], np.float32)
+    kw, (R_true, t_true) = icp_case("cpu", 2000, 9, masked=True)
+    src, tgt, n_tgt, sv, tv, R0, t0 = _icp_arrays(kw)
     rj = jicp.icp_point_to_plane(
         jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(n_tgt), jnp.asarray(sv),
         jnp.asarray(tv), jnp.asarray(R0), jnp.asarray(t0), iters=8,
@@ -509,8 +634,8 @@ def test_icp_voxel_route_matches_reference():
 def test_icp_auto_above_crossover_on_cpu_is_the_voxel_route():
     """Just above 24000^2 pairs "auto" on CPU tensors gives the voxel
     route's pose, bit for bit."""
-    src, tgt, n_tgt, _, _ = _icp_case(24_001, 10)
-    args = (_t(src), _t(tgt), _t(n_tgt))
+    kw, _ = icp_case("cpu", 24_001, 10)
+    args = (kw["src"], kw["tgt"], kw["tgt_normals"])
     ra = ticp.icp_point_to_plane(*args, iters=3, max_corr_dist=10.0)
     rv = ticp.icp_point_to_plane(*args, iters=3, max_corr_dist=10.0, nn_method="voxel")
     assert torch.equal(ra.R, rv.R) and torch.equal(ra.t, rv.t)
@@ -518,30 +643,12 @@ def test_icp_auto_above_crossover_on_cpu_is_the_voxel_route():
 
 def test_icp_projective_matches_reference():
     """Dense projective association on an organized grid, from a small
-    offset pose."""
-    H, W = 48, 64
-    cj = jcam.make_camera(fx=70.0, fy=70.0, cx=W / 2 - 0.5, cy=H / 2 - 0.5)
-    ct = tcam.make_camera(fx=70.0, fy=70.0, cx=W / 2 - 0.5, cy=H / 2 - 0.5)
-    v, u = np.meshgrid(np.arange(H, dtype=np.float32), np.arange(W, dtype=np.float32),
-                       indexing="ij")
-    x, y = (u - W / 2 + 0.5) / 70.0, (v - H / 2 + 0.5) / 70.0
-    z = 500 + 25 * np.sin(x * 4) * np.cos(y * 5) + 10 * x
-    grid = np.stack([x * z, y * z, z], -1).astype(np.float32)
-    mask = np.ones((H, W), bool)
-    mask[:3] = False
-    n_grid = np.asarray(jnormals.grid_normals(jnp.asarray(grid), jnp.asarray(mask)))
-    R_m, t_m = _rot([0.004, -0.006, 0.003]), np.array([1.0, -0.8, 1.5], np.float32)
-    rng = np.random.default_rng(0)
-    sel = rng.choice(H * W, 800, replace=False)
-    # source points: target surface points seen from the moved rig
-    src = ((grid.reshape(-1, 3)[sel] - t_m) @ R_m).astype(np.float32)
-    sv = mask.reshape(-1)[sel]
-    rj = jproj.icp_projective(jnp.asarray(src), jnp.asarray(sv), jnp.asarray(grid),
-                              jnp.asarray(mask), jnp.asarray(n_grid), cj, iters=10,
-                              max_corr_dist=10.0)
-    rt = tproj.icp_projective(_t(src), torch.from_numpy(sv), _t(grid),
-                              torch.from_numpy(mask), _t(n_grid), ct, iters=10,
-                              max_corr_dist=10.0)
+    offset pose: both packages on the same arrays."""
+    (src, sv, grid, mask, n_grid, ct), (R_m, _) = icp_grid_case("cpu")
+    cj = jcam.Camera(*(jnp.asarray(_np(x)) for x in ct))
+    rj = jproj.icp_projective(*(jnp.asarray(_np(x)) for x in (src, sv, grid, mask, n_grid)),
+                              cj, iters=10, max_corr_dist=10.0)
+    rt = tproj.icp_projective(src, sv, grid, mask, n_grid, ct, iters=10, max_corr_dist=10.0)
     np.testing.assert_allclose(_np(rt.R), np.asarray(rj.R), atol=1e-5)
     np.testing.assert_allclose(_np(rt.t), np.asarray(rj.t), atol=1e-3)
     np.testing.assert_allclose(float(rt.rms), float(rj.rms), rtol=1e-3, atol=1e-5)
@@ -555,9 +662,9 @@ def _feature_pair():
     2 q.t is exact in float32, so both packages see the same distances (at
     scan coordinates, |q| ~ 500, the self-distance of ``_knn`` is rounding
     noise of ~0.03 mm^2, which FPFH's 1/sqrt(d2) weights magnify)."""
-    src, n_src = _bumpy(700, 3, half=60.0, base=0.0)
+    src, n_src = bumpy_surface(700, 3, half=60.0)
     src = np.round(src * 16) / 16
-    R_true = _rot([0.05, 0.1, 0.4])
+    R_true = rotation([0.05, 0.1, 0.4])
     t_true = np.array([30.0, -25.0, 15.0], np.float32)
     tgt = (src @ R_true.T + t_true).astype(np.float32)
     return src, n_src, tgt, (n_src @ R_true.T).astype(np.float32), R_true, t_true
@@ -578,7 +685,7 @@ def test_knn_and_fpfh_match_reference():
 def test_kabsch_batched_matches_reference():
     rng = np.random.default_rng(6)
     P = rng.normal(size=(5, 7, 3)).astype(np.float32) * 30
-    R = np.stack([_rot(rng.normal(size=3)) for _ in range(5)])
+    R = np.stack([rotation(rng.normal(size=3)) for _ in range(5)])
     Q = (np.einsum("bij,bnj->bni", R, P) + rng.normal(size=(5, 1, 3)) * 10
          ).astype(np.float32)
     w = rng.random((5, 7)).astype(np.float32)
@@ -680,7 +787,7 @@ def test_pose_graph_matches_reference():
     S = 6
     R_true, t_true = [np.eye(3, dtype=np.float32)], [np.zeros(3, np.float32)]
     for _ in range(1, S):
-        Rr, tr = _rot(rng.uniform(-0.2, 0.2, 3)), rng.uniform(-20, 20, 3)
+        Rr, tr = rotation(rng.uniform(-0.2, 0.2, 3)), rng.uniform(-20, 20, 3)
         R_true.append((R_true[-1] @ Rr).astype(np.float32))
         t_true.append((R_true[-2] @ tr + t_true[-1]).astype(np.float32))
     edges = [(s, s + 1) for s in range(S - 1)] + [(S - 1, 0), (0, 2)]
@@ -688,7 +795,7 @@ def test_pose_graph_matches_reference():
     for i, j in edges:
         Rz = R_true[i].T @ R_true[j]
         tz = R_true[i].T @ (t_true[j] - t_true[i])
-        Zr.append((Rz @ _rot(rng.normal(0, 0.002, 3))).astype(np.float32))
+        Zr.append((Rz @ rotation(rng.normal(0, 0.002, 3))).astype(np.float32))
         Zt.append((tz + rng.normal(0, 0.05, 3)).astype(np.float32))
     R0, t0 = [np.eye(3, dtype=np.float32)], [np.zeros(3, np.float32)]
     for s in range(S - 1):
