@@ -578,8 +578,11 @@ def fused_decode_triangulate_hdr(
             stacks, cam, proj, cfg, dec, saturation, z_bounds,
             undistort_iters, bit_depth, row_offset, fuse)
     E, _, H, W = stacks.shape
-    return launch_fused_scan_hdr(stacks, scan_params(
-        cam, proj, cfg, dec, z_bounds, undistort_iters, H, W,
-        dtype=stacks.dtype, bit_depth=bit_depth, row_offset=row_offset,
-        exposures=E, saturation=saturation, fuse=fuse))
+    with obs.span("k2.params"):
+        params = scan_params(cam, proj, cfg, dec, z_bounds, undistort_iters, H, W,
+                             dtype=stacks.dtype, bit_depth=bit_depth,
+                             row_offset=row_offset, exposures=E,
+                             saturation=saturation, fuse=fuse)
+    with obs.span("k2.launch"):
+        return launch_fused_scan_hdr(stacks, params)
 

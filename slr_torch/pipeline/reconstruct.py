@@ -91,31 +91,45 @@ def reconstruct_scan(
                                 rec, _white_color(frames))
 
 
+def _bracket_colors(stacks, saturation: float):
+    """Per pixel the brightest white frame of the bracket below
+    ``saturation``, in [0, 1] (0 where every exposure saturates): the
+    exposures' white frames converted at once."""
+    whites = stacks[:, 0]
+    if whites.is_floating_point():
+        return torch.where(whites < saturation, whites, 0.0).amax(dim=0)
+    whites = whites.to(torch.float32) / float(torch.iinfo(whites.dtype).max)
+    # finite, so the product is the where's bits without a fill of its 0
+    return (whites * (whites < saturation)).amax(dim=0)
+
+
 def reconstruct_scan_hdr(
     stacks, cam: Camera, proj: Camera, cfg: PatternConfig,
     dec: DecodeConfig = DecodeConfig(),
     rec: ReconstructConfig = ReconstructConfig(),
     saturation: float = 0.98,
 ) -> ScanCloud:
-    """Exposure-bracketed reconstruction of (E, F, H, W) stacks.
+    """Exposure-bracketed reconstruction of (E, F, H, W) stacks, one
+    ``scan`` root span.
 
     gray_phase coding with inverse patterns and phase steps takes K2: one
     launch reads the bracket, fuses it per pixel and triangulates. Every
     other coding is decoded by ``decode_multi_exposure`` (per pixel the best
     usable exposure) and triangulated unfused. Colours come from the
-    brightest unsaturated white frame of the bracket.
+    brightest unsaturated white frame of the bracket (``hdr.colors``).
     """
-    whites = torch.stack([_white_color(s) for s in stacks])      # (E, H, W)
-    colors = torch.where(whites < saturation, whites, 0.0).amax(dim=0)
-    if (cfg.coding == "gray_phase" and cfg.use_inverse
-            and cfg.phase_steps > 0):
-        out = fused_decode_triangulate_hdr(
-            stacks, cam, proj, cfg, dec, saturation=saturation,
-            z_bounds=(rec.min_depth, rec.max_depth))
-        return ScanCloud(points=out.points.movedim(0, -1), mask=out.mask > 0.5,
-                         colors=colors, quality=out.quality, x_p=out.x_p)
-    res = decode_multi_exposure(stacks, cfg, dec, saturation=saturation)
-    return _triangulate_decoded(res, cam, proj, rec, colors)
+    with obs.span("scan"):
+        with obs.span("hdr.colors"):
+            colors = _bracket_colors(stacks, saturation)
+        if (cfg.coding == "gray_phase" and cfg.use_inverse
+                and cfg.phase_steps > 0):
+            out = fused_decode_triangulate_hdr(
+                stacks, cam, proj, cfg, dec, saturation=saturation,
+                z_bounds=(rec.min_depth, rec.max_depth))
+            return ScanCloud(points=out.points.movedim(0, -1), mask=out.mask > 0.5,
+                             colors=colors, quality=out.quality, x_p=out.x_p)
+        res = decode_multi_exposure(stacks, cfg, dec, saturation=saturation)
+        return _triangulate_decoded(res, cam, proj, rec, colors)
 
 
 def spatial_repair(x_p, quality, mask, pitch: float, spatial_iters: int,
@@ -185,6 +199,20 @@ def reconstruct_dense(
                          quality=out.quality, x_p=x_p)
 
 
+def is_bracket(frames, spatial_iters: int = 0) -> bool:
+    """Whether ``frames`` is an (E, F, H, W) exposure bracket, which takes
+    ``reconstruct_scan_hdr``, and not an (F, H, W) stack; the one rule of
+    the stream, ``DenseReconstructor`` and ``Session``. No bracket route
+    has the spatial repair: a bracket with ``spatial_iters`` > 0 raises
+    ``ValueError``."""
+    if frames.dim() != 4:
+        return False
+    if spatial_iters:
+        raise ValueError("an exposure bracket has no spatial repair: "
+                         "spatial_iters must be 0")
+    return True
+
+
 def accumulate_by_projector(cloud: ScanCloud, proj_width: int):
     """Projector-pixel accumulation.
 
@@ -212,9 +240,10 @@ def accumulate_by_projector(cloud: ScanCloud, proj_width: int):
 
 class DenseReconstructor(nn.Module):
     """``reconstruct_dense`` with the calibration held as buffers; an
-    (E, F, H, W) exposure bracket goes to ``reconstruct_scan_hdr``.
-    ``spatial_iters`` > 0 adds the spatial repair to single stacks, in the
-    mode ``dec.spatial_unwrap_mode``."""
+    (E, F, H, W) exposure bracket (``is_bracket``) goes to
+    ``reconstruct_scan_hdr``. ``spatial_iters`` > 0 adds the spatial repair
+    to single stacks, in the mode ``dec.spatial_unwrap_mode``, and is
+    refused on a bracket."""
 
     def __init__(self, cam: Camera, proj: Camera, cfg: PatternConfig,
                  dec: DecodeConfig = DecodeConfig(),
@@ -239,7 +268,7 @@ class DenseReconstructor(nn.Module):
         return self._camera("proj")
 
     def forward(self, frames) -> ScanCloud:
-        if frames.dim() == 4:
+        if is_bracket(frames, self.spatial_iters):
             return reconstruct_scan_hdr(frames, self.cam, self.proj, self.cfg,
                                         self.dec, self.rec)
         return reconstruct_dense(frames, self.cam, self.proj, self.cfg,

@@ -33,8 +33,8 @@ from slr_torch.io import (
     load_calibration, load_stage, peek_stage, save_calibration, save_stage, write_ply)
 from slr_torch.observability import log_event
 from slr_torch.pipeline.reconstruct import (
-    ScanCloud, _white_color, accumulate_by_projector, reconstruct_dense, reconstruct_scan,
-    reconstruct_scan_hdr)
+    ScanCloud, _white_color, accumulate_by_projector, is_bracket, reconstruct_dense,
+    reconstruct_scan, reconstruct_scan_hdr)
 from slr_torch.pipeline.checks import validate_cloud
 from slr_torch.pipeline.registerfuse import (
     RegisteredScans, ba_refine, fuse_scans, register_scans, register_scans_batched)
@@ -157,8 +157,9 @@ class Session:
         and persists the accumulated grid beside the cloud.
 
         Route precedence (first match wins):
-          1. HDR bracket (frames.ndim == 4) -> reconstruct_scan_hdr (K2).
-             A bracket with a second camera raises ``ValueError``.
+          1. HDR bracket (``is_bracket``) -> reconstruct_scan_hdr (K2).
+             A bracket with a second camera, or with ``spatial_iters``,
+             raises ``ValueError``.
           2. two-camera (frames2 + cam2) -> reconstruct_two_camera.
           3. a mesh with pixel tiles that divide the rows ->
              sharded_reconstruct (K1 a rank at its row offset; with
@@ -171,12 +172,13 @@ class Session:
         frames, frames2 = self._load_scan_pair(idx)
         p = self.config.pattern
         mesh = self.mesh
-        if frames.dim() == 4 and frames2 is not None:
+        bracket = is_bracket(frames, spatial_iters)
+        if bracket and frames2 is not None:
             raise ValueError(
                 "scan %d has both an exposure bracket and a second-camera "
                 "stack: HDR + two-camera is unsupported (capture the "
                 "bracket per camera as separate scans instead)" % idx)
-        if frames.dim() == 4:
+        if bracket:
             cloud = reconstruct_scan_hdr(
                 frames, self.cam, self.proj, p, self.config.decode,
                 self.config.reconstruct)

@@ -1120,6 +1120,79 @@ def test_5mp_merge_takes_k6_and_waits_only_in_its_waits(cuda, monkeypatch):
         2 * 4 * 9 * (H * (W - 1) + 1024 * (H - 1))
 
 
+def test_hdr_stream_takes_k2_and_waits_only_in_its_waits(cuda, monkeypatch):
+    """Two 1280x1024 three-exposure uint8 brackets (the benchmark's
+    scan_c3_hdr3_u8: config 3's rig and patterns, an 8-cell 0.035 / 0.75
+    checkerboard, gains 1, 3.2 and 10, noise 0.003 a capture) from pinned
+    memory through ``reconstruct_stream``: K2 once a scan and no K1; one
+    ``scan`` root a bracket holding ``hdr.colors``, K2's parameter block
+    with its one read, and K2's launch; no host sync outside the ``wait``
+    spans (torch's sync debug mode raises on one); each cloud within K2's
+    plain version's tolerances, its colours the float formula's bits, as
+    are the colours of every uint8 and uint16 count."""
+    from slr_torch.pipeline import reconstruct_stream
+    from slr_torch.pipeline import reconstruct as trec
+
+    W, H = 1280, 1024
+    cfg = PatternConfig(proj_width=1024, proj_height=768, gray_bits=7, phase_steps=4)
+    cam, proj = default_rig(cam_w=W, cam_h=H, device=cuda)
+    scan = render_scan(cam, proj, bumps_depth(H, W, base=480.0, amp=30.0, device=cuda), cfg,
+                       albedo=checker_albedo(H, W, cells=8, lo=0.035, hi=0.75, device=cuda))
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    brackets = [torch.stack([quantize_frames(torch.clamp(
+        scan.frames * g + 0.003 * torch.randn(scan.frames.shape, generator=gen, device=cuda),
+        0.0, 1.0)) for g in (1.0, 3.2, 10.0)]).cpu().pin_memory() for _ in range(2)]
+    rec = ReconstructConfig()
+    list(reconstruct_stream(brackets, cam, proj, cfg, rec=rec))      # builds and loads
+    torch.cuda.synchronize()
+
+    def unguarded(self):
+        torch.cuda.set_sync_debug_mode("default")
+        return obs.span.__enter__(self)
+
+    def guarded(self, *exc):
+        torch.cuda.set_sync_debug_mode("error")
+        return obs.span.__exit__(self, *exc)
+
+    monkeypatch.setattr(obs.wait, "__enter__", unguarded)
+    monkeypatch.setattr(obs.wait, "__exit__", guarded)
+    before = launches("k1", "k2")
+    mark = max(s.id for s in obs.snapshot().spans)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        clouds = list(reconstruct_stream(brackets, cam, proj, cfg, rec=rec))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert [x - b for x, b in zip(launches("k1", "k2"), before)] == [0, 2]
+    spans = sorted((s for s in obs.snapshot().spans if s.id > mark), key=lambda s: s.id)
+    names = {s.id: s.name for s in spans}
+    roots = [s for s in spans if s.parent == 0 and s.name == "scan"]
+    assert len(roots) == 2
+    for root in roots:
+        assert [s.name for s in spans if s.parent == root.id] == [
+            "hdr.colors", "k2.params", "k2.launch"]
+    assert [(s.name, names[s.parent]) for s in spans if s.wait] == [
+        ("params.read", "k2.params")] * 2
+    for cloud, bracket in zip(clouds, brackets):
+        b = bracket.to(cuda)
+        p = fs.fused_decode_triangulate_hdr_reference(b, cam, proj, cfg, DecodeConfig(),
+                                                      z_bounds=(rec.min_depth, rec.max_depth))
+        k = fs.FusedScanOut(points=cloud.points.movedim(-1, 0), mask=cloud.mask.float(),
+                            quality=cloud.quality, x_p=cloud.x_p, y_p=torch.zeros_like(cloud.x_p))
+        _agrees(k, p, rows=False)
+        w = b[:, 0].to(torch.float32) / 255.0
+        assert torch.equal(cloud.colors, torch.where(w < 0.98, w, 0.0).amax(dim=0))
+    for dtype, n in ((torch.uint8, 256), (torch.uint16, 65536)):
+        c = torch.arange(n, device=cuda)
+        stacks = torch.stack([c, (c * 7 + 3) % n, c.flip(0)])[:, None, None].to(
+            torch.int32).to(dtype)
+        for sat in (0.98, 0.5, 1.0):
+            w = torch.stack([trec._white_color(s) for s in stacks])
+            assert torch.equal(trec._bracket_colors(stacks, sat),
+                               torch.where(w < sat, w, 0.0).amax(dim=0)), (dtype, sat)
+
+
 def test_lm_solve_reads_nothing_on_the_host(cuda):
     """The masked LM loop: every step on the card, no host synchronisation
     in the whole solve (torch's sync debug mode raises on one)."""
